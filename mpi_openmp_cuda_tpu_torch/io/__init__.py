@@ -1,0 +1,1 @@
+"""io subpackage of mpi_openmp_cuda_tpu_torch."""

@@ -1,0 +1,1 @@
+"""ops subpackage of mpi_openmp_cuda_tpu_torch."""

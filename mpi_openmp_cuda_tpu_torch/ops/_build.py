@@ -1,0 +1,107 @@
+"""Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
+use, on the machine with the card, into its own shared library under
+``build/torch_kernels/`` beside the package:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
+         -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
+
+The file name carries a hash of the sources (the ``.cu`` file and the
+shared ``.cuh`` headers) and flags, so an edited source is rebuilt and a
+stale library is never loaded.  ``build()`` starts one ``nvcc`` per
+source, all at once, and returns each compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills).  Nothing here runs at import: the CPU
+tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+        "kernels are compiled at first use"
+    )
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together; returns ``{name: ptxas report}`` for
+    the kernels compiled by this call.  Raises ``RuntimeError`` with the
+    compiler's output when one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name) for name in names}
+    procs = {}
+    for name, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp,
+        )
+    failed = []
+    reports = {}
+    for name, (proc, tmp) in procs.items():
+        report, _ = proc.communicate()
+        reports[name] = report
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{report}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib

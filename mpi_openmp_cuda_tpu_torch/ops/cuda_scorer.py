@@ -1,0 +1,305 @@
+"""The two Hopper scorer kernels, their plain PyTorch versions, and the
+chunked scoring entry (counterpart of ``mpi_openmp_cuda_tpu/ops/
+pallas_scorer.py``).
+
+Both kernels compute, for each padded (Seq1, Seq2) pair, one int32 row
+``[score, n, k, eq]``: the best candidate over offsets ``n < len1 - len2``
+and hyphen positions ``k`` (k = 0: hyphen after the end) with the
+reference's first-hit tie-break (offset-major, k ascending with k = 0
+first), and ``eq``, the k = 0 score at n = 0.  Pairs without a valid
+offset carry ``(INT32_MIN, 0, 0)``.  The O(B) epilogue
+(:func:`finish_rows`) then applies the equal-length and unsearchable
+rules, as ``_pallas_rows`` does.
+
+* :func:`fused_scorer` — ``csrc/fused_scorer.cu``, for every bucket;
+* :func:`packed_scorer` — ``csrc/packed_scorer.cu``, for L2P = 128
+  buckets whose every len2 fits a packing class ``l2s``.
+
+Each wrapper runs its kernel on CUDA tensors and its plain version
+(:func:`fused_scorer_plain`, :func:`packed_scorer_plain`) on CPU tensors
+only; on any other device it raises.  ``launch_counts`` counts the kernel
+launches, so a run can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..utils.constants import ALPHABET_SIZE, INT32_MIN
+from . import _build
+
+# Kernel launches per wrapper: incremented only where a kernel is launched.
+launch_counts = {"fused_scorer": 0, "packed_scorer": 0}
+
+TILE = 128  # offsets per kernel block (one tile); L1P is a multiple of it
+PACK_CLASSES = (8, 16, 32, 64)
+
+# Max live int32 elements of one [pairs, offsets, chars] slab in the plain
+# versions (64 MiB); pairs are scored in chunks below it.
+PLAIN_CHUNK_ELEMS = 16 * 1024 * 1024
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+@dataclass(frozen=True)
+class ScorerState:
+    """The operands of one padded bucket, as int32 tensors on one device.
+
+    ``seq1ext`` [L1P + L2P + 1] Seq1 codes, zero-padded; ``rows`` [B, L2P]
+    Seq2 codes, zero-padded; ``lens`` [B]; ``val`` [27, 27] value table
+    with row and column 0 (the pad code) zeroed, so padded positions add
+    nothing and no kernel needs a per-char mask.  ``max_len2`` is the
+    longest row, known on the host (the packed kernel's class check)."""
+
+    seq1ext: torch.Tensor
+    len1: int
+    rows: torch.Tensor
+    lens: torch.Tensor
+    val: torch.Tensor
+    max_len2: int
+
+    @property
+    def l1p(self) -> int:
+        return self.seq1ext.shape[0] - self.rows.shape[1] - 1
+
+
+def kernel_table(val_flat) -> np.ndarray:
+    """[27, 27] int32 copy of the [729] value table with row and column 0
+    (the pad code) zeroed, so padded positions add nothing."""
+    val = np.array(val_flat, dtype=np.int32).reshape(ALPHABET_SIZE, ALPHABET_SIZE)
+    val[0, :] = 0
+    val[:, 0] = 0
+    return val
+
+
+def state_from_numpy(seq1ext, len1, rows, lens, val_flat, device) -> ScorerState:
+    """The port's tensors from the JAX package's numpy operands
+    (``dispatch.PaddedBatch`` fields plus ``value_table(w).reshape(-1)``),
+    so both packages can be fed the same bytes."""
+    seq1ext = np.asarray(seq1ext, dtype=np.int32)
+    rows = np.asarray(rows, dtype=np.int32)
+    lens = np.asarray(lens, dtype=np.int32)
+    val = kernel_table(val_flat)
+    b, l2p = rows.shape
+    l1p = seq1ext.shape[0] - l2p - 1
+    if l1p <= 0 or l1p % TILE or lens.shape != (b,):
+        raise ValueError(
+            f"bad operand shapes: seq1ext {seq1ext.shape}, rows {rows.shape}, "
+            f"lens {lens.shape} (need L1P = len(seq1ext) - L2P - 1 > 0, a "
+            f"multiple of {TILE})"
+        )
+    if not 0 <= len1 <= l1p or (b and not (0 <= lens.min() and lens.max() <= l2p)):
+        raise ValueError("lengths outside the padded shapes")
+    for name, codes in (("seq1ext", seq1ext), ("rows", rows)):
+        if codes.size and (codes.min() < 0 or codes.max() >= ALPHABET_SIZE):
+            raise ValueError(f"{name} holds codes outside 0..{ALPHABET_SIZE - 1}")
+    dev = torch.device(device)
+    return ScorerState(
+        seq1ext=torch.from_numpy(seq1ext).to(dev),
+        len1=int(len1),
+        rows=torch.from_numpy(rows).to(dev),
+        lens=torch.from_numpy(lens).to(dev),
+        val=torch.from_numpy(val).to(dev),
+        max_len2=int(lens.max()) if b else 0,
+    )
+
+
+# ---- plain versions ---------------------------------------------------------
+
+
+def _plain_rows(seq1ext, len1, rows, lens, val, noff) -> torch.Tensor:
+    """[B, 4] int32 rows over offsets ``n < noff`` and the chars of
+    ``rows``: an int32 gather + cumsum + masked first-hit argmax over
+    [B, noff, L] slabs (``mpi_openmp_cuda_tpu/ops/xla_scorer.py::
+    _score_pair``), in chunks of pairs to bound memory."""
+    b, l2 = rows.shape
+    dev = rows.device
+    n = torch.arange(noff, device=dev)[:, None]
+    i = torch.arange(l2, device=dev)[None, :]
+    win0 = seq1ext[(n + i).reshape(-1)].reshape(noff, l2).long()
+    win1 = seq1ext[(n + i + 1).reshape(-1)].reshape(noff, l2).long()
+    k = torch.arange(l2, device=dev)[None, None, :]
+    out = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    cb = max(1, PLAIN_CHUNK_ELEMS // max(noff * l2, 1))
+    for s in range(0, b, cb):
+        r = rows[s : s + cb].long()[:, None, :]  # [cb, 1, L]
+        ln = lens[s : s + cb][:, None, None]
+        d0 = val[r, win0[None]]  # [cb, noff, L]
+        d1 = val[r, win1[None]]
+        g = torch.cumsum(d0 - d1, dim=2, dtype=torch.int32)  # G[kappa = j + 1]
+        t1 = d1.sum(dim=2, keepdim=True, dtype=torch.int32)
+        gend = g[:, :, -1:]  # pad chars add 0, so this is G[len2]
+        # Column j holds k = j: k = 0 -> t1 + G[len2]; k >= 1 -> t1 + G[k].
+        scores = torch.cat([t1 + gend, t1 + g[:, :, :-1]], dim=2)
+        valid = (n[None] < len1 - ln) & ((k == 0) | (k < ln))
+        flat = torch.where(valid, scores, INT32_MIN).reshape(scores.shape[0], -1)
+        best = torch.argmax(flat, dim=1)  # first max: offset-major, k = 0 first
+        out[s : s + cb, 0] = flat.gather(1, best[:, None])[:, 0]
+        out[s : s + cb, 1] = (best // l2).int()
+        out[s : s + cb, 2] = (best % l2).int()
+        out[s : s + cb, 3] = (t1 + gend)[:, 0, 0]
+    # All-masked pairs: argmax lands on index 0 -> (INT32_MIN, 0, 0).
+    return out
+
+
+def fused_scorer_plain(state: ScorerState) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/fused_scorer.cu``: [B, 4] int32."""
+    return _plain_rows(
+        state.seq1ext, state.len1, state.rows, state.lens, state.val, state.l1p
+    )
+
+
+def packed_scorer_plain(state: ScorerState, l2s: int) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/packed_scorer.cu``: [B, 4] int32 over
+    the first ``l2s`` chars of each row (every len2 <= l2s)."""
+    _check_pack(state, l2s)
+    return _plain_rows(
+        state.seq1ext, state.len1, state.rows[:, :l2s], state.lens, state.val,
+        state.l1p,
+    )
+
+
+# ---- kernel wrappers --------------------------------------------------------
+
+
+def _check_pack(state: ScorerState, l2s: int) -> None:
+    if l2s not in PACK_CLASSES or state.rows.shape[1] < l2s:
+        raise ValueError(f"bad packing class l2s={l2s} for L2P={state.rows.shape[1]}")
+    if state.max_len2 > l2s:
+        raise ValueError(
+            f"packing class l2s={l2s} cannot hold a row of length {state.max_len2}"
+        )
+
+
+def _device_of(state: ScorerState) -> str:
+    devs = {t.device for t in (state.seq1ext, state.rows, state.lens, state.val)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
+    kind = devs.pop().type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"scorer operands must be on cpu or cuda, got {kind}")
+    for t in (state.seq1ext, state.rows, state.lens, state.val):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("scorer operands must be contiguous int32 tensors")
+    return kind
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+_POINTER, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # seq1ext, len1, rows, lens, batch, l2p, ntiles, val, partial, out, stream
+    "fused_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
+                     _POINTER, _POINTER, _POINTER, _POINTER),
+    # seq1ext, len1, rows, lens, batch, l2p, l2s, ntiles, val, partial, out,
+    # stream
+    "packed_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
+                      _INT, _POINTER, _POINTER, _POINTER, _POINTER),
+}
+
+
+@functools.cache
+def _entry(name: str):
+    """The C entry ``<name>_launch`` of ``csrc/<name>.cu``, typed."""
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(_ARGTYPES[name])
+    return fn
+
+
+def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` on the state's CUDA device: [B, 4] rows.
+    ``extra`` are the kernel's own int arguments after ``l2p``."""
+    b, l2p = state.rows.shape
+    ntiles = state.l1p // TILE
+    dev = state.rows.device
+    out = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    partial = torch.empty((b, ntiles, 3), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry(name)(
+            _ptr(state.seq1ext), state.len1, _ptr(state.rows), _ptr(state.lens),
+            b, l2p, *extra, ntiles, _ptr(state.val), _ptr(partial), _ptr(out),
+            _stream(),
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+    return out
+
+
+def fused_scorer(state: ScorerState) -> torch.Tensor:
+    """[B, 4] int32 rows from ``csrc/fused_scorer.cu`` (CUDA tensors) or
+    :func:`fused_scorer_plain` (CPU tensors)."""
+    if _device_of(state) == "cpu":
+        return fused_scorer_plain(state)
+    return _launch("fused_scorer", state)
+
+
+def packed_scorer(state: ScorerState, l2s: int) -> torch.Tensor:
+    """[B, 4] int32 rows from ``csrc/packed_scorer.cu`` (CUDA tensors) or
+    :func:`packed_scorer_plain` (CPU tensors); every len2 <= ``l2s``."""
+    if _device_of(state) == "cpu":
+        return packed_scorer_plain(state, l2s)
+    _check_pack(state, l2s)
+    return _launch("packed_scorer", state, l2s)
+
+
+# ---- epilogue and chunked entry ---------------------------------------------
+
+
+def finish_rows(raw: torch.Tensor, lens: torch.Tensor, len1: int) -> torch.Tensor:
+    """O(B) epilogue on [B, 4] kernel rows -> [B, 3] (score, n, k): the
+    positional ``eq`` score when len2 == len1, ``(INT32_MIN, 0, 0)`` when
+    len2 > len1 or len2 == 0 (``_pallas_rows`` in the JAX package)."""
+    searchable = (lens < len1) & (lens > 0)
+    equal = lens == len1
+    score = torch.where(equal, raw[:, 3], raw[:, 0])
+    score = torch.where(searchable | equal, score, INT32_MIN)
+    zero = torch.zeros_like(raw[:, 1])
+    out_n = torch.where(searchable, raw[:, 1], zero)
+    out_k = torch.where(searchable, raw[:, 2], zero)
+    return torch.stack([score, out_n, out_k], dim=1)
+
+
+def score_rows(state: ScorerState, l2s: int | None = None) -> torch.Tensor:
+    """[B, 3] int32 rows of one padded bucket: the packed kernel when the
+    dispatch chose a class ``l2s``, else the fused kernel."""
+    raw = fused_scorer(state) if l2s is None else packed_scorer(state, l2s)
+    return finish_rows(raw, state.lens, state.len1)
+
+
+def score_chunks_cuda_body(
+    seq1ext, len1, seq2_chunks, len2_chunks, val_flat, *, l2s=None, max_len2=None
+):
+    """Chunked-batch entry, the contract of ``score_chunks_pallas_body``:
+    int32 tensors ``[NC, CB, L2P]`` rows and ``[NC, CB]`` lens on one
+    device -> ``[NC, CB, 3]`` int32.  The chunks are scored in one launch.
+    ``val_flat`` is the [729] spec value table (pad row/col zeroed here);
+    ``max_len2`` (host int) defaults to ``L2P``."""
+    nc, cb, l2p = seq2_chunks.shape
+    val = val_flat.reshape(ALPHABET_SIZE, ALPHABET_SIZE).clone()
+    val[0, :] = 0
+    val[:, 0] = 0
+    state = ScorerState(
+        seq1ext=seq1ext.contiguous(),
+        len1=int(len1),
+        rows=seq2_chunks.reshape(nc * cb, l2p).contiguous(),
+        lens=len2_chunks.reshape(nc * cb).contiguous(),
+        val=val.contiguous(),
+        max_len2=l2p if max_len2 is None else int(max_len2),
+    )
+    return score_rows(state, l2s).reshape(nc, cb, 3)

@@ -1,0 +1,1 @@
+"""utils subpackage of mpi_openmp_cuda_tpu_torch."""

@@ -225,6 +225,10 @@ def pytest_configure(config):
         "chaos_kill: SIGKILL-mid-batch kill-resume subprocess tests "
         "(slow-marked too); selected by `make chaos-kill`",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one",
+    )
 
 
 def pytest_addoption(parser):
