@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure (no phase is caught and swallowed):
 
-1. build both kernels from ``mpi_openmp_cuda_tpu_torch/csrc/`` (one nvcc per
-   source, started together) and print each one's ptxas report, then the
-   card's name and power limit;
+1. build the four kernels from ``mpi_openmp_cuda_tpu_torch/csrc/`` (one
+   nvcc per source, started together) and print each one's ptxas report,
+   then the card's name and power limit;
 2. every launch the main path makes for the max-size workload (Seq1 3000,
    64 Seq2 of 1200..1999, seed 7; ``dispatch.bucket_launches``, the
    scorer's own bucketing, padding and kernel choice) against its plain
@@ -19,14 +19,44 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    one batch per class 8/16/32, exact equality;
 4. the main path: launch counts set to 0, then the batch CLI
    (``io.cli.run``) on every ``tests/fixtures/*.txt`` (stdout byte-identical
-   to its ``.out``) and on the max-size, input4-class and 1024-short-row
-   inputs (checked against the oracle); both kernels must have launched;
+   to its ``.out``) and on the max-size, input4-class, 1024-short-row and
+   input3-class (the bench's workload, its own weights) inputs (checked
+   against the oracle); both kernels must have launched;
 5. each launch of that run, rebuilt by ``bucket_launches`` from the same
    parsed inputs (their count must equal the launch counts): kernel ==
    plain on the card, then kernel time (CUDA events over back-to-back
    launches), plain-version time and bound, summed per input and per
-   kernel into the kernels JSON line; warm CLI walls, the device's busy
-   share of a max-size CLI run and a cProfile of its host side.
+   kernel into the kernels JSON line; the bench's one padded launch of the
+   input3-class batch (``bench.single_program``) == plain; warm CLI walls,
+   the device's busy share of a max-size CLI run and a cProfile of its
+   host side;
+6. the issue-rate probe (``csrc/issue_probe.cu``): its SASS holds the
+   unrolled chains (no op folded away); for each op, kernel == plain
+   exactly for a 32-step chain at one full wave of blocks and for one
+   block at the rate's long chain (plain on the CPU; ``fma``'s plain
+   version rounds once, as ``fmaf`` does, and every fma value must move by
+   at least one ulp per step), kernel and plain timed at 4096 steps, then
+   the op's rate beside its data-sheet peak (0 or above 105 % fails);
+7. the stage ablation (``csrc/ablate_scorer.cu``, driven through
+   ``scripts/torch_kernel_ablate.py``) on the max-size launches:
+   ``base``, ``nostage`` and ``noskip`` == ``fused_scorer`` exactly,
+   ``base`` within 5 % of ``fused_scorer``'s time (interleaved fused,
+   base, base, fused), then the per-stage table with launch counts set to
+   0 before it;
+8. the bench path: ``python -m mpi_openmp_cuda_tpu_torch.bench`` on the
+   input3-class workload in a subprocess; its one stdout line must
+   validate as a bench run report and carry the device, the three probe
+   rates, ``floor_us`` and launch counts of the fused scorer and the
+   probe > 0 (the bench resets its counts before its first run).
+
+In the kernels JSON line, ``launches`` is each kernel's count from one run
+of its path, with the counts set to 0 just before it: the CLI run of
+phase 4 for the two scorers (``ms``, ``plain_ms`` and ``bound_ms`` are
+summed over those same launches, rebuilt in phase 5), the bench run of
+phase 8 for the probe (its times: one full-wave launch per op at 4096
+steps), and the per-stage table of phase 7 for the ablation kernel (its
+times: ``base`` over the max-size launches).  The bench's own count per
+scoring run is its record's ``launches``.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -48,24 +78,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PKG = "mpi_openmp_cuda_tpu_torch"
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; 67 TFLOP/s
-# fp32 off the tensor cores = 132 SMs x 128 fp32 lanes x 2 (fma) x
-# 1.98 GHz.  An SM issues int32 on 64 lanes, and its shared memory
-# (LSU/MIO pipe, beside the int pipe) serves 32 words per clock.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
-# Per needed (offset, char) cell: about six int32 ops (t1 add, delta sub,
-# G add, compare, select, loop step) and two value-table lookups.
-INT_OPS_PER_CELL = 6
-LOOKUPS_PER_CELL = 2
-# Cycles of torch.cuda._sleep (about 10 ms) that keep the card busy while
-# the host queues a timed loop, so the loop times the device, not the
-# host's launch rate.
-SLEEP_CYCLES = 20_000_000
 WEIGHTS = [10, 2, 3, 4]
 # max |v| = 127, 128 and 3000: the TPU kernel's three feed regimes.
 REGIME_WEIGHTS = [[127, 2, 3, 4], [128, 2, 3, 4], [3000, 7, 1, 2]]
+# Issue-rate probe: steps per chain of the full-wave kernel == plain check
+# and of the kernel-vs-plain timing.
+PROBE_CHECK_ITERS = 32
+PROBE_TIME_ITERS = 4096
+# The ablation's base must time within this share of fused_scorer.
+ABLATE_BASE_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -74,15 +95,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def max_size_problem(np):
-    """bench_table.synthetic_max: Seq1 3000, 64 Seq2 of 1200..1999, seed 7."""
-    rng = np.random.default_rng(7)
-    seq1 = rng.integers(1, 27, size=3000)
-    lens = rng.integers(1200, 2000, size=64)
-    seqs = [rng.integers(1, 27, size=int(n)) for n in lens]
-    return seq1.astype(np.int8), [s.astype(np.int8) for s in seqs]
 
 
 def input4_problem(np):
@@ -102,15 +114,6 @@ def input4_problem(np):
     return s1.astype(np.int8), [s.astype(np.int8) for s in seqs]
 
 
-def short_problem(np, len1, count, lo, hi, seed):
-    rng = np.random.default_rng(seed)
-    s1 = rng.integers(1, 27, size=len1).astype(np.int8)
-    return s1, [
-        rng.integers(1, 27, size=int(n)).astype(np.int8)
-        for n in rng.integers(lo, hi + 1, size=count)
-    ]
-
-
 def as_text(np, seq1, seqs, weights) -> str:
     def dec(c):
         return bytes((np.asarray(c) + 64).astype(np.uint8)).decode()
@@ -119,57 +122,6 @@ def as_text(np, seq1, seqs, weights) -> str:
         [" ".join(map(str, weights)), dec(seq1), str(len(seqs))]
         + [dec(s) for s in seqs]
     ) + "\n"
-
-
-def needed_cells(len1, lens) -> int:
-    """(offset, char) cells the data needs: valid offsets x chars."""
-    return sum(max(len1 - int(n), 0) * int(n) for n in lens if 0 < int(n) < len1)
-
-
-def bound_ms(state) -> tuple[float, str, str]:
-    """(least time in ms, "bytes" or "operations", the binding term): the
-    larger of the bytes (each input read once, the [B, 4] output written
-    once) over HBM, the int32 ops over the int issue rate and the table
-    lookups over the shared-memory rate, for the cells this data needs."""
-    nbytes = 4 * (
-        state.seq1ext.numel() + state.rows.numel() + state.lens.numel()
-        + state.val.numel() + 4 * state.rows.shape[0]
-    )
-    cells = needed_cells(state.len1, state.lens.tolist())
-    terms = {
-        "hbm bytes": nbytes / HBM_BYTES_PER_S,
-        "int32 issue": INT_OPS_PER_CELL * cells / INT32_OPS_PER_S,
-        "smem lookups": LOOKUPS_PER_CELL * cells / SMEM_WORDS_PER_S,
-    }
-    term = max(terms, key=terms.get)
-    return terms[term] * 1e3, "bytes" if term == "hbm bytes" else "operations", term
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    """Device ms per call of ``fn``: one warm call, then ``reps`` calls
-    queued behind a sleeping kernel and timed by CUDA events, so the calls
-    run back to back on the card whatever the host's launch rate."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def card_line() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi exit {smi.returncode}: {smi.stderr.strip()}")
-    return smi.stdout.strip().splitlines()[0]
 
 
 def device_us(torch, fn) -> tuple[dict[str, float], float, float]:
@@ -228,22 +180,28 @@ def main() -> int:
         print(f"chip_smoke: {PKG}/ not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    from mpi_openmp_cuda_tpu_torch.bench import single_program
     from mpi_openmp_cuda_tpu_torch.io import cli
     from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
-    from mpi_openmp_cuda_tpu_torch.ops import _build
+    from mpi_openmp_cuda_tpu_torch.models.workload import (
+        MAX_SIZE, input3_class_problem, synthetic_codes)
+    from mpi_openmp_cuda_tpu_torch.ops import _build, probe
     from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
+    from mpi_openmp_cuda_tpu_torch.ops.costs import bound_ms
     from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches, pad_problem
     from mpi_openmp_cuda_tpu_torch.ops.oracle import prefix_best
     from mpi_openmp_cuda_tpu_torch.ops.values import max_abs_value, value_table
+    from mpi_openmp_cuda_tpu_torch.utils.timing import card_line, time_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     names = ("fused_scorer", "packed_scorer")
+    all_kernels = (*names, "issue_probe", "ablate_scorer")
 
     # -- 1. build + device line ------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build(list(names))
-    log(f"build: both kernels in {time.perf_counter() - t0:.1f} s")
+    reports = _build.build(list(all_kernels))
+    log(f"build: {len(all_kernels)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, report in sorted(reports.items()):
         for line in report.splitlines():
             if line.strip():
@@ -287,7 +245,7 @@ def main() -> int:
                 fail(f"pair {i}: {tuple(rows[i])} != oracle {want}")
 
     # -- 2. the max-size launches vs plain -------------------------------
-    seq1_max, seqs_max = max_size_problem(np)
+    seq1_max, seqs_max = synthetic_codes(*MAX_SIZE)
     for weights in [WEIGHTS, *REGIME_WEIGHTS]:
         launches = bucket_launches(seq1_max, seqs_max, weights, dev)
         rows = scored_rows(launches, len(seqs_max))
@@ -308,7 +266,7 @@ def main() -> int:
     seq1_4, seqs_4 = input4_problem(np)
     packed_sets = {64: (seq1_4, seqs_4)}
     for l2s, seed in ((8, 81), (16, 82), (32, 83)):
-        packed_sets[l2s] = (seq1_4, short_problem(np, 2976, 30, 5, l2s, seed)[1])
+        packed_sets[l2s] = (seq1_4, synthetic_codes(2976, 30, 5, l2s, seed)[1])
     for l2s, (s1, seqs) in sorted(packed_sets.items()):
         for weights in [WEIGHTS, REGIME_WEIGHTS[-1]]:
             st = state_of(s1, seqs, weights)
@@ -324,14 +282,17 @@ def main() -> int:
     fixtures = sorted((REPO / "tests" / "fixtures").glob("*.txt"))
     if len(fixtures) != 7:
         fail(f"expected 7 fixtures, found {len(fixtures)}")
-    seq1_k, seqs_k = short_problem(np, 3000, 1024, 5, 64, 7)
+    seq1_k, seqs_k = synthetic_codes(3000, 1024, 5, 64, 7)
     tmp = tempfile.TemporaryDirectory()
     inputs = {f.name: f for f in fixtures}
-    big = {"max-size": (seq1_max, seqs_max), "input4-class": (seq1_4, seqs_4),
-           "1024 short rows": (seq1_k, seqs_k)}
-    for tag, (s1, seqs) in big.items():
+    prob3 = input3_class_problem()
+    big = {"max-size": (seq1_max, seqs_max, WEIGHTS),
+           "input4-class": (seq1_4, seqs_4, WEIGHTS),
+           "1024 short rows": (seq1_k, seqs_k, WEIGHTS),
+           "input3-class": (prob3.seq1_codes, prob3.seq2_codes, prob3.weights)}
+    for tag, (s1, seqs, weights) in big.items():
         inputs[tag] = Path(tmp.name) / f"{tag.replace(' ', '-')}.txt"
-        inputs[tag].write_text(as_text(np, s1, seqs, WEIGHTS))
+        inputs[tag].write_text(as_text(np, s1, seqs, weights))
     torch.cuda.synchronize()
     cs.reset_launch_counts()
     outputs = {tag: run_cli(cli, ["--input", str(path)]) for tag, path in inputs.items()}
@@ -342,11 +303,11 @@ def main() -> int:
         if rc != 0 or out != f.with_suffix(".out").read_bytes():
             fail(f"CLI on {f.name}: rc {rc}, stdout differs from {f.stem}.out")
         log(f"cli {f.name}: byte-identical to .out, wall {wall * 1e3:.3f} ms")
-    for tag, (s1, seqs) in big.items():
+    for tag, (s1, seqs, weights) in big.items():
         rc, out, wall = outputs[tag]
         want = "".join(
             f"#{i}: score: {s}, n: {n}, k: {k}\n"
-            for i, (s, n, k) in enumerate(prefix_best(s1, q, WEIGHTS) for q in seqs)
+            for i, (s, n, k) in enumerate(prefix_best(s1, q, weights) for q in seqs)
         )
         if rc != 0 or out.decode() != want:
             fail(f"CLI on {tag}: rc {rc}, stdout differs from the oracle")
@@ -365,8 +326,8 @@ def main() -> int:
         for launch in launches:
             name, kern, plain = kernel_of(launch)
             compare(name, kern(), plain())
-            ms = time_ms(torch, kern, reps=50)
-            plain_ms = time_ms(torch, plain, reps=3)
+            ms = time_ms(kern, reps=50)
+            plain_ms = time_ms(plain, reps=3)
             b_ms, b_by, b_term = bound_ms(launch.state)
             log(f"launch {tag} {name} rows {launch.idx.size} L2P "
                 f"{launch.state.rows.shape[1]} l2s {launch.l2s}: kernel "
@@ -391,8 +352,12 @@ def main() -> int:
     # What one launch for all buckets could gain: the max-size input padded
     # into a single fused launch (64 rows x L2P 2048), timed the same way.
     st_one = state_of(seq1_max, seqs_max, WEIGHTS)
-    one_ms = time_ms(torch, lambda: cs.fused_scorer(st_one), reps=50)
+    one_ms = time_ms(lambda: cs.fused_scorer(st_one), reps=50)
     log(f"max-size as one padded fused launch: {one_ms:.6f} ms [{card}]")
+    # The bench's single-program launch: input3-class padded into one.
+    st_sp = single_program(prob3, dev)
+    compare("fused_scorer", cs.fused_scorer(st_sp), cs.fused_scorer_plain(st_sp))
+    log(f"input3-class as one padded fused launch {tuple(st_sp.rows.shape)} == plain")
 
     # The main-path metric: batch wall time per input (parse, pad, copy in,
     # launch, copy out, print), warm, five runs each.
@@ -413,6 +378,16 @@ def main() -> int:
         if PKG in line or "cumtime" in line:
             log(f"host {line.strip()}")
     tmp.cleanup()
+
+    # -- 6-8. the probe, the ablation and the bench path ------------------
+    probe_row = probe_phase(torch, probe, time_ms, card)
+    abl_row, abl_counts = ablation_phase(
+        torch, cs, time_ms, bound_ms,
+        bucket_launches(seq1_max, seqs_max, WEIGHTS, dev), card,
+    )
+    bench_counts = bench_phase(probe)
+    paths = {"cli": counts, "bench": bench_counts, "ablation": abl_counts}
+    log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -435,6 +410,8 @@ def main() -> int:
             "bound_by": max(tot["by"], key=tot["by"].get),
             "library_ms": None,
         })
+    kernels.append({**probe_row, "launches": bench_counts["issue_probe"]})
+    kernels.append(abl_row)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
@@ -446,6 +423,183 @@ def main() -> int:
         },
     }))
     return 0
+
+
+def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:
+    """{kernel symbol: {opcode: count}} from ``cuobjdump -sass`` of a built
+    library (the toolkit's cuobjdump, beside nvcc)."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name}: exit {proc.returncode}: {proc.stderr[-500:]}")
+    funcs: dict[str, dict[str, int]] = {}
+    ops: dict[str, int] = {}
+    for line in proc.stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            ops = funcs.setdefault(head.group(1), {})
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if ins:
+            ops[ins.group(1)] = ops.get(ins.group(1), 0) + 1
+    return funcs
+
+
+def probe_phase(torch, probe, time_ms, card) -> dict:
+    """Phase 6; returns the issue_probe row of the kernels line (without
+    its launches, which the bench path counts)."""
+    from mpi_openmp_cuda_tpu_torch.ops import _build
+    from mpi_openmp_cuda_tpu_torch.ops.costs import HBM_BYTES_PER_S, PEAK_PER_S
+
+    dev = torch.device("cuda")
+    # The chains must survive compilation: each op's SASS holds CHAINS x
+    # UNROLL instructions of the op (IMAD exactly: IMAD.MOV and friends
+    # are moves and shifts).
+    want_op = {"fma": "FFMA", "arith": "IMAD", "lookup": "LDS"}
+    funcs = sass_ops(_build._target("issue_probe"), _build._nvcc())
+    for k, op in enumerate(probe.OPS):
+        sym = next((f for f in funcs if f"issue_probe_kernelILi{k}E" in f), None)
+        if sym is None:
+            fail(f"issue_probe: no SASS for the {op} kernel in {sorted(funcs)}")
+        hist = funcs[sym]
+        opcode = want_op[op]
+        n_op = hist.get(opcode, 0) if opcode == "IMAD" else sum(
+            v for key, v in hist.items() if key.split(".")[0] == opcode)
+        top = sorted(hist.items(), key=lambda kv: -kv[1])[:8]
+        log(f"sass issue_probe {op}: {n_op} {opcode} (need >= "
+            f"{probe.CHAINS * probe.UNROLL}); top opcodes {top}")
+        if n_op < probe.CHAINS * probe.UNROLL:
+            fail(f"issue_probe {op}: the compiler shortened the chains")
+    row = {"name": "issue_probe", "route": "cuda",
+           "source": "mpi_openmp_cuda_tpu_torch/csrc/issue_probe.cu",
+           "replaces": "bench.py:389", "max_abs_err": 0.0, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations",
+           "library_ms": None}
+
+    def check(op, init, iters, perm, plain_dev) -> int:
+        """Kernel == plain (run on ``plain_dev``) bit for bit for ``iters``
+        steps; returns the fewest ulps an fma value moved."""
+        got = probe.issue_probe(op, init, iters, perm).cpu()
+        want = probe.issue_probe_plain(
+            op, init.to(plain_dev), iters, perm.to(plain_dev)).cpu()
+        if not torch.equal(got, want):
+            fail(f"issue_probe {op}, {iters} steps: {int((got != want).sum())} of "
+                 f"{got.numel()} words differ from the plain version")
+        return int((got.long() - init.cpu().long()).min())
+
+    for op in probe.OPS:
+        init, perm = probe.probe_operands(op, dev)
+        moved = check(op, init, PROBE_CHECK_ITERS, perm, dev)
+        # One block at the rate's long chain, its plain version on the CPU.
+        hi = probe.long_iters(op, init.numel() // probe.CHAINS)
+        one = torch.from_numpy(probe.probe_init(op, probe.THREADS)).to(dev)
+        moved = min(moved, check(op, one, hi, perm, "cpu"))
+        if op == "fma" and moved < PROBE_CHECK_ITERS:
+            fail(f"issue_probe fma: a value moved only {moved} ulps, too few to "
+                 "tell a wrong chain from the right one")
+        n = init.numel() * PROBE_TIME_ITERS
+        ms = time_ms(lambda: probe.issue_probe(op, init, PROBE_TIME_ITERS, perm), reps=10)
+        plain_ms = time_ms(
+            lambda: probe.issue_probe_plain(op, init, PROBE_TIME_ITERS, perm), reps=1)
+        # Elements over the op's peak; each word read once and written once.
+        b_ms = max(n / PEAK_PER_S[op], 8 * init.numel() / HBM_BYTES_PER_S) * 1e3
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += b_ms
+        rate = probe.issue_probe_gelems(op, dev)
+        log(f"probe {op}: {init.numel() // probe.CHAINS} threads x {probe.CHAINS} "
+            f"chains, {PROBE_CHECK_ITERS} steps == plain; one block, {hi} steps "
+            f"== plain" + (f" (every value moved >= {moved} ulps)" if op == "fma" else "")
+            + f"; {PROBE_TIME_ITERS} steps: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"bound {b_ms:.6f} ms; rate {rate / 1e9:.3f} Gelem/s = "
+            f"{100 * rate / PEAK_PER_S[op]:.2f} % of the data-sheet peak "
+            f"{PEAK_PER_S[op] / 1e9:.1f} [{card}]")
+    return row
+
+
+def ablation_phase(torch, cs, time_ms, bound_ms, launches, card):
+    """Phase 7; returns (the ablate_scorer row, the ablation path's launch
+    counts)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_ablate", REPO / "scripts" / "torch_kernel_ablate.py")
+    abl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(abl)
+    err = abl.check_variants(launches)
+    log(f"ablation: {', '.join(abl.EXACT)} == fused_scorer on the "
+        f"{len(launches)} max-size launches; every variant ran")
+
+    def fused():
+        for b in launches:
+            cs.fused_scorer(b.state)
+
+    f0, b0, b1, f1 = (time_ms(fn, reps=20) for fn in (
+        fused, lambda: abl.run_all(launches, "base"),
+        lambda: abl.run_all(launches, "base"), fused))
+    f_ms, b_ms = (f0 + f1) / 2, (b0 + b1) / 2
+    log(f"ablation base {b_ms:.6f} ms vs fused_scorer {f_ms:.6f} ms "
+        f"({100 * (b_ms - f_ms) / f_ms:+.2f} %) [{card}]")
+    if abs(b_ms - f_ms) > ABLATE_BASE_TOL * f_ms:
+        fail(f"ablation base is {b_ms:.6f} ms, fused_scorer {f_ms:.6f} ms: "
+             f"more than {ABLATE_BASE_TOL:.0%} apart")
+    abl.launch_counts["ablate_scorer"] = 0
+    rows = abl.table(abl.time_variants(launches, abl.VARIANTS, passes=3, reps=20))
+    counts = dict(abl.launch_counts)
+    if counts["ablate_scorer"] < 1:
+        fail("the ablation path never launched ablate_scorer")
+    for r in rows:
+        log(f"ablation {r['variant']:9s} {r['ms']:.6f} ms, base {r['base_ms']:.6f} ms, "
+            f"stage share {100 * r['stage_share']:+.2f} % [{card}]")
+    plain_ms = time_ms(lambda: [cs.fused_scorer_plain(b.state) for b in launches], reps=1)
+    bounds = [bound_ms(b.state) for b in launches]
+    by = {}
+    for ms, kind, _ in bounds:
+        by[kind] = by.get(kind, 0.0) + ms
+    return {"name": "ablate_scorer", "route": "cuda",
+            "source": "mpi_openmp_cuda_tpu_torch/csrc/ablate_scorer.cu",
+            "replaces": "scripts/kernel_ablate.py:98",
+            "launches": counts["ablate_scorer"], "max_abs_err": err,
+            "ms": b_ms, "plain_ms": plain_ms,
+            "bound_ms": sum(ms for ms, _, _ in bounds),
+            "bound_by": max(by, key=by.get), "library_ms": None}, counts
+
+
+def bench_phase(probe) -> dict[str, int]:
+    """Phase 8; returns the bench path's launch counts per kernel."""
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_REPS="2", BENCH_ATTEMPTS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.bench"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    for line in proc.stderr.splitlines():
+        if line.strip():
+            log(f"bench stderr: {line}")
+    if proc.returncode != 0:
+        fail(f"the bench exited {proc.returncode}")
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    if len(lines) != 1:
+        fail(f"the bench printed {len(lines)} stdout lines, want exactly 1")
+    log(f"bench record ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    rec = json.loads(lines[0])
+    validate_report(rec)
+    want = ["device", "floor_us", "value", "kernel_launches"] + [
+        f"issue_probe_{op}_gelems" for op in probe.OPS]
+    missing = [k for k in want if rec.get(k) is None]
+    if rec.get("kind") != "bench" or missing:
+        fail(f"bench record: kind {rec.get('kind')!r}, missing {missing}")
+    counts = rec["kernel_launches"]
+    for name in ("fused_scorer", "issue_probe"):
+        if not counts.get(name, 0) > 0:
+            fail(f"the bench path never launched {name}")
+    log(f"bench: {rec['launches']} launches per scoring run; launches in the "
+        f"whole bench run (warm-ups, timed repeats and probes included): {counts}")
+    return counts
 
 
 if __name__ == "__main__":

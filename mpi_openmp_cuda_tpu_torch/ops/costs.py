@@ -1,0 +1,93 @@
+"""Work counts of the scorer kernels, the H100's data-sheet peaks, and the
+bound and floor built from them (the accounting role of the JAX package's
+``pallas_scorer.kernel_vpu_pass_elems`` and ``schedule.kernel_configs``).
+
+A launch's work is counted from what its data needs, not from its padded
+shapes: the (offset, char) cells of every searchable pair, about six
+int32 ops and two value-table lookups each, and its operand bytes.  The
+**bound** prices those counts at the published peaks; the **floor**
+(:func:`floor_terms`) prices them at rates measured on the card by the
+issue-rate probe (``ops/probe.py``).  Either is the largest of its terms:
+a Hopper SM issues the int32 pipe and the shared-memory pipe side by side.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; 67 TFLOP/s
+# fp32 off the tensor cores = 132 SMs x 128 fp32 lanes x 2 (fma) x
+# 1.98 GHz.  An SM issues int32 on 64 lanes, and its shared memory
+# (LSU/MIO pipe, beside the int pipe) serves 32 words per clock.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FMA_PER_S = 132 * 128 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
+# The data-sheet peak of each issue-rate probe op, in elements/s.
+PEAK_PER_S = {"fma": FP32_FMA_PER_S, "arith": INT32_OPS_PER_S, "lookup": SMEM_WORDS_PER_S}
+# Per needed (offset, char) cell: about six int32 ops (t1 add, delta sub,
+# G add, compare, select, loop step) and two value-table lookups.
+INT_OPS_PER_CELL = 6
+LOOKUPS_PER_CELL = 2
+
+
+def needed_cells(len1, lens) -> int:
+    """(offset, char) cells the data needs: valid offsets x chars."""
+    return sum(max(len1 - int(n), 0) * int(n) for n in lens if 0 < int(n) < len1)
+
+
+@dataclass(frozen=True)
+class WorkCounts:
+    """What one launch, or a sum of launches, must do: ``cells`` needed
+    cells, ``int_ops`` int32 ops, ``lookups`` table lookups, ``bytes``
+    operand bytes (each input read once, the [B, 4] output written once)."""
+
+    cells: int = 0
+    int_ops: int = 0
+    lookups: int = 0
+    bytes: int = 0
+
+    def __add__(self, other: WorkCounts) -> WorkCounts:
+        return WorkCounts(
+            self.cells + other.cells, self.int_ops + other.int_ops,
+            self.lookups + other.lookups, self.bytes + other.bytes,
+        )
+
+
+def state_counts(state) -> WorkCounts:
+    """The work of one launch on a ``cuda_scorer.ScorerState``."""
+    nbytes = 4 * (
+        state.seq1ext.numel() + state.rows.numel() + state.lens.numel()
+        + state.val.numel() + 4 * state.rows.shape[0]
+    )
+    cells = needed_cells(state.len1, state.lens.tolist())
+    return WorkCounts(cells, INT_OPS_PER_CELL * cells, LOOKUPS_PER_CELL * cells, nbytes)
+
+
+def schedule_counts(launches) -> WorkCounts:
+    """The work of a batch: :func:`state_counts` summed over its
+    ``dispatch.bucket_launches``."""
+    return sum((state_counts(b.state) for b in launches), WorkCounts())
+
+
+def floor_terms(counts: WorkCounts, int_rate: float, lookup_rate: float) -> dict[str, float]:
+    """Seconds per term: int ops at ``int_rate`` (ops/s), lookups at
+    ``lookup_rate`` (words/s), bytes at the HBM rate."""
+    return {
+        "int ops": counts.int_ops / int_rate,
+        "lookups": counts.lookups / lookup_rate,
+        "bytes": counts.bytes / HBM_BYTES_PER_S,
+    }
+
+
+def binding(terms: dict[str, float]) -> tuple[float, str]:
+    """(the largest term, its name)."""
+    name = max(terms, key=terms.get)
+    return terms[name], name
+
+
+def bound_ms(state) -> tuple[float, str, str]:
+    """(least time in ms, "bytes" or "operations", the binding term) of one
+    launch at the data-sheet peaks."""
+    sec, term = binding(floor_terms(state_counts(state), INT32_OPS_PER_S, SMEM_WORDS_PER_S))
+    return sec * 1e3, "bytes" if term == "bytes" else "operations", term

@@ -6,7 +6,7 @@
 For each packing class l2s in 8/16/32/64 and a range of batch sizes B
 (Seq1 3000, every Seq2 of l2s/2+1..l2s chars, seeded), it times both
 kernels of the PyTorch + CUDA port on the same bucket (CUDA events over
-back-to-back launches, as ``chip_smoke.time_ms``), checks that they agree
+back-to-back launches, ``utils.timing.time_ms``), checks that they agree
 exactly, and prints the fused kernel's grid in resident-block waves
 (B x tiles over ``dispatch.resident_blocks``) beside the two times.  The
 last line is a JSON object with every row and, per class, the smallest
@@ -34,11 +34,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_rowpack_sweep: no CUDA device is available", file=sys.stderr)
         return 1
-    from chip_smoke import card_line, time_ms
     from mpi_openmp_cuda_tpu_torch.ops import _build
     from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
     from mpi_openmp_cuda_tpu_torch.ops.dispatch import pad_problem, resident_blocks
     from mpi_openmp_cuda_tpu_torch.ops.values import value_table
+    from mpi_openmp_cuda_tpu_torch.utils.timing import card_line, time_ms
 
     _build.build(["fused_scorer", "packed_scorer"])
     dev = torch.device("cuda")
@@ -64,8 +64,8 @@ def main() -> int:
             if not torch.equal(cs.packed_scorer(st, l2s), cs.fused_scorer(st)):
                 raise SystemExit(f"packed != fused at l2s={l2s}, B={b}")
             waves = b * (batch.l1p // cs.TILE) / wave
-            packed_ms = time_ms(torch, lambda: cs.packed_scorer(st, l2s), reps=50)
-            fused_ms = time_ms(torch, lambda: cs.fused_scorer(st), reps=50)
+            packed_ms = time_ms(lambda: cs.packed_scorer(st, l2s), reps=50)
+            fused_ms = time_ms(lambda: cs.fused_scorer(st), reps=50)
             rows.append({"l2s": l2s, "rows": b, "waves": waves,
                          "packed_ms": packed_ms, "fused_ms": fused_ms})
             print(f"l2s {l2s:2d} B {b:5d} waves {waves:7.3f}: packed "

@@ -1,6 +1,7 @@
 """The port's batch CLI: byte-identical goldens on the CPU, the JAX CLI's
 stdout, the exit-code contract, and the rule that no port module (nor
-``chip_smoke.py``) imports jax or the JAX package."""
+``chip_smoke.py`` nor a ``scripts/torch_*.py`` script) imports jax or the
+JAX package."""
 
 from __future__ import annotations
 
@@ -112,9 +113,11 @@ def _imports(path: Path) -> set[str]:
     return names
 
 
-PORT_FILES = sorted((REPO / "mpi_openmp_cuda_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
-]
+PORT_FILES = (
+    sorted((REPO / "mpi_openmp_cuda_tpu_torch").rglob("*.py"))
+    + sorted((REPO / "scripts").glob("torch_*.py"))
+    + [REPO / "chip_smoke.py"]
+)
 
 
 @pytest.mark.parametrize(
@@ -129,7 +132,8 @@ def test_port_imports_neither_jax_nor_jax_package(path):
 def test_port_import_loads_no_jax():
     code = (
         "import sys, mpi_openmp_cuda_tpu_torch, mpi_openmp_cuda_tpu_torch.io.cli, "
-        "mpi_openmp_cuda_tpu_torch.ops.cuda_scorer; "
+        "mpi_openmp_cuda_tpu_torch.ops.cuda_scorer, mpi_openmp_cuda_tpu_torch.bench, "
+        "mpi_openmp_cuda_tpu_torch.ops.probe; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_openmp_cuda_tpu')]; print(bad); sys.exit(bool(bad))"
     )
