@@ -13,7 +13,10 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    scorer's own bucketing, padding and kernel choice) against its plain
    PyTorch version on the card, exact equality, at the weights 10 2 3 4
    and at max |v| = 127, 128 and 3000; eight pairs against the numpy
-   oracle ``prefix_best``;
+   oracle ``prefix_best``; then the fused kernel's seams
+   (:func:`seam_problems`: tile edges, ties across tiles and char
+   segments, the edge lengths, all-equal weights), every row against its
+   plain version and the oracle;
 3. the packed kernel against its plain version and the fused kernel at
    the input4-class packed set (Seq1 2976, 30 Seq2 of 5..64, seed 7) and
    one batch per class 8/16/32, exact equality;
@@ -37,9 +40,11 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    version rounds once, as ``fmaf`` does, and every fma value must move by
    at least one ulp per step), kernel and plain timed at 4096 steps, then
    the op's rate beside its data-sheet peak (0 or above 105 % fails);
-7. the stage ablation (``csrc/ablate_scorer.cu``, driven through
-   ``scripts/torch_kernel_ablate.py``) on the max-size launches:
-   ``base``, ``nostage`` and ``noskip`` == ``fused_scorer`` exactly,
+7. the stage ablation (``csrc/ablate_scorer.cu``: the fused scorer's
+   kernels, ``csrc/fused_kernels.cuh``, one stage dropped per variant;
+   driven through ``scripts/torch_kernel_ablate.py``) on the max-size
+   launches:
+   its exact variants (``EXACT`` there) == ``fused_scorer`` exactly,
    ``base`` within 5 % of ``fused_scorer``'s time (interleaved fused,
    base, base, fused), then the per-stage table with launch counts set to
    0 before it;
@@ -112,6 +117,41 @@ def input4_problem(np):
     mk(2976, rng.integers(5, 83, size=30))
     s1, seqs = mk(2976, rng.integers(5, 65, size=30))
     return s1.astype(np.int8), [s.astype(np.int8) for s in seqs]
+
+
+def seam_problems(np):
+    """Inputs that try the seams of ``csrc/fused_scorer.cu``, as (tag, seq1,
+    seqs, weights, {row: (field, value)} the oracle's answer must show).
+    Fields: 1 = n, 2 = k."""
+    rng = np.random.default_rng(23)
+    s1 = rng.integers(1, 27, size=700).astype(np.int8)
+    skip = np.concatenate([s1[40:290], s1[291:441]])  # a hyphen after 250 chars
+    edges = [
+        s1[127:427],  # best offset: the last of tile 0 (its redundant edge column)
+        s1[128:428],  # the first of tile 1
+        s1[383:684], s1[5:338],  # lengths 301, 333: no multiple of 4 or of 6 segments
+        skip,
+        s1[:1], s1[1:], s1.copy(),  # len2 = 1, len1 - 1, len1
+        np.concatenate([s1, s1[:5]]),  # len2 > len1
+    ]
+    want = {0: (1, 127), 1: (1, 128), 2: (1, 383), 3: (1, 5), 4: (2, 250)}
+    out = [("tile edges and edge lengths", s1, edges, WEIGHTS, want)]
+    # Seq1 of period 150: offsets 20, 170, ..., 620 tie exactly, in five
+    # different tiles; the first must win.
+    block = rng.integers(1, 27, size=150).astype(np.int8)
+    out.append(("ties across tiles", np.tile(block, 5),
+                [block[20:140], np.tile(block, 2)[20:290]], WEIGHTS,
+                {0: (1, 20), 1: (1, 20)}))
+    # Two letters: ties between offsets and between hyphen positions in
+    # different char segments; with all-equal and all-zero weights too.
+    lo1 = rng.integers(1, 3, size=700).astype(np.int8)
+    lo = [rng.integers(1, 3, size=int(n)).astype(np.int8)
+          for n in rng.integers(2, 650, size=24)]
+    out.append(("two-letter ties", lo1, lo, [5, 1, 1, 1], {}))
+    out.append(("all-equal weights", lo1, lo, [1, 1, 1, 1], {}))
+    out.append(("all-zero weights", lo1, lo, [0, 0, 0, 0],
+                {i: (f, 0) for i in range(len(lo)) for f in (1, 2)}))
+    return out
 
 
 def as_text(np, seq1, seqs, weights) -> str:
@@ -254,6 +294,19 @@ def main() -> int:
             f"{max_abs_value(value_table(weights))}): {len(launches)} launches "
             f"{[(b.idx.size, b.state.rows.shape[1], b.l2s) for b in launches]} "
             f"== plain, 8 pairs == oracle")
+
+    for tag, s1, seqs, weights, want in seam_problems(np):
+        launches = bucket_launches(s1, seqs, weights, dev)
+        if any(b.l2s is not None for b in launches):
+            fail(f"seam input {tag!r} reached the packed kernel")
+        rows = scored_rows(launches, len(seqs))
+        check_oracle(s1, seqs, weights, rows, range(len(seqs)))
+        for i, (field, value) in want.items():
+            if rows[i][field] != value:
+                fail(f"seam input {tag!r}, row {i}: {tuple(rows[i])} does not "
+                     f"try its seam (field {field} != {value})")
+        log(f"seams, {tag}: {len(seqs)} rows in {len(launches)} launches == "
+            f"plain == oracle; k > 0 in {int((rows[:, 2] > 0).sum())} rows")
 
     # -- 3. packed kernel vs plain at every class ------------------------
     def state_of(seq1, seqs, weights):

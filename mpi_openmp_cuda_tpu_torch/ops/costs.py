@@ -3,8 +3,9 @@ bound and floor built from them (the accounting role of the JAX package's
 ``pallas_scorer.kernel_vpu_pass_elems`` and ``schedule.kernel_configs``).
 
 A launch's work is counted from what its data needs, not from its padded
-shapes: the (offset, char) cells of every searchable pair, about six
-int32 ops and two value-table lookups each, and its operand bytes.  The
+shapes: the (offset, char) cells of every searchable pair, the three
+int32 ops and the one value-table lookup that the function needs for each
+(derived at :data:`INT_OPS_PER_CELL`), and its operand bytes.  The
 **bound** prices those counts at the published peaks; the **floor**
 (:func:`floor_terms`) prices them at rates measured on the card by the
 issue-rate probe (``ops/probe.py``).  Either is the largest of its terms:
@@ -25,10 +26,20 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 # The data-sheet peak of each issue-rate probe op, in elements/s.
 PEAK_PER_S = {"fma": FP32_FMA_PER_S, "arith": INT32_OPS_PER_S, "lookup": SMEM_WORDS_PER_S}
-# Per needed (offset, char) cell: about six int32 ops (t1 add, delta sub,
-# G add, compare, select, loop step) and two value-table lookups.
-INT_OPS_PER_CELL = 6
-LOOKUPS_PER_CELL = 2
+# The least work per needed (offset, char) cell on the int32 and the
+# shared-memory pipes.  With e(n, i) = val[s2[i]][s1[n + i]] and A(n, kappa)
+# its prefix sum over i < kappa, the hyphen-shifted diagonal of offset n is
+# the unshifted one of offset n + 1, so G[kappa](n) = A(n, kappa) -
+# A(n + 1, kappa), t1(n) = A(n + 1, len2), and, k = 0 winning every tie, an
+# offset's best score is t1(n) + max_kappa G[kappa](n).  Each cell (n, i)
+# is therefore one lookup e(n, i), one prefix add into A(n), one difference
+# A(n) - A(n + 1) and one max: 3 int ops and 1 lookup, however they are
+# tiled; k is recovered for one offset per pair, O(len2), and is not
+# counted.  A kernel issues more (address adds, window and Seq2 loads).  A
+# formulation on the tensor cores (one-hot rows times the table) would do
+# other operations at another peak and have another bound.
+INT_OPS_PER_CELL = 3
+LOOKUPS_PER_CELL = 1
 
 
 def needed_cells(len1, lens) -> int:

@@ -11,7 +11,8 @@ offset carry ``(INT32_MIN, 0, 0)``.  The O(B) epilogue
 (:func:`finish_rows`) then applies the equal-length and unsearchable
 rules, as ``_pallas_rows`` does.
 
-* :func:`fused_scorer` — ``csrc/fused_scorer.cu``, for every bucket;
+* :func:`fused_scorer` — ``csrc/fused_scorer.cu`` (kernels in
+  ``csrc/fused_kernels.cuh``), for every bucket;
 * :func:`packed_scorer` — ``csrc/packed_scorer.cu``, for L2P = 128
   buckets whose every len2 fits a packing class ``l2s``.
 
@@ -151,10 +152,49 @@ def _plain_rows(seq1ext, len1, rows, lens, val, noff) -> torch.Tensor:
 
 
 def fused_scorer_plain(state: ScorerState) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/fused_scorer.cu``: [B, 4] int32."""
-    return _plain_rows(
-        state.seq1ext, state.len1, state.rows, state.lens, state.val, state.l1p
-    )
+    """Plain PyTorch version of ``csrc/fused_scorer.cu``, in the kernel's
+    own formulation: [B, 4] int32.
+
+    One gather ``e[b, n, i] = val[s2[i], s1[n + i]]`` over the diagonals
+    ``n <= L1P``, ``A = cumsum(e)`` over the chars, and then
+    ``G[kappa](n) = A(n, kappa) - A(n + 1, kappa)``, ``t1(n) = A(n + 1,
+    len2)`` and ``eq = A(0, len2)``.  k = 0 (``t1 + G[len2]``) wins every
+    tie, so an offset's best score is ``t1 + max_kappa G[kappa]`` with no
+    index; the first best offset is found, and k is recovered for it alone.
+    Pad chars add 0, so columns past len2 repeat ``G[len2]`` and need no
+    mask."""
+    seq1ext, len1, rows, lens, val = (
+        state.seq1ext, state.len1, state.rows, state.lens, state.val)
+    b, l2 = rows.shape
+    noff = state.l1p
+    dev = rows.device
+    n = torch.arange(noff + 1, device=dev)[:, None]
+    i = torch.arange(l2, device=dev)[None, :]
+    win = seq1ext[(n + i).reshape(-1)].reshape(noff + 1, l2).long()
+    kappa = i + 1  # column j holds G[kappa = j + 1]
+    out = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    cb = max(1, PLAIN_CHUNK_ELEMS // max((noff + 1) * l2, 1))
+    for s in range(0, b, cb):
+        ln = lens[s : s + cb]
+        e = val[rows[s : s + cb].long()[:, None, :], win[None]]  # [cb, noff + 1, L]
+        a = torch.cumsum(e, dim=2, dtype=torch.int32)
+        g = a[:, :-1] - a[:, 1:]  # [cb, noff, L]
+        valid = n[None, :noff, 0] < (len1 - ln)[:, None]
+        score = torch.where(valid, a[:, 1:, -1] + g.max(dim=2).values, INT32_MIN)
+        best = torch.argmax(score, dim=1)  # first max: the smallest offset
+        top = score.gather(1, best[:, None])[:, 0]
+        # k of the winning offset: 0 unless some kappa < len2 beats G[len2].
+        gw = g.gather(1, best[:, None, None].expand(-1, 1, l2))[:, 0]  # [cb, L]
+        early = torch.where(kappa < ln[:, None], gw, INT32_MIN)
+        first = torch.argmax(early, dim=1)  # first max: the smallest kappa
+        beats = early.gather(1, first[:, None])[:, 0] > gw[:, -1]
+        # All-masked pairs: argmax lands on offset 0 -> (INT32_MIN, 0, 0).
+        k = torch.where(beats & (top > INT32_MIN), first + 1, 0)
+        out[s : s + cb, 0] = top
+        out[s : s + cb, 1] = best.int()
+        out[s : s + cb, 2] = k.int()
+        out[s : s + cb, 3] = a[:, 0, -1]
+    return out
 
 
 def packed_scorer_plain(state: ScorerState, l2s: int) -> torch.Tensor:
@@ -201,6 +241,8 @@ def _stream() -> ctypes.c_void_p:
 
 
 _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
+# int32 words of one (pair, tile) partial: [score, n] / [score, n, k].
+_PARTIAL_WORDS = {"fused_scorer": 2, "packed_scorer": 3}
 _ARGTYPES = {
     # seq1ext, len1, rows, lens, batch, l2p, ntiles, val, partial, out, stream
     "fused_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
@@ -228,7 +270,7 @@ def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
     ntiles = state.l1p // TILE
     dev = state.rows.device
     out = torch.empty((b, 4), dtype=torch.int32, device=dev)
-    partial = torch.empty((b, ntiles, 3), dtype=torch.int32, device=dev)
+    partial = torch.empty((b, ntiles, _PARTIAL_WORDS[name]), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _entry(name)(
             _ptr(state.seq1ext), state.len1, _ptr(state.rows), _ptr(state.lens),
@@ -246,6 +288,9 @@ def fused_scorer(state: ScorerState) -> torch.Tensor:
     :func:`fused_scorer_plain` (CPU tensors)."""
     if _device_of(state) == "cpu":
         return fused_scorer_plain(state)
+    if state.rows.shape[1] % 4:
+        raise ValueError(
+            f"fused_scorer needs L2P a multiple of 4, got {state.rows.shape[1]}")
     return _launch("fused_scorer", state)
 
 

@@ -13,13 +13,16 @@ issue rates.
    the ``arith`` rate, table lookups over the ``lookup`` rate, bytes over
    HBM) at its measured rate and at its data-sheet peak, beside the
    measured time of one run of the launches with their epilogues (device
-   time, ``utils.timing.time_ms``).  One more line prices the shared
-   loads the fused kernel issues per cell (4: the Seq2 code, the window
-   char and two table words, ``csrc/fused_scorer.cu``) at the measured
-   ``lookup`` rate; the bound counts the 2 table lookups only.  The
-   scorer kernels alone (no epilogue) are timed too, with each fused
-   launch's live blocks (pairs x offset tiles with a valid offset) beside
-   the blocks the card holds at once (``dispatch.resident_blocks``).
+   time, ``utils.timing.time_ms``).  One more line prices what the fused
+   kernel's char loop issues per cell (``csrc/fused_kernels.cuh``; counted
+   in its SASS, per pass of 4 steps x 4 offsets: 25 shared loads, i.e.
+   20 lookups, 4 window chars and one 16-byte Seq2 load, and 57 int ops,
+   i.e. 20 address adds, 21 prefix adds and 16 fused difference-max) at
+   the measured rates; the bound counts the 1 lookup and 3 int ops a cell
+   needs.  The scorer kernels alone (no epilogue) are timed too, with each
+   fused launch's live (pair, offset tile) clusters, those with a valid
+   offset, beside the blocks the card holds at once
+   (``dispatch.resident_blocks``).
 
 The last line of stdout is a JSON object with every number.
 """
@@ -35,12 +38,13 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 ROUNDS = 3
-ISSUED_LOADS_PER_CELL = 4
+ISSUED_LOADS_PER_CELL = 25 / 16
+ISSUED_INT_OPS_PER_CELL = 57 / 16
 
 
 def live_blocks(len1: int, lens, ntiles: int) -> int:
-    """Blocks of a fused launch that pass its offset-tile skip: per pair,
-    tile 0 and every tile holding an offset n < len1 - len2."""
+    """(pair, tile) clusters of a fused launch that pass its offset-tile
+    skip: per pair, tile 0 and every tile holding an offset n < len1 - len2."""
     return sum(min(ntiles, max(1, -(-(len1 - n) // 128))) for n in lens)
 
 
@@ -106,10 +110,11 @@ def main() -> int:
         measured = costs.floor_terms(counts, rate["arith"], rate["lookup"])
         peak = costs.floor_terms(counts, costs.INT32_OPS_PER_S, costs.SMEM_WORDS_PER_S)
         issued_ms = ISSUED_LOADS_PER_CELL * counts.cells / rate["lookup"] * 1e3
+        issued_int_ms = ISSUED_INT_OPS_PER_CELL * counts.cells / rate["arith"] * 1e3
         print(f"{name}: {len(launches)} launches, {counts.cells} cells, "
               f"{counts.bytes} bytes; measured {wall_ms:.6f} ms, the kernels "
-              f"alone {kernel_ms:.6f} ms; fused live blocks per launch {live} of "
-              f"{resident_blocks(dev)} resident [{card}]", flush=True)
+              f"alone {kernel_ms:.6f} ms; fused live clusters per launch {live}; "
+              f"{resident_blocks(dev)} blocks resident [{card}]", flush=True)
         for term in measured:
             print(f"  {term:8s}: {measured[term] * 1e3:.6f} ms at the measured rate, "
                   f"{peak[term] * 1e3:.6f} ms at the data-sheet peak", flush=True)
@@ -118,14 +123,15 @@ def main() -> int:
         print(f"  floor {floor_s * 1e3:.6f} ms ({floor_by}), wall/floor "
               f"{wall_ms / 1e3 / floor_s:.3f}; bound {bound_s * 1e3:.6f} ms "
               f"({bound_by}), wall/bound {wall_ms / 1e3 / bound_s:.3f}; "
-              f"{ISSUED_LOADS_PER_CELL} issued shared loads per cell at the "
-              f"measured rate: {issued_ms:.6f} ms", flush=True)
+              f"issued per cell at the measured rates: {ISSUED_LOADS_PER_CELL} "
+              f"shared loads {issued_ms:.6f} ms, {ISSUED_INT_OPS_PER_CELL} int "
+              f"ops {issued_int_ms:.6f} ms", flush=True)
         report["workloads"][name] = {
             "launches": len(launches), "cells": counts.cells, "bytes": counts.bytes,
             "wall_ms": wall_ms, "kernel_ms": kernel_ms, "live_blocks": live,
             "floor_ms_measured": {k: v * 1e3 for k, v in measured.items()},
             "floor_ms_peak": {k: v * 1e3 for k, v in peak.items()},
-            "issued_loads_ms": issued_ms,
+            "issued_loads_ms": issued_ms, "issued_int_ops_ms": issued_int_ms,
         }
     print(json.dumps(report))
     return 0

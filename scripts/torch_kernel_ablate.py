@@ -5,18 +5,19 @@
     python3 scripts/torch_kernel_ablate.py --only nolookup,nomax --ab 5
     python3 scripts/torch_kernel_ablate.py --synthetic 1489x32x56-1152
 
-``csrc/ablate_scorer.cu`` is a switchable copy of ``csrc/fused_scorer.cu``
-in which each variant drops one stage of the kernel (its source lists
-them; ablations are not composed).  The wrapper lives here and never in
-the production modules: ablations break semantics.
+``csrc/ablate_scorer.cu`` instantiates the kernels of ``csrc/fused_scorer.cu``
+(the templates of ``csrc/fused_kernels.cuh``) once per variant; each
+variant drops one stage of the kernel (the header lists them; ablations
+are not composed) and ``base`` is the production kernel.  The wrapper
+lives here and never in the production modules: ablations break semantics.
 
 The workload (default: the max-size input, Seq1 3000 and 64 Seq2 of
 1200..1999, seed 7; ``--synthetic L1xNxLO-HI`` or ``--input FILE`` for
 another) is split into the scorer's own launches by
 ``dispatch.bucket_launches`` and every launch runs the fused design.
-First ``base``, ``nostage`` and ``noskip`` are held exactly equal to the
-production kernel on every launch and the other variants are run once
-and synchronised.  Then each variant is timed against ``base``,
+First ``base``, ``nostage``, ``nodiag`` and ``noskip`` are held exactly
+equal to the production kernel on every launch and the other variants are
+run once and synchronised.  Then each variant is timed against ``base``,
 interleaved (base, variant, variant, base) in each of ``--ab`` passes:
 device ms of all the launches back to back (CUDA events behind a sleeping
 kernel, ``utils.timing.time_ms``), and the median over the passes of
@@ -43,10 +44,11 @@ from mpi_openmp_cuda_tpu_torch.ops import _build  # noqa: E402
 from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs  # noqa: E402
 from mpi_openmp_cuda_tpu_torch.ops.cuda_scorer import TILE, ScorerState  # noqa: E402
 
-# The Variant enum of csrc/ablate_scorer.cu, in its order.
-VARIANTS = ("base", "nostage", "nolookup", "nocarry", "nomax", "noreduce", "noskip")
+# The Variant enum of csrc/fused_kernels.cuh, in its order.
+VARIANTS = ("base", "nostage", "nolookup", "nodiag", "nomax", "nocombine",
+            "noreduce", "nok", "noskip")
 # Variants that still compute the production rows.
-EXACT = ("base", "nostage", "noskip")
+EXACT = ("base", "nostage", "nodiag", "noskip")
 WEIGHTS = [10, 2, 3, 4]
 
 # Kernel launches of the wrapper: incremented only where it launches.
@@ -78,7 +80,7 @@ def ablate_scorer(state: ScorerState, var: str) -> torch.Tensor:
     ntiles = state.l1p // TILE
     dev = state.rows.device
     out = torch.empty((b, 4), dtype=torch.int32, device=dev)
-    width = TILE * 3 if var == "noreduce" else 3
+    width = TILE * 2 if var == "noreduce" else 2
     partial = torch.empty((b, ntiles, width), dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):

@@ -339,14 +339,14 @@ def test_probe_gate_reads_the_card_name(monkeypatch):
 
 
 def _old_chip_smoke_counts(state):
-    """The per-launch counts chip_smoke.py kept before ops/costs.py: bytes,
-    6 int ops and 2 lookups per needed cell."""
+    """The per-launch counts as chip_smoke.py once kept them itself: bytes,
+    and the 3 int ops and 1 lookup the function needs per needed cell."""
     nbytes = 4 * (state.seq1ext.numel() + state.rows.numel() + state.lens.numel()
                   + state.val.numel() + 4 * state.rows.shape[0])
     len1 = state.len1
     cells = sum(max(len1 - int(n), 0) * int(n) for n in state.lens.tolist()
                 if 0 < int(n) < len1)
-    return nbytes, 6 * cells, 2 * cells
+    return nbytes, 3 * cells, cells
 
 
 @pytest.mark.parametrize("path", FIXTURES, ids=IDS)
@@ -358,7 +358,8 @@ def test_schedule_counts_equal_old_per_launch_sums(path):
     old = [_old_chip_smoke_counts(b.state) for b in launches]
     assert (got.bytes, got.int_ops, got.lookups) == tuple(
         sum(c[i] for c in old) for i in range(3))
-    assert got.int_ops == 6 * got.cells and got.lookups == 2 * got.cells
+    assert got.int_ops == 3 * got.cells and got.lookups == got.cells
+    assert (costs.INT_OPS_PER_CELL, costs.LOOKUPS_PER_CELL) == (3, 1)
 
 
 def test_bound_and_floor_terms():
@@ -369,7 +370,7 @@ def test_bound_and_floor_terms():
     assert counts.cells == costs.needed_cells(
         prob.seq1_codes.size, [c.size for c in prob.seq2_codes])
     ms = sum(costs.bound_ms(b.state)[0] for b in launches)
-    assert ms == pytest.approx(6 * counts.cells / costs.INT32_OPS_PER_S * 1e3)
+    assert ms == pytest.approx(3 * counts.cells / costs.INT32_OPS_PER_S * 1e3)
     assert costs.bound_ms(launches[0].state)[1:] == ("operations", "int ops")
     rates = {"arith": costs.INT32_OPS_PER_S / 2, "lookup": costs.SMEM_WORDS_PER_S / 8}
     rec = tbench.floor_fields(counts, rates, wall_s=1e-3)

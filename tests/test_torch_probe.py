@@ -185,14 +185,26 @@ def test_probe_source_constants_match():
 
 
 def test_ablation_variants_match_the_source():
+    """The stage switches are the template parameter of the kernels in
+    ``fused_kernels.cuh``; ``ablate_scorer.cu`` instantiates each of them
+    and ``fused_scorer.cu`` only ``base``."""
     abl = _ablate()
     src = (CSRC / "ablate_scorer.cu").read_text()
-    enum = re.search(r"enum Variant : int \{([^}]*)\}", src).group(1)
+    shared = (CSRC / "fused_kernels.cuh").read_text()
+    enum = re.search(r"enum Variant : int \{([^}]*)\}", shared).group(1)
     assert tuple(e.strip() for e in enum.split(",")) == abl.VARIANTS
+    assert abl.VARIANTS == ("base", "nostage", "nolookup", "nodiag", "nomax",
+                            "nocombine", "noreduce", "nok", "noskip")
+    assert abl.EXACT == ("base", "nostage", "nodiag", "noskip")
+    prod = (CSRC / "fused_scorer.cu").read_text()
+    assert re.findall(r"launch<([\w:]+)>", prod) == ["fused::base"]
+    for text in (src, prod):
+        assert '#include "fused_kernels.cuh"' in text
     cases = re.findall(r"ABLATE_CASE\((\w+)\)\n", src)
     assert tuple(cases) == abl.VARIANTS
     for var in abl.VARIANTS:
         assert re.search(rf"^//   {var}\s", src, re.M), var
+        assert re.search(rf"^//   {var}\s", shared, re.M), var
     assert set(abl.EXACT) < set(abl.VARIANTS)
 
 

@@ -5,8 +5,13 @@ bytes: the JAX ``pad_problem`` output goes through ``state_from_numpy``.
 
 Shapes reuse the interpret-mode buckets of ``test_pallas_scorer.py``: the
 (L1P, L2P) = (128, 128) fused bucket, the 260-long Seq1 row-packed bucket,
-and one 250-long Seq1 fused bucket (two offset tiles) for the cross-tile
-walk.  Tests marked ``gpu`` need a CUDA device and skip without one."""
+and 250- and 300-long Seq1 fused buckets (two and three offset tiles) for
+the cross-tile walk and the seams of the fused kernel's design.  The fused
+kernel's plain version, written in the kernel's own formulation (shared
+diagonals, a max without an index, k recovered for the winner), is also
+held against the masked-argmax ``_plain_rows`` and, by hypothesis, against
+the port's own oracle.  Tests marked ``gpu`` need a CUDA device and skip
+without one."""
 
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import math
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as hst
 
 from mpi_openmp_cuda_tpu.ops import dispatch as jdispatch
 from mpi_openmp_cuda_tpu.ops.oracle import prefix_best
@@ -23,6 +30,8 @@ from mpi_openmp_cuda_tpu.utils.constants import INT32_MIN
 from mpi_openmp_cuda_tpu_torch.ops import bounds as tbounds
 from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
 from mpi_openmp_cuda_tpu_torch.ops import dispatch as tdispatch
+from mpi_openmp_cuda_tpu_torch.ops import oracle as toracle
+from mpi_openmp_cuda_tpu_torch.ops import values as tvalues
 
 W = [10, 2, 3, 4]
 
@@ -57,6 +66,16 @@ def _assert_three_way(seq1, seqs, weights, l2s=None):
     got = _port_plain(seq1, seqs, weights, l2s)
     assert got == _oracle(seq1, seqs, weights)
     assert got == _jax_pallas(seq1, seqs, weights)
+
+
+def _assert_fused_formulations_agree(seq1, seqs, weights):
+    """The kernel's formulation (shared diagonals, max without an index, k
+    recovered for the winner) against the masked-argmax one, raw [B, 4]
+    rows and all: exact int32 equality."""
+    st = _state(seq1, seqs, weights)
+    old = cs._plain_rows(st.seq1ext, st.len1, st.rows, st.lens, st.val, st.l1p)
+    new = cs.fused_scorer_plain(st)
+    assert new.dtype == torch.int32 and torch.equal(new, old)
 
 
 @pytest.mark.parametrize("seed", [0, 2])
@@ -102,6 +121,113 @@ def test_fused_plain_multi_tile_walk():
     assert st.l1p // cs.TILE == 2
     assert tdispatch.choose_rowpack(128, [s.size for s in seqs]) is None
     _assert_three_way(seq1, seqs, [5, 1, 1, 1])
+
+
+def _seam_cases():
+    """(id, seq1, seqs, weights, {row: n the oracle must find}) for the
+    seams of the fused kernel's design, at interpret-mode sizes: Seq1 of
+    300 (three 128-offset tiles)."""
+    rng = np.random.default_rng(23)
+    s1 = rng.integers(1, 27, size=300).astype(np.int8)
+    block = rng.integers(1, 27, size=70).astype(np.int8)
+    periodic = np.tile(block, 4)  # offsets 5, 75, 145 tie exactly
+    lo1 = rng.integers(1, 3, size=300).astype(np.int8)
+    lo = [rng.integers(1, 3, size=int(n)).astype(np.int8) for n in (2, 37, 90, 141, 255)]
+    skip = np.concatenate([s1[20:70], s1[71:131]])  # a hyphen after 50 chars
+    return [
+        ("last offset of a tile", s1, [s1[127:227]], W, {0: 127}),
+        ("first offset of the next tile", s1, [s1[128:228]], W, {0: 128}),
+        ("tie across tiles", periodic, [block[5:65], np.tile(block, 2)[5:135]], W,
+         {0: 5, 1: 5}),
+        ("hyphen in a late segment", s1, [skip], W, {0: 20}),
+        ("len2 of 1, len1 - 1, len1 and above", s1,
+         [s1[:1], s1[1:], s1.copy(), np.concatenate([s1, s1[:3]])], W, {}),
+        ("lengths no multiple of 4 or of the segments", s1,
+         [s1[3:4 + n] for n in (5, 33, 101, 131, 257)], W, {}),
+        ("two letters: ties between offsets and between k", lo1, lo, [5, 1, 1, 1], {}),
+        ("all-equal weights", lo1, lo, [1, 1, 1, 1], {}),
+        ("all-zero weights: every candidate ties", lo1, lo, [0, 0, 0, 0],
+         dict.fromkeys(range(len(lo)), 0)),
+    ]
+
+
+@pytest.mark.parametrize("case", _seam_cases(), ids=lambda c: c[0])
+def test_fused_plain_at_the_kernel_seams(case):
+    """The new plain version against the JAX Pallas kernel (interpret
+    mode), the JAX oracle and the masked-argmax ``_plain_rows``."""
+    _, seq1, seqs, weights, want_n = case
+    _assert_fused_formulations_agree(seq1, seqs, weights)
+    _assert_three_way(seq1, seqs, weights)
+    got = _port_plain(seq1, seqs, weights)
+    for row, n in want_n.items():
+        assert got[row][1] == n
+    if weights == [0, 0, 0, 0]:
+        assert all(r == (0, 0, 0) for r in got)  # k = 0 wins every tie
+
+
+def test_fused_plain_hyphen_position_is_recovered():
+    """Seq2 = Seq1 with one char skipped: the hyphen belongs after 50
+    chars, in a later char segment than the first."""
+    rng = np.random.default_rng(23)
+    s1 = rng.integers(1, 27, size=300).astype(np.int8)
+    skip = np.concatenate([s1[20:70], s1[71:131]])
+    assert _port_plain(s1, [skip], W) == [(10 * 110, 20, 50)]
+
+
+@pytest.mark.parametrize("seed", [1, 4, 6])
+def test_fused_formulations_agree_on_mixed_batches(seed):
+    """Raw rows, eq column and unsearchable sentinels included, on a batch
+    that mixes lengths 0, 1, len1 - 1, len1 and above in one launch."""
+    rng = np.random.default_rng(seed)
+    l1 = int(rng.integers(130, 300))
+    alpha = (2, 4, 26)[seed % 3]
+    seq1 = rng.integers(1, alpha + 1, size=l1).astype(np.int8)
+    lens = [0, 1, l1 - 1, l1, l1 + 2, *rng.integers(2, l1, size=5).tolist()]
+    seqs = [rng.integers(1, alpha + 1, size=int(n)).astype(np.int8) for n in lens]
+    for weights in (W, [1, 1, 1, 1], [3000, 7, 1, 2]):
+        _assert_fused_formulations_agree(seq1, seqs, weights)
+    assert _port_plain(seq1, seqs, W) == _oracle(seq1, seqs, W)
+
+
+def _shared_diagonal_best(seq1, seq2, weights):
+    """The identity the kernel is built on, in numpy: e(n, i) =
+    val[s2[i], s1[n + i]] is d0 of offset n and d1 of offset n - 1, so with
+    A = cumsum(e): G = A(n) - A(n + 1), t1 = A(n + 1, len2), the best score
+    of an offset is t1 + max G, and k is recovered for the winner alone."""
+    val = tvalues.value_table(weights).astype(np.int64)
+    l1, l2 = len(seq1), len(seq2)
+    n = np.arange(l1 - l2 + 1)[:, None]
+    e = val[np.asarray(seq2)[None, :], np.asarray(seq1)[n + np.arange(l2)[None, :]]]
+    a = np.cumsum(e, axis=1)
+    g = a[:-1] - a[1:]  # [offsets, kappa - 1]
+    score = a[1:, -1] + g.max(axis=1)
+    best = int(np.argmax(score))  # first max: the smallest offset
+    gw = g[best]
+    k = 0
+    if l2 > 1 and gw[:-1].max() > gw[-1]:
+        k = int(np.argmax(gw[:-1])) + 1  # first kappa < len2 of the max
+    return int(score[best]), best, k
+
+
+@settings(max_examples=120, deadline=None, database=None, derandomize=True)
+@given(
+    alpha=hst.integers(1, 3),
+    weights=hst.lists(hst.integers(0, 3), min_size=4, max_size=4),
+    l1=hst.integers(2, 40),
+    data=hst.data(),
+)
+def test_shared_diagonal_identity_and_k_recovery_match_prefix_best(alpha, weights, l1, data):
+    """Small alphabets and small weights, so that ties between offsets and
+    between hyphen positions are the rule: same (score, n, k) as the port's
+    ``oracle.prefix_best`` every time."""
+    l2 = data.draw(hst.integers(1, l1 - 1))
+    codes = hst.integers(1, alpha)
+    seq1 = data.draw(hst.lists(codes, min_size=l1, max_size=l1))
+    seq2 = data.draw(hst.lists(codes, min_size=l2, max_size=l2))
+    want = toracle.prefix_best(np.array(seq1), np.array(seq2), weights)
+    assert _shared_diagonal_best(seq1, seq2, weights) == want
+    got = _port_plain(np.array(seq1, np.int8), [np.array(seq2, np.int8)], weights)
+    assert got == [want]
 
 
 @pytest.mark.parametrize("l2s", [8, 16, 32, 64])
@@ -190,6 +316,7 @@ def test_int32_gate_edge_is_exact_and_past_it_raises():
             seq1, seqs, weights
         )
         assert _rows(got) == _oracle(seq1, seqs, weights)
+        _assert_fused_formulations_agree(seq1, seqs, weights)
     with pytest.raises(ValueError, match="2\\^31"):
         tdispatch.AlignmentScorer("cuda", device="cpu").score_codes(
             seq1, seqs, [m + 1, 1, 1, 1]
