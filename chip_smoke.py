@@ -17,9 +17,13 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    (:func:`seam_problems`: tile edges, ties across tiles and char
    segments, the edge lengths, all-equal weights), every row against its
    plain version and the oracle;
-3. the packed kernel against its plain version and the fused kernel at
-   the input4-class packed set (Seq1 2976, 30 Seq2 of 5..64, seed 7) and
-   one batch per class 8/16/32, exact equality;
+3. the packed kernel against its plain version and the fused kernel,
+   exact equality: first its seams (:func:`packed_seam_problems`: each
+   class at its boundary lengths, pairs of every length and len2 = 0 in one
+   block, len2 = len1 and above, exact ties across lanes, tiles and hyphen
+   positions, valid offsets that end mid-tile), every row against the
+   oracle too; then the input4-class packed set (Seq1 2976, 30 Seq2 of
+   5..64, seed 7) and one batch per class 8/16/32;
 4. the main path: launch counts set to 0, then the batch CLI
    (``io.cli.run``) on every ``tests/fixtures/*.txt`` (stdout byte-identical
    to its ``.out``) and on the max-size, input4-class, 1024-short-row and
@@ -29,7 +33,10 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    parsed inputs (their count must equal the launch counts): kernel ==
    plain on the card, then kernel time (CUDA events over back-to-back
    launches), plain-version time and bound, summed per input and per
-   kernel into the kernels JSON line; the bench's one padded launch of the
+   kernel into the kernels JSON line; every bucket of that run that the
+   packed kernel could take timed with both kernels, the kernel the
+   packing rule picked at most 3 % slower than the other (``RULE_SLACK``);
+   the bench's one padded launch of the
    input3-class batch (``bench.single_program``) == plain; warm CLI walls,
    the device's busy share of a max-size CLI run and a cProfile of its
    host side;
@@ -92,6 +99,9 @@ PROBE_CHECK_ITERS = 32
 PROBE_TIME_ITERS = 4096
 # The ablation's base must time within this share of fused_scorer.
 ABLATE_BASE_TOL = 0.05
+# The kernel the packing rule picks for a bucket may time at most this share
+# slower than the other kernel.
+RULE_SLACK = 0.03
 
 
 def log(msg: str) -> None:
@@ -149,6 +159,53 @@ def seam_problems(np):
           for n in rng.integers(2, 650, size=24)]
     out.append(("two-letter ties", lo1, lo, [5, 1, 1, 1], {}))
     out.append(("all-equal weights", lo1, lo, [1, 1, 1, 1], {}))
+    out.append(("all-zero weights", lo1, lo, [0, 0, 0, 0],
+                {i: (f, 0) for i in range(len(lo)) for f in (1, 2)}))
+    return out
+
+
+def packed_seam_problems(np):
+    """Inputs that try the seams of ``csrc/packed_scorer.cu``, as (tag, seq1,
+    seqs, weights, {row: (field, value)} the oracle's answer must show); every
+    row fits a packing class.  Fields: 1 = n, 2 = k."""
+    rng = np.random.default_rng(29)
+    s1 = rng.integers(1, 27, size=3000).astype(np.int8)
+    out = []
+    for l2s in (8, 16, 32, 64):  # each class at its boundary lengths
+        lens = [l2s, l2s // 2 + 1, l2s, 1, l2s - 1] * 4
+        out.append((f"class {l2s} at its boundary lengths", s1,
+                    [rng.integers(1, 27, size=n).astype(np.int8) for n in lens],
+                    WEIGHTS, {}))
+    # Pairs of every length, 0 included, side by side in one block.
+    lens = [0, 64, 1, 33, 0, 5, 17, 48, 2, 0, 63, 9, 31, 0, 40, 7]
+    out.append(("mixed lengths in one block, len2 = 0 rows", s1,
+                [s1[100 + 7 * i: 100 + 7 * i + n] for i, n in enumerate(lens)],
+                WEIGHTS, {1: (1, 107), 3: (1, 121)}))
+    short = s1[:40]
+    out.append(("len2 = len1 and len2 > len1", short,
+                [short.copy(), np.concatenate([short, s1[:5]]), s1[3:30], s1[:39]],
+                WEIGHTS, {2: (1, 3)}))
+    # A run of one letter 61 long at offset 4 * 401 + 3: offsets 1607 and
+    # 1608 (lanes 401 % 32 and the next) tie exactly, and at 1607 k = 0 ties
+    # every k >= 1.
+    run = s1.copy()
+    run[1607:1668] = 1
+    out.append(("ties across lanes and between k = 0 and k >= 1", run,
+                [run[1607:1667], run[1608:1640]], WEIGHTS,
+                {0: (1, 1607), 1: (1, 1607)}))
+    # Seq1 of period 1000: offsets 30, 1030 and 2030 tie, in tiles 0, 8, 15.
+    block = rng.integers(1, 27, size=1000).astype(np.int8)
+    out.append(("ties across tiles", np.tile(block, 3),
+                [block[30:90], block[30:62], block[30:46]], WEIGHTS,
+                {i: (1, 30) for i in range(3)}))
+    # The last valid offset, mid-tile (tile 23 holds 2944..3071).
+    out.append(("valid offsets end mid-tile", s1,
+                [s1[2962:2999], s1[2989:2997], s1[2943:2999]], WEIGHTS,
+                {0: (1, 2962), 1: (1, 2989), 2: (1, 2943)}))
+    lo1 = rng.integers(1, 3, size=3000).astype(np.int8)
+    lo = [rng.integers(1, 3, size=int(n)).astype(np.int8)
+          for n in rng.integers(1, 65, size=24)]
+    out.append(("two-letter ties", lo1, lo, [5, 1, 1, 1], {}))
     out.append(("all-zero weights", lo1, lo, [0, 0, 0, 0],
                 {i: (f, 0) for i in range(len(lo)) for f in (1, 2)}))
     return out
@@ -228,7 +285,8 @@ def main() -> int:
     from mpi_openmp_cuda_tpu_torch.ops import _build, probe
     from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
     from mpi_openmp_cuda_tpu_torch.ops.costs import bound_ms
-    from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches, pad_problem
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import (
+        bucket_launches, choose_rowpack, pad_problem)
     from mpi_openmp_cuda_tpu_torch.ops.oracle import prefix_best
     from mpi_openmp_cuda_tpu_torch.ops.values import max_abs_value, value_table
     from mpi_openmp_cuda_tpu_torch.utils.timing import card_line, time_ms
@@ -316,6 +374,22 @@ def main() -> int:
             value_table(weights).reshape(-1), dev,
         )
 
+    for tag, s1, seqs, weights, want in packed_seam_problems(np):
+        st = state_of(s1, seqs, weights)
+        l2s = next(c for c in cs.PACK_CLASSES if c >= st.max_len2)
+        raw = cs.packed_scorer(st, l2s)
+        compare("packed_scorer", raw, cs.packed_scorer_plain(st, l2s))
+        if not torch.equal(raw, cs.fused_scorer(st)):
+            fail(f"packed seam {tag!r}: packed_scorer differs from fused_scorer")
+        rows = cs.finish_rows(raw, st.lens, st.len1).cpu().numpy()
+        check_oracle(s1, seqs, weights, rows, range(len(seqs)))
+        for i, (field, value) in want.items():
+            if rows[i][field] != value:
+                fail(f"packed seam {tag!r}, row {i}: {tuple(rows[i])} does not "
+                     f"try its seam (field {field} != {value})")
+        log(f"packed seams, {tag}: {len(seqs)} rows, l2s {l2s}, == plain == "
+            f"fused == oracle; k > 0 in {int((rows[:, 2] > 0).sum())} rows")
+
     seq1_4, seqs_4 = input4_problem(np)
     packed_sets = {64: (seq1_4, seqs_4)}
     for l2s, seed in ((8, 81), (16, 82), (32, 83)):
@@ -402,6 +476,36 @@ def main() -> int:
         if total[name]["n"] != counts[name]:
             fail(f"{name}: the main path launched {counts[name]} times, "
                  f"bucket_launches rebuilt {total[name]['n']}")
+    # The packing rule on the card: every bucket of the run that the packed
+    # kernel could take, timed with both kernels in turns (packed, fused,
+    # fused, packed); the kernel the rule picked may be at most
+    # RULE_SLACK slower than the other.
+    short_ms = {}
+    for tag, path in inputs.items():
+        prob = load_problem(str(path))
+        for launch in bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights, dev):
+            st = launch.state
+            # The class the packed kernel could take it in (the rule off the card).
+            l2s = choose_rowpack(st.rows.shape[1], st.lens.tolist())
+            if l2s is None:
+                continue
+            p0, f0, f1, p1 = (time_ms(fn, reps=50) for fn in (
+                lambda: cs.packed_scorer(st, l2s), lambda: cs.fused_scorer(st),
+                lambda: cs.fused_scorer(st), lambda: cs.packed_scorer(st, l2s)))
+            packed_ms, fused_ms = (p0 + p1) / 2, (f0 + f1) / 2
+            if tag == "1024 short rows":
+                short_ms[l2s] = packed_ms
+            picked, other = ((packed_ms, fused_ms) if launch.l2s is not None
+                             else (fused_ms, packed_ms))
+            verdict = (f"short bucket {tag} l2s {l2s} rows {launch.idx.size}: packed "
+                       f"{packed_ms:.6f} ms, fused {fused_ms:.6f} ms; the rule picked "
+                       f"{'packed' if launch.l2s is not None else 'fused'}, "
+                       f"{100 * (picked - other) / other:+.2f} % against the other [{card}]")
+            log(verdict)
+            if picked > (1 + RULE_SLACK) * other:
+                fail(f"the packing rule picked the slower kernel: {verdict}")
+    log(f"packed kernel on the 1024-short-row class-32 and class-64 buckets: "
+        f"{short_ms[32] + short_ms[64]:.6f} ms [{card}]")
     # What one launch for all buckets could gain: the max-size input padded
     # into a single fused launch (64 rows x L2P 2048), timed the same way.
     st_one = state_of(seq1_max, seqs_max, WEIGHTS)

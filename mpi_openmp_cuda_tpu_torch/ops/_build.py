@@ -11,8 +11,9 @@ The file name carries a hash of the sources (the ``.cu`` file and the
 shared ``.cuh`` headers) and flags, so an edited source is rebuilt and a
 stale library is never loaded.  ``build()`` starts one ``nvcc`` per
 source, all at once, and returns each compiler's ``-Xptxas -v`` report
-(registers, shared memory, spills).  Nothing here runs at import: the CPU
-tests import every module.
+(registers, shared memory, spills); ``build_variants()`` does the same
+for the sweep scripts' builds of one source under other ``-D`` settings.
+Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -60,40 +61,63 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, str]:
+    """Run one ``nvcc`` per job ``{tag: (source, library, extra flags)}``,
+    all started together, each into a temporary file moved onto its
+    library when it succeeds; returns ``{tag: ptxas report}``.  Raises
+    ``RuntimeError`` with the compiler's output when one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, (src, out, flags) in jobs.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
+        procs[tag] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            out,
+        )
+    failed = []
+    reports = {}
+    for tag, (proc, tmp, out) in procs.items():
+        report, _ = proc.communicate()
+        reports[tag] = report
+        if proc.returncode != 0:
+            failed.append(f"{tag} (nvcc exit {proc.returncode}):\n{report}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return reports
+
+
 def build(names) -> dict[str, str]:
     """Compile every named kernel whose library is missing, one ``nvcc``
     per source, all started together; returns ``{name: ptxas report}`` for
     the kernels compiled by this call.  Raises ``RuntimeError`` with the
     compiler's output when one fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _target(name) for name in names}
-    procs = {}
-    for name, out in targets.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (
-            subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-                stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT,
-                text=True,
-            ),
-            tmp,
-        )
-    failed = []
-    reports = {}
-    for name, (proc, tmp) in procs.items():
-        report, _ = proc.communicate()
-        reports[name] = report
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{report}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, targets[name])
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return reports
+    jobs = {}
+    for name in names:
+        out = _target(name)
+        if not out.exists():
+            jobs[name] = (CSRC_DIR / f"{name}.cu", out, ())
+    return _compile(jobs)
+
+
+def build_variants(
+    source: Path, variants: dict[str, tuple[str, ...]]
+) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile ``source`` once per variant ``{tag: extra nvcc flags}`` (a
+    sweep's ``-D`` settings), all started together, and load each:
+    ``{tag: (library, ptxas report)}``.  Always rebuilds; the libraries
+    are named by this process, so two sweeps never share one."""
+    jobs = {
+        tag: (source, BUILD_DIR / f"sweep-{source.stem}-{tag}-{os.getpid()}.so",
+              (*flags, f"-I{CSRC_DIR}"))
+        for tag, flags in variants.items()
+    }
+    reports = _compile(jobs)
+    return {tag: (ctypes.CDLL(str(jobs[tag][1])), reports[tag]) for tag in jobs}
 
 
 def load(name: str) -> ctypes.CDLL:

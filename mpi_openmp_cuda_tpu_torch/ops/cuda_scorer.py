@@ -12,9 +12,11 @@ offset carry ``(INT32_MIN, 0, 0)``.  The O(B) epilogue
 rules, as ``_pallas_rows`` does.
 
 * :func:`fused_scorer` — ``csrc/fused_scorer.cu`` (kernels in
-  ``csrc/fused_kernels.cuh``), for every bucket;
+  ``csrc/fused_kernels.cuh``), for every bucket the packed one does not
+  take;
 * :func:`packed_scorer` — ``csrc/packed_scorer.cu``, for L2P = 128
-  buckets whose every len2 fits a packing class ``l2s``.
+  buckets whose every len2 fits a packing class ``l2s``
+  (``dispatch.choose_rowpack``).
 
 Each wrapper runs its kernel on CUDA tensors and its plain version
 (:func:`fused_scorer_plain`, :func:`packed_scorer_plain`) on CPU tensors
@@ -120,7 +122,8 @@ def _plain_rows(seq1ext, len1, rows, lens, val, noff) -> torch.Tensor:
     """[B, 4] int32 rows over offsets ``n < noff`` and the chars of
     ``rows``: an int32 gather + cumsum + masked first-hit argmax over
     [B, noff, L] slabs (``mpi_openmp_cuda_tpu/ops/xla_scorer.py::
-    _score_pair``), in chunks of pairs to bound memory."""
+    _score_pair``), in chunks of pairs to bound memory.  No kernel uses
+    this formulation; the tests hold both plain versions against it."""
     b, l2 = rows.shape
     dev = rows.device
     n = torch.arange(noff, device=dev)[:, None]
@@ -151,22 +154,19 @@ def _plain_rows(seq1ext, len1, rows, lens, val, noff) -> torch.Tensor:
     return out
 
 
-def fused_scorer_plain(state: ScorerState) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/fused_scorer.cu``, in the kernel's
-    own formulation: [B, 4] int32.
+def _kernel_rows(seq1ext, len1, rows, lens, val, noff) -> torch.Tensor:
+    """[B, 4] int32 rows over offsets ``n < noff`` and the chars of
+    ``rows``, in the kernels' own formulation.
 
     One gather ``e[b, n, i] = val[s2[i], s1[n + i]]`` over the diagonals
-    ``n <= L1P``, ``A = cumsum(e)`` over the chars, and then
+    ``n <= noff``, ``A = cumsum(e)`` over the chars, and then
     ``G[kappa](n) = A(n, kappa) - A(n + 1, kappa)``, ``t1(n) = A(n + 1,
     len2)`` and ``eq = A(0, len2)``.  k = 0 (``t1 + G[len2]``) wins every
     tie, so an offset's best score is ``t1 + max_kappa G[kappa]`` with no
     index; the first best offset is found, and k is recovered for it alone.
     Pad chars add 0, so columns past len2 repeat ``G[len2]`` and need no
     mask."""
-    seq1ext, len1, rows, lens, val = (
-        state.seq1ext, state.len1, state.rows, state.lens, state.val)
     b, l2 = rows.shape
-    noff = state.l1p
     dev = rows.device
     n = torch.arange(noff + 1, device=dev)[:, None]
     i = torch.arange(l2, device=dev)[None, :]
@@ -197,11 +197,21 @@ def fused_scorer_plain(state: ScorerState) -> torch.Tensor:
     return out
 
 
+def fused_scorer_plain(state: ScorerState) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/fused_scorer.cu``, in the kernel's
+    own formulation (:func:`_kernel_rows`) over every char of the padded
+    rows and the offsets ``n < L1P``: [B, 4] int32."""
+    return _kernel_rows(
+        state.seq1ext, state.len1, state.rows, state.lens, state.val, state.l1p)
+
+
 def packed_scorer_plain(state: ScorerState, l2s: int) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/packed_scorer.cu``: [B, 4] int32 over
-    the first ``l2s`` chars of each row (every len2 <= l2s)."""
+    """Plain PyTorch version of ``csrc/packed_scorer.cu``, in the kernel's
+    own formulation (:func:`_kernel_rows`) over the first ``l2s`` chars of
+    each row (every len2 <= l2s) and the offsets ``n < L1P``: [B, 4]
+    int32."""
     _check_pack(state, l2s)
-    return _plain_rows(
+    return _kernel_rows(
         state.seq1ext, state.len1, state.rows[:, :l2s], state.lens, state.val,
         state.l1p,
     )
@@ -241,8 +251,8 @@ def _stream() -> ctypes.c_void_p:
 
 
 _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
-# int32 words of one (pair, tile) partial: [score, n] / [score, n, k].
-_PARTIAL_WORDS = {"fused_scorer": 2, "packed_scorer": 3}
+# int32 words of one (pair, tile) partial of either kernel: [score, n].
+_PARTIAL_WORDS = 2
 _ARGTYPES = {
     # seq1ext, len1, rows, lens, batch, l2p, ntiles, val, partial, out, stream
     "fused_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
@@ -254,31 +264,44 @@ _ARGTYPES = {
 }
 
 
-@functools.cache
-def _entry(name: str):
-    """The C entry ``<name>_launch`` of ``csrc/<name>.cu``, typed."""
-    fn = getattr(_build.load(name), f"{name}_launch")
+def typed_entry(lib: ctypes.CDLL, name: str):
+    """The C entry ``<name>_launch`` of a loaded build of
+    ``csrc/<name>.cu``, typed."""
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = list(_ARGTYPES[name])
     return fn
 
 
-def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
-    """Launch ``csrc/<name>.cu`` on the state's CUDA device: [B, 4] rows.
-    ``extra`` are the kernel's own int arguments after ``l2p``."""
+@functools.cache
+def _entry(name: str):
+    """The typed C entry of the production build of ``csrc/<name>.cu``."""
+    return typed_entry(_build.load(name), name)
+
+
+def call_entry(fn, state: ScorerState, *extra: int) -> torch.Tensor:
+    """One launch of a typed scorer entry on the state's CUDA device: [B, 4]
+    rows.  ``extra`` are the kernel's own int arguments after ``l2p``.  It
+    counts nothing: the sweep scripts call their own builds through it."""
     b, l2p = state.rows.shape
     ntiles = state.l1p // TILE
     dev = state.rows.device
     out = torch.empty((b, 4), dtype=torch.int32, device=dev)
-    partial = torch.empty((b, ntiles, _PARTIAL_WORDS[name]), dtype=torch.int32, device=dev)
+    partial = torch.empty((b, ntiles, _PARTIAL_WORDS), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _entry(name)(
+        err = fn(
             _ptr(state.seq1ext), state.len1, _ptr(state.rows), _ptr(state.lens),
             b, l2p, *extra, ntiles, _ptr(state.val), _ptr(partial), _ptr(out),
             _stream(),
         )
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+    return out
+
+
+def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` on the state's CUDA device and count it."""
+    out = call_entry(_entry(name), state, *extra)
     launch_counts[name] += 1
     return out
 

@@ -18,7 +18,7 @@ import torch
 from ..models.encoding import encode_normalized, pad_to
 from ..utils.constants import BUF_SIZE_SEQ1, BUF_SIZE_SEQ2
 from .bounds import check_int32_window
-from .cuda_scorer import PACK_CLASSES, TILE, ScorerState, kernel_table, score_rows
+from .cuda_scorer import PACK_CLASSES, ScorerState, kernel_table, score_rows
 from .oracle import score_batch_oracle
 from .values import max_abs_value, value_table
 
@@ -27,14 +27,6 @@ _LANE = 128
 # Length buckets smaller than this merge into the next wider bucket:
 # below it, a separate launch and copy cost more than padding.
 MIN_BUCKET_ROWS = 8
-
-# A bucket packs only when the fused kernel's grid, B x tiles blocks, is
-# at least this many times the blocks the card holds at once: below it
-# the fused kernel's p-times more blocks keep more of the card busy and
-# it is the faster one.  scripts/torch_rowpack_sweep.py measured the
-# crossover on an H100 at Seq1 3000 (24 tiles) between B = 176 and 256
-# rows in every class, i.e. 2.0-2.9 waves of the fused grid (PERF.md).
-PACK_MIN_WAVES = 2.5
 
 
 def round_up(x: int, mult: int) -> int:
@@ -111,32 +103,21 @@ def plan_buckets(sizes) -> dict[int, list[int]]:
     return groups
 
 
-def resident_blocks(device: torch.device) -> int:
-    """128-thread blocks the card holds at once (SMs x blocks per SM by
-    threads; both kernels fit that many by registers and shared memory).
-    0 off the card: on the CPU the packed plain version reads l2s chars of
-    each row instead of L2P, so packing always pays there."""
-    if device.type != "cuda":
-        return 0
-    prop = torch.cuda.get_device_properties(device)
-    return prop.multi_processor_count * (prop.max_threads_per_multi_processor // TILE)
-
-
-def choose_rowpack(l2p: int, lens, ntiles: int = 1, wave_blocks: int = 0) -> int | None:
-    """Packing class for one bucket, or None for the fused kernel: pack
-    p = 128/l2s pairs per block when the bucket is one 128-wide char block,
-    has >= 2 rows to share a block, every live row fits a class, and the
-    fused grid, B x ``ntiles`` blocks, is at least :data:`PACK_MIN_WAVES`
-    x ``wave_blocks`` (:func:`resident_blocks`; 0 off the card)."""
+def choose_rowpack(l2p: int, lens) -> int | None:
+    """Packing class for one bucket, or None for the fused kernel: the
+    smallest class that holds every live row, when the bucket is one
+    128-wide char block with >= 2 rows.  The JAX package's rule, on the
+    card as off it: scripts/torch_rowpack_sweep.py measured the packed
+    kernel faster than the fused one on an H100 at every batch size it
+    swept (8 to 4096 rows, 0.05 to 47 waves of the fused grid), in every
+    class, at Seq1 3000 and 1489 (PERF.md)."""
     lens = [int(x) for x in lens]
     live = [x for x in lens if x > 0]
     classes = pack_classes()
-    if l2p != _LANE or len(lens) < 2 or not live:
+    if l2p != _LANE or len(lens) < 2 or not live or max(live) > classes[-1]:
         return None
-    m = max(live)
-    if m > classes[-1] or len(lens) * ntiles < PACK_MIN_WAVES * wave_blocks:
-        return None
-    return next(s for s in classes if s >= m)
+    return next(s for s in classes if s >= max(live))
+
 
 def pad_batch_rows(batch: PaddedBatch, bp: int) -> tuple[np.ndarray, np.ndarray]:
     """Zero-pad the batch rows/lengths to ``bp`` rows (zero rows are len-0
@@ -199,8 +180,8 @@ def bucket_launches(
     gate checked on the whole batch (an error names the caller's input
     index before anything is launched), rows grouped by
     :func:`plan_buckets`, each group padded by :func:`pad_problem` and
-    moved to the device, its kernel chosen by :func:`choose_rowpack` for
-    that device.  :class:`AlignmentScorer` launches exactly these."""
+    moved to the device, its kernel chosen by :func:`choose_rowpack`.
+    :class:`AlignmentScorer` launches exactly these."""
     if not seq2_codes:
         return []
     if seq1_codes.size > BUF_SIZE_SEQ1:
@@ -216,7 +197,6 @@ def bucket_launches(
     val_flat = value_table(weights).astype(np.int32).reshape(-1)
     check_int32_window(max_abs_value(val_flat), max(sizes))
     val = torch.from_numpy(kernel_table(val_flat)).to(device)
-    wave = resident_blocks(device)
     groups = plan_buckets(sizes)
     launches = []
     for key in sorted(groups):
@@ -230,7 +210,7 @@ def bucket_launches(
             val=val,
             max_len2=int(batch.len2.max()),
         )
-        l2s = choose_rowpack(batch.l2p, batch.len2, batch.l1p // TILE, wave)
+        l2s = choose_rowpack(batch.l2p, batch.len2)
         launches.append(BucketLaunch(idx, state, l2s))
     return launches
 

@@ -24,7 +24,6 @@ import torch
 from ..utils.timing import time_ms
 from . import _build
 from .costs import PEAK_PER_S
-from .dispatch import resident_blocks
 
 # Kernel launches per wrapper: incremented only where a kernel is launched.
 launch_counts = {"issue_probe": 0}
@@ -166,6 +165,16 @@ def issue_probe(op: str, init: torch.Tensor, iters: int, perm: torch.Tensor) -> 
 
 
 # ---- the rate ---------------------------------------------------------------
+
+
+def resident_blocks(device: torch.device) -> int:
+    """:data:`THREADS`-thread blocks the card holds at once by its thread
+    limit (SMs x threads an SM / 128: 2112 on an H100), the probe's one
+    wave; 0 off the card."""
+    if device.type != "cuda":
+        return 0
+    prop = torch.cuda.get_device_properties(device)
+    return prop.multi_processor_count * (prop.max_threads_per_multi_processor // THREADS)
 
 
 def probe_operands(op: str, device):

@@ -22,7 +22,7 @@ issue rates.
    needs.  The scorer kernels alone (no epilogue) are timed too, with each
    fused launch's live (pair, offset tile) clusters, those with a valid
    offset, beside the blocks the card holds at once
-   (``dispatch.resident_blocks``).
+   (``probe.resident_blocks``).
 
 The last line of stdout is a JSON object with every number.
 """
@@ -61,8 +61,8 @@ def main() -> int:
     from mpi_openmp_cuda_tpu_torch.ops.cuda_scorer import (
         TILE, fused_scorer, packed_scorer, score_rows,
     )
-    from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches, resident_blocks
-    from mpi_openmp_cuda_tpu_torch.ops.probe import OPS, issue_probe_gelems
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches
+    from mpi_openmp_cuda_tpu_torch.ops.probe import OPS, issue_probe_gelems, resident_blocks
     from mpi_openmp_cuda_tpu_torch.utils.timing import card_line, time_ms
 
     _build.build(["fused_scorer", "packed_scorer", "issue_probe"])

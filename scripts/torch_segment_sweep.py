@@ -9,7 +9,8 @@
 warps: one segment per ``FUSED_SEG_CHARS`` chars of the padded row length,
 at most ``FUSED_MAX_SEG`` a block, in one block or, past that, in a cluster
 of ``FUSED_CLUSTER`` blocks.  Each config ``CHARSxMAXxCLUSTER`` is built
-with those macros set (``nvcc -D``, into ``build/torch_kernels/``), held
+with those macros set (``nvcc -D``, into ``build/torch_kernels/``, all
+builds started together: ``_build.build_variants``), held
 exactly equal to ``fused_scorer_plain`` on every launch of the workloads
 (max-size: Seq1 3000, 64 Seq2 of 1200..1999, in its five launches and
 padded into one, a full card; input3-class: the bench's; short rows: Seq1
@@ -24,10 +25,8 @@ build.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -44,34 +43,20 @@ DEFAULT_CONFIGS = "32x8x2,64x8x2,16x8x2,32x16x1,32x8x1,32x4x4,32x12x2,32x16x2"
 WEIGHTS = [10, 2, 3, 4]
 
 
-def build_variant(source: Path, chars: int, most: int, cluster: int):
-    """The typed C entry of ``source`` built with the macros set."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"sweep-{source.stem}-{chars}x{most}x{cluster}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DFUSED_SEG_CHARS={chars}",
-           f"-DFUSED_MAX_SEG={most}", f"-DFUSED_CLUSTER={cluster}",
-           f"-I{_build.CSRC_DIR}", "-o", str(out), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).fused_scorer_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = list(cs._ARGTYPES["fused_scorer"])
-    return fn
-
-
-def run(fn, state) -> torch.Tensor:
-    """One launch of a built entry on a CUDA state: [B, 4] rows."""
-    b, l2p = state.rows.shape
-    ntiles = state.l1p // cs.TILE
-    out = torch.empty((b, 4), dtype=torch.int32, device=state.rows.device)
-    partial = torch.empty((b, ntiles, 2), dtype=torch.int32, device=state.rows.device)
-    err = fn(cs._ptr(state.seq1ext), state.len1, cs._ptr(state.rows), cs._ptr(state.lens),
-             b, l2p, ntiles, cs._ptr(state.val), cs._ptr(partial), cs._ptr(out),
-             cs._stream())
-    if err != 0:
-        raise RuntimeError(f"launch failed: CUDA error {err}")
-    return out
+def build_all(sources, configs) -> dict:
+    """{``stem:CHARSxMAXxCLUSTER``: typed C entry} of every source under every
+    config, one nvcc each, all started together."""
+    builds = {}
+    for src in sources:
+        variants = {
+            "x".join(map(str, cfg)): (f"-DFUSED_SEG_CHARS={cfg[0]}",
+                                      f"-DFUSED_MAX_SEG={cfg[1]}",
+                                      f"-DFUSED_CLUSTER={cfg[2]}")
+            for cfg in configs
+        }
+        for tag, (lib, _) in _build.build_variants(src, variants).items():
+            builds[f"{src.stem}:{tag}"] = cs.typed_entry(lib, "fused_scorer")
+    return builds
 
 
 def main(argv=None) -> int:
@@ -109,17 +94,13 @@ def main(argv=None) -> int:
         "max-size in one": [BucketLaunch(None, one, None)],
     }
     want = {tag: [cs.fused_scorer_plain(b.state) for b in ls] for tag, ls in work.items()}
-    sources = [_build.CSRC_DIR / "fused_scorer.cu", *map(Path, args.source)]
-    builds = {}
-    for src in sources:
-        for cfg in configs:
-            name = f"{src.stem}:{'x'.join(map(str, cfg))}"
-            builds[name] = build_variant(src.resolve(), *cfg)
-            print(f"built {name}", flush=True)
-            for tag, launches in work.items():
-                for launch, ref in zip(launches, want[tag]):
-                    if not torch.equal(run(builds[name], launch.state), ref):
-                        raise RuntimeError(f"{name} differs from plain on {tag}")
+    sources = [_build.CSRC_DIR / "fused_scorer.cu", *(Path(s).resolve() for s in args.source)]
+    builds = build_all(sources, configs)
+    for name, fn in builds.items():
+        for tag, launches in work.items():
+            for launch, ref in zip(launches, want[tag]):
+                if not torch.equal(cs.call_entry(fn, launch.state), ref):
+                    raise RuntimeError(f"{name} differs from plain on {tag}")
     print(f"card {card}; {len(builds)} builds == plain on "
           f"{ {t: len(ls) for t, ls in work.items()} } launches", flush=True)
     ms = {name: {tag: [] for tag in work} for name in builds}
@@ -127,7 +108,7 @@ def main(argv=None) -> int:
         for name, fn in builds.items():
             for tag, launches in work.items():
                 ms[name][tag].append(time_ms(
-                    lambda: [run(fn, b.state) for b in launches], args.reps))
+                    lambda: [cs.call_entry(fn, b.state) for b in launches], args.reps))
     rows = {name: {tag: statistics.median(v) for tag, v in per.items()}
             for name, per in ms.items()}
     for name, per in rows.items():

@@ -158,6 +158,10 @@ def test_rate_function_refuses_the_cpu(monkeypatch):
         probe.issue_probe_gelems("fma", "cuda")
 
 
+def test_resident_blocks_is_zero_off_the_card():
+    assert probe.resident_blocks(torch.device("cpu")) == 0
+
+
 @pytest.mark.parametrize("op", probe.OPS)
 def test_rate_check_and_long_chain(op):
     peak = costs.PEAK_PER_S[op]

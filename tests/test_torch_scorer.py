@@ -15,8 +15,6 @@ without one."""
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -244,18 +242,76 @@ def test_packed_plain_each_class(l2s):
     assert torch.equal(cs.packed_scorer_plain(st, l2s), cs.fused_scorer_plain(st))
 
 
+def _packed_seam_cases():
+    """(id, seq1, seqs, weights, {row: (field, value)} the oracle's answer
+    must show) for the seams of the packed kernel's design (a warp per
+    (pair, tile), lanes of 4 consecutive offsets, W pairs a block), at
+    interpret-mode sizes: Seq1 of 260, two live 128-offset tiles.  Fields:
+    1 = n, 2 = k."""
+    rng = np.random.default_rng(31)
+    s1 = rng.integers(1, 27, size=260).astype(np.int8)
+    cases = []
+    for l2s in (8, 16, 32, 64):
+        lens = [l2s, l2s // 2 + 1, l2s, 1, l2s - 1, l2s]
+        cases.append((f"class {l2s} at its boundary lengths", s1,
+                      [rng.integers(1, 27, size=n).astype(np.int8) for n in lens], W, {}))
+    lens = [0, 64, 1, 33, 0, 5, 17, 48, 2, 0]
+    cases.append(("mixed lengths in one block, len2 = 0 rows", s1,
+                  [s1[10 + 7 * i: 10 + 7 * i + n] for i, n in enumerate(lens)], W,
+                  {1: (1, 17), 3: (1, 31)}))
+    short = s1[:40]
+    cases.append(("len2 = len1 and len2 > len1", short,
+                  [short.copy(), np.concatenate([short, s1[:5]]), s1[3:30], s1[:39]], W,
+                  {2: (1, 3)}))
+    # A run of one letter 61 long at offset 71 = 4 * 17 + 3: offsets 71 and
+    # 72 (lanes 17 and 18) tie exactly, and at 71 k = 0 ties every k >= 1.
+    run = s1.copy()
+    run[71:132] = 1
+    cases.append(("ties across lanes and between k = 0 and k >= 1", run,
+                  [run[71:131], run[72:104]], W, {0: (2, 0), 1: (1, 71)}))
+    block = rng.integers(1, 27, size=130).astype(np.int8)  # offsets 40 and 170 tie
+    cases.append(("ties across tiles", np.tile(block, 2), [block[40:100], block[40:72]], W,
+                  {0: (1, 40), 1: (1, 40)}))
+    cases.append(("valid offsets end mid-tile", s1, [s1[223:259], s1[251:259], s1[203:259]],
+                  W, {0: (1, 223), 1: (1, 251), 2: (1, 203)}))
+    return cases
+
+
+@pytest.mark.parametrize("case", _packed_seam_cases(), ids=lambda c: c[0])
+def test_packed_plain_at_the_kernel_seams(case):
+    """The packed plain version (the kernel's formulation over l2s chars)
+    against the JAX Pallas kernel (interpret mode), the JAX oracle, the
+    masked-argmax ``_plain_rows`` and the fused plain version: raw [B, 4]
+    rows exactly equal."""
+    _, seq1, seqs, weights, want = case
+    l2s = tdispatch.choose_rowpack(128, [s.size for s in seqs])
+    assert l2s is not None and l2s >= max(s.size for s in seqs)
+    st = _state(seq1, seqs, weights)
+    raw = cs.packed_scorer_plain(st, l2s)
+    assert raw.dtype == torch.int32
+    assert torch.equal(raw, cs._plain_rows(st.seq1ext, st.len1, st.rows, st.lens, st.val, st.l1p))
+    assert torch.equal(raw, cs.fused_scorer_plain(st))
+    _assert_three_way(seq1, seqs, weights, l2s=l2s)
+    got = _port_plain(seq1, seqs, weights, l2s)
+    for row, (field, value) in want.items():
+        assert got[row][field] == value
+
+
 @pytest.mark.parametrize("l2s", [8, 16, 32, 64])
 def test_rowpack_on_the_card_needs_the_fused_grid_to_fill_it(l2s):
-    """On the card a bucket packs only when the fused grid, B x ntiles
-    blocks, reaches PACK_MIN_WAVES x the resident blocks; off it (wave 0)
-    every admissible bucket packs, as the TPU rule does."""
-    wave, ntiles = 132 * 16, 24
-    need = math.ceil(tdispatch.PACK_MIN_WAVES * wave / ntiles)
-    fills, short = [l2s] * need, [l2s] * (need - 1)
-    assert tdispatch.choose_rowpack(128, fills, ntiles, wave) == l2s
-    assert tdispatch.choose_rowpack(128, short, ntiles, wave) is None
-    assert tdispatch.choose_rowpack(128, short) == l2s
-    assert tdispatch.resident_blocks(torch.device("cpu")) == 0
+    """The packing rule on the card.  (The name dates from a rule that
+    packed only past a fused grid of 2.5 waves.)  The packed kernel beat
+    the fused one at every batch size swept, so a 128-wide bucket of >= 2
+    rows packs into the smallest class that holds its longest row whatever
+    the grid, on the card as off it, as the TPU rule does; one row, or a
+    wider bucket, stays on the fused kernel."""
+    lens = [l2s, l2s // 2 + 1]
+    assert tdispatch.choose_rowpack(128, lens) == l2s
+    assert tdispatch.choose_rowpack(128, lens) == jdispatch.choose_rowpack("i8", 128, lens)
+    assert tdispatch.choose_rowpack(128, [l2s]) is None
+    assert tdispatch.choose_rowpack(256, lens) is None
+    wider = tdispatch.choose_rowpack(128, [l2s + 1, 1])
+    assert wider == (2 * l2s if l2s < 64 else None)
 
 
 def test_bucket_launches_cover_every_row_once():
