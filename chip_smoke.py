@@ -59,7 +59,31 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    input3-class workload in a subprocess; its one stdout line must
    validate as a bench run report and carry the device, the three probe
    rates, ``floor_us`` and launch counts of the fused scorer and the
-   probe > 0 (the bench resets its counts before its first run).
+   probe > 0 (the bench resets its counts before its first run);
+9. launch groups (``ops/schedule.py``), run after phase 5: for every CLI
+   input, the planned launches (``bucket_launches``) against one launch a
+   bucket (``fuse=False``): each group launch == its plain version, the
+   grouped rows == the singleton rows == the oracle (every row of the
+   small inputs, eight of the large), and, where the plan groups buckets,
+   both schedules timed (planned, singletons, singletons, planned), the
+   planned one at most ``RULE_SLACK`` slower; then, at input3-class, the
+   one batched ``finish_rows`` epilogue and copy against one a bucket;
+10. the ``mm`` and ``gather`` backends on the card: TF32 shown to round
+   the mm path's value matrix at :data:`TF32_WEIGHTS` while
+   ``matmul_scorer.ieee_fp32`` keeps it exact; on max-size, at the
+   weights of phase 2 and at :data:`TF32_WEIGHTS`, both == the fused
+   kernel's rows (eight of them == the oracle); every seam row == the
+   oracle at max|v| 127, 128 and 3000; both timed on max-size;
+11. the robustness path through ``io.cli.run`` on cuda: first each of
+   its launches rebuilt at the path's own shapes (every fixture in
+   ``--stream`` chunks of 2 rows, stress_small in chunks of 3, max-size
+   in the journal's chunks), each held kernel == plain; then, launch
+   counts set to 0: ``--stream 2 --journal`` on every fixture, faults
+   absorbed by ``--retries``, ``--degrade`` down to ``mm`` and to
+   ``gather``, ``SEQALIGN_DRAIN=1`` (75) then ``--resume``, and
+   ``--deadline 0.5 --retries 2 --faults hang:dispatch:fail=1``; every
+   stdout == its golden (the fixture's ``.out``, the oracle's for
+   max-size), and a scorer kernel must have launched.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: the CLI run of
@@ -247,23 +271,38 @@ def device_us(torch, fn) -> tuple[dict[str, float], float, float]:
     return per, busy, wall
 
 
-def run_cli(cli, argv) -> tuple[int, bytes, float]:
-    """``cli.run(argv)`` in this process with fd 1 captured; returns
-    (exit code, stdout bytes, wall seconds)."""
+def run_cli(cli, argv, err=None) -> tuple[int, bytes, float]:
+    """``cli.run(argv)`` in this process with fd 1 captured (and fd 2 into
+    the list ``err``, when given); returns (exit code, stdout bytes, wall
+    seconds)."""
     sys.stdout.flush()
-    saved = os.dup(1)
-    with tempfile.TemporaryFile() as cap:
-        os.dup2(cap.fileno(), 1)
+    sys.stderr.flush()
+    fds = (1, 2) if err is not None else (1,)
+    saved = [os.dup(fd) for fd in fds]
+    caps = [tempfile.TemporaryFile() for _ in fds]
+    try:
+        for fd, cap in zip(fds, caps):
+            os.dup2(cap.fileno(), fd)
         try:
             t0 = time.perf_counter()
             rc = cli.run(argv)
             wall = time.perf_counter() - t0
             sys.stdout.flush()
+            sys.stderr.flush()
         finally:
-            os.dup2(saved, 1)
-            os.close(saved)
-        cap.seek(0)
-        return rc, cap.read(), wall
+            for fd, old in zip(fds, saved):
+                os.dup2(old, fd)
+                os.close(old)
+        outs = []
+        for cap in caps:
+            cap.seek(0)
+            outs.append(cap.read())
+        if err is not None:
+            err.append(outs[1].decode(errors="replace"))
+        return rc, outs[0], wall
+    finally:
+        for cap in caps:
+            cap.close()
 
 
 def main() -> int:
@@ -438,6 +477,7 @@ def main() -> int:
         )
         if rc != 0 or out.decode() != want:
             fail(f"CLI on {tag}: rc {rc}, stdout differs from the oracle")
+        inputs[tag].with_suffix(".out").write_text(want)  # phase 11's golden
         log(f"cli {tag}: {len(seqs)} rows == oracle, wall {wall * 1e3:.3f} ms")
     for name in names:
         if counts[name] < 1:
@@ -534,6 +574,11 @@ def main() -> int:
     for line in text.getvalue().splitlines():
         if PKG in line or "cumtime" in line:
             log(f"host {line.strip()}")
+
+    # -- 9-11. launch groups, the mm and gather backends, robustness -------
+    groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card)
+    backends_phase(np, torch, (seq1_max, seqs_max), prefix_best, time_ms, card)
+    robust_counts = robustness_phase(torch, cli, cs, compare, fixtures, inputs)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -543,7 +588,8 @@ def main() -> int:
         bucket_launches(seq1_max, seqs_max, WEIGHTS, dev), card,
     )
     bench_counts = bench_phase(probe)
-    paths = {"cli": counts, "bench": bench_counts, "ablation": abl_counts}
+    paths = {"cli": counts, "robustness": robust_counts, "bench": bench_counts,
+             "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -580,6 +626,268 @@ def main() -> int:
         },
     }))
     return 0
+
+
+def scatter_rows(np, launches, count, backend="cuda"):
+    """The [count, 3] host rows of ``launches`` on ``backend`` in input
+    order, through the production path's one epilogue and one copy."""
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import BucketedPending, run_launch
+
+    if not launches:
+        return np.zeros((0, 3), dtype=np.int32)
+    parts = [(b.idx, run_launch(b, backend), b.state.lens) for b in launches]
+    len1 = launches[0].state.len1
+    return BucketedPending(parts, count, len1, finish=backend == "cuda").result().copy()
+
+
+def groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card) -> None:
+    """Phase 9: the launch groups of every CLI input against one launch a
+    bucket: each group launch == its plain version, the grouped rows ==
+    the singleton rows == the oracle (sampled on the large inputs), both
+    schedules timed (planned, singletons, singletons, planned) and the
+    planned one at most RULE_SLACK slower; then, at input3-class, the one
+    batched epilogue and copy against one a bucket."""
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import BucketedPending, bucket_launches
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import run_launch
+
+    dev = torch.device("cuda")
+    for tag, path in inputs.items():
+        prob = load_problem(str(path))
+        s1, seqs, w = prob.seq1_codes, prob.seq2_codes, prob.weights
+        planned = bucket_launches(s1, seqs, w, dev)
+        single = bucket_launches(s1, seqs, w, dev, fuse=False)
+        for b in planned:
+            if b.l2s is None and len(b.keys) > 1:
+                compare("fused_scorer", cs.fused_scorer(b.state), cs.fused_scorer_plain(b.state))
+        got = scatter_rows(np, planned, len(seqs))
+        if not np.array_equal(got, scatter_rows(np, single, len(seqs))):
+            fail(f"launch groups of {tag} differ from one launch a bucket")
+        step = 1 if len(seqs) <= 32 else max(1, len(seqs) // 8)
+        for i in range(0, len(seqs), step):
+            if tuple(int(x) for x in got[i]) != prefix_best(s1, seqs[i], w):
+                fail(f"launch groups of {tag}, row {i}: {tuple(got[i])} != oracle")
+        shape = [b.keys for b in planned]
+        if shape == [b.keys for b in single]:
+            log(f"groups {tag}: {len(single)} launches, no group of two buckets "
+                f"planned; rows == oracle")
+            continue
+
+        def run(launches):
+            def go():
+                for b in launches:
+                    run_launch(b, "cuda")
+            return go
+
+        p0, s0, s1_, p1 = (time_ms(run(ls), reps=30) for ls in (planned, single, single,
+                                                                    planned))
+        p_ms, s_ms = (p0 + p1) / 2, (s0 + s1_) / 2
+        verdict = (f"groups {tag}: {len(single)} launches -> {len(planned)} "
+                   f"{shape}; planned {p_ms:.6f} ms, singletons {s_ms:.6f} ms "
+                   f"({100 * (p_ms - s_ms) / s_ms:+.2f} %) [{card}]")
+        log(verdict)
+        if p_ms > (1 + RULE_SLACK) * s_ms:
+            fail(f"the planned launch groups are slower: {verdict}")
+
+    # One epilogue and one copy for the batch against one a bucket.
+    prob = load_problem(str(inputs["input3-class"]))
+    n = len(prob.seq2_codes)
+    for name, fuse in (("planned", True), ("singletons", False)):
+        launches = bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights, dev,
+                                   fuse=fuse)
+        parts = [(b.idx, run_launch(b, "cuda"), b.state.lens) for b in launches]
+        len1 = launches[0].state.len1
+        pins = [torch.empty((b.idx.size, 3), dtype=torch.int32, pin_memory=True)
+                for b in launches]
+
+        def per_bucket():
+            for (_, raw, lens), pin in zip(parts, pins):
+                pin.copy_(cs.finish_rows(raw, lens, len1), non_blocking=True)
+
+        def batched():
+            BucketedPending(parts, n, len1, finish=True)._start_copy()
+
+        a0, b0, b1, a1 = (time_ms(fn, reps=30) for fn in (per_bucket, batched, batched,
+                                                            per_bucket))
+        log(f"epilogue input3-class, {name} ({len(launches)} launches): one a bucket "
+            f"{(a0 + a1) / 2:.6f} ms, one batched {(b0 + b1) / 2:.6f} ms [{card}]")
+
+
+# max |v| 4093: above TF32's 11 significant bits, inside the fp32 window at
+# L2P 2048 (2 * 2048 * 4093 < 2^24).
+TF32_WEIGHTS = [4093, 2047, 1021, 3001]
+
+
+def backends_phase(np, torch, max_size, prefix_best, time_ms, card) -> None:
+    """Phase 10: the mm and gather backends on the card against the fused
+    kernel and the oracle on max-size (every row against the kernel, every
+    eighth against the oracle) and every seam row against the oracle, at
+    the weights 10 2 3 4, max|v| 127, 128 and 3000 and at a table TF32
+    would round (shown to round under TF32, so exact results prove IEEE
+    fp32 in force); then both timed on max-size."""
+    from mpi_openmp_cuda_tpu_torch.ops import matmul_scorer
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import (
+        bucket_launches, effective_backend, run_launch)
+    from mpi_openmp_cuda_tpu_torch.ops.values import value_table
+
+    dev = torch.device("cuda")
+    seq1, seqs = max_size
+    # The mm path's two products on max-size's Seq1 and a 2048-char row at
+    # the TF32_WEIGHTS table: under TF32 they round, under ieee_fp32 they
+    # equal the exact value matrix val[s2[i], s1[j]].
+    val = torch.from_numpy(value_table(TF32_WEIGHTS)).to(dev)
+    s1t = torch.from_numpy(seq1.astype(np.int64)).to(dev)
+    s2t = torch.from_numpy(np.resize(seqs[0], 2048).astype(np.int64)).to(dev)
+    exact = val[s2t][:, s1t].float()
+    eye = torch.eye(27, device=dev)
+
+    def products():
+        a_right = torch.matmul(val.float(), eye[s1t].T)
+        return torch.matmul(eye[s2t], a_right)
+
+    mm = torch.backends.cuda.matmul
+    new_api = hasattr(mm, "fp32_precision")
+    prev = mm.fp32_precision if new_api else mm.allow_tf32
+    try:
+        if new_api:
+            mm.fp32_precision = "tf32"
+        else:
+            mm.allow_tf32 = True
+        tf32 = products()
+    finally:
+        if new_api:
+            mm.fp32_precision = prev
+        else:
+            mm.allow_tf32 = prev
+    with matmul_scorer.ieee_fp32():
+        ieee = products()
+    torch.cuda.synchronize()
+    rounded = int((tf32 != exact).sum())
+    if not torch.equal(ieee, exact) or rounded == 0:
+        fail(f"TF32 check: IEEE products exact {torch.equal(ieee, exact)}, TF32 "
+             f"rounded {rounded} of {exact.numel()} (want exact and > 0)")
+    log(f"TF32 rounds {rounded} of the {exact.numel()} values of the mm path's "
+        f"value matrix at weights {TF32_WEIGHTS}; under matmul_scorer.ieee_fp32 "
+        "every value is exact")
+    for weights in [WEIGHTS, *REGIME_WEIGHTS, TF32_WEIGHTS]:
+        ref = scatter_rows(np, bucket_launches(seq1, seqs, weights, dev), len(seqs))
+        for i in range(0, len(seqs), 8):
+            if tuple(int(x) for x in ref[i]) != prefix_best(seq1, seqs[i], weights):
+                fail(f"fused_scorer on max-size, weights {weights}, row {i} != oracle")
+        for backend in ("mm", "gather"):
+            launches = bucket_launches(seq1, seqs, weights, dev, backend=backend)
+            got = scatter_rows(np, launches, len(seqs), backend)
+            if not np.array_equal(got, ref):
+                fail(f"{backend} on max-size, weights {weights}: differs from fused_scorer")
+            routes = sorted({effective_backend(backend, b.maxv, b.state.rows.shape[1])
+                             for b in launches})
+            log(f"{backend} max-size, weights {weights}: {len(launches)} launches "
+                f"(formulations {routes}) == fused_scorer (8 rows of it == oracle)")
+    for tag, s1, sq, _, _ in seam_problems(np):
+        for weights in REGIME_WEIGHTS:
+            want = [prefix_best(s1, q, weights) for q in sq]
+            for backend in ("mm", "gather"):
+                got = scatter_rows(np, bucket_launches(s1, sq, weights, dev,
+                                                       backend=backend), len(sq), backend)
+                if [tuple(int(x) for x in r) for r in got] != want:
+                    fail(f"{backend} on seam input {tag!r}, weights {weights} != oracle")
+        log(f"mm, gather: seams {tag!r} == oracle at max|v| 127, 128, 3000")
+    for backend in ("mm", "gather"):
+        launches = bucket_launches(seq1, seqs, WEIGHTS, dev, backend=backend)
+        ms = time_ms(lambda: [run_launch(b, backend) for b in launches], reps=3)
+        log(f"{backend} max-size: {len(launches)} launches {ms:.6f} ms (plain path) [{card}]")
+
+
+def robustness_phase(torch, cli, cs, compare, fixtures, inputs) -> dict[str, int]:
+    """Phase 11: the robustness path through ``io.cli.run`` on cuda.  First
+    every launch of the path is rebuilt, as its dispatch plans it, at its
+    own shapes (the --stream chunks of 2 and 3 rows, with their one-row
+    leftovers, and the journal's chunks) and held kernel == plain; then
+    the launch counts are set to 0 and the CLI runs: --stream with
+    --journal on every fixture, retries that absorb injected faults,
+    --degrade down to mm and to gather, a drain (75) and its --resume, and
+    an injected hang that the deadline turns into a retry; every output
+    == the fixture's .out (or the oracle's).  Returns the path's launch
+    counts."""
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches
+    from mpi_openmp_cuda_tpu_torch.utils.journal import DEFAULT_CHUNK
+
+    dev = torch.device("cuda")
+    big = inputs["max-size"]
+    tiny = next(f for f in fixtures if f.stem == "stress_small")
+    chunkings = [(f, 2) for f in fixtures] + [(tiny, 3), (big, DEFAULT_CHUNK)]
+    held = {"fused_scorer": 0, "packed_scorer": 0}
+    for path, size in chunkings:
+        prob = load_problem(str(path))
+        s1, seqs, w = prob.seq1_codes, prob.seq2_codes, prob.weights
+        for start in range(0, len(seqs), size):
+            for b in bucket_launches(s1, seqs[start:start + size], w, dev):
+                if b.l2s is None:
+                    name, got, want = ("fused_scorer", cs.fused_scorer(b.state),
+                                       cs.fused_scorer_plain(b.state))
+                else:
+                    name, got, want = ("packed_scorer", cs.packed_scorer(b.state, b.l2s),
+                                       cs.packed_scorer_plain(b.state, b.l2s))
+                compare(name, got, want)
+                held[name] += 1
+    log(f"robustness path launches rebuilt chunk by chunk == plain: {held} "
+        f"({len(chunkings)} inputs, --stream chunks of 2 and 3, journal chunks "
+        f"of {DEFAULT_CHUNK})")
+    os.environ["SEQALIGN_BACKOFF_BASE"] = "0"
+    jdir = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+
+    def expect(tag, argv, path, want_err=(), rc_want=0, want_out=True):
+        err = []
+        rc, out, _ = run_cli(cli, argv, err)
+        gold = Path(path).with_suffix(".out")
+        if rc != rc_want or (want_out and out != gold.read_bytes()) or (
+                not want_out and out):
+            fail(f"robustness {tag}: rc {rc} (want {rc_want}), stdout "
+                 f"{'differs' if out else 'empty'}; stderr: {err[0][-800:]}")
+        missing = [w for w in want_err if w not in err[0]]
+        if missing:
+            fail(f"robustness {tag}: stderr lacks {missing}: {err[0][-800:]}")
+        log(f"robustness {tag}: rc {rc}" + (", stdout == .out" if want_out else ""))
+
+    for f in fixtures:
+        j = os.path.join(jdir.name, f"{f.stem}.jsonl")
+        expect(f"--stream 2 --journal {f.name}",
+               ["--input", str(f), "--stream", "2", "--journal", j], f)
+    expect("--retries 2, chunk_scoring:fail=2 (max-size)",
+           ["--input", str(big), "--retries", "2", "--faults", "chunk_scoring:fail=2"],
+           big, ["retrying"])
+    expect("--stream 3 --retries 2, chunk_dispatch:fail=1;chunk_scoring:fail=1",
+           ["--input", str(tiny), "--stream", "3", "--retries", "2",
+            "--faults", "chunk_dispatch:fail=1;chunk_scoring:fail=1"], tiny)
+    expect("--degrade to mm (max-size)",
+           ["--input", str(big), "--retries", "1", "--degrade",
+            "--faults", "chunk_scoring:fail=2"], big, ["degrading to 'mm'"])
+    expect("--degrade to gather (max-size)",
+           ["--input", str(big), "--retries", "1", "--degrade",
+            "--faults", "chunk_scoring:fail=4"], big, ["degrading to 'gather'"])
+    j = os.path.join(jdir.name, "drain.jsonl")
+    os.environ["SEQALIGN_DRAIN"] = "1"
+    try:
+        expect("SEQALIGN_DRAIN=1 --journal (max-size)",
+               ["--input", str(big), "--journal", j], big, ["drained"], rc_want=75,
+               want_out=False)
+    finally:
+        del os.environ["SEQALIGN_DRAIN"]
+    expect("--journal --resume after the drain (max-size)",
+           ["--input", str(big), "--journal", j, "--resume"], big)
+    expect("--deadline 0.5 --retries 2, hang:dispatch:fail=1",
+           ["--input", str(tiny), "--deadline", "0.5", "--retries", "2",
+            "--faults", "hang:dispatch:fail=1"], tiny, ["watchdog deadline"])
+    counts = dict(cs.launch_counts)
+    log(f"robustness path launch counts: {counts}")
+    if counts["fused_scorer"] < 1 or counts["packed_scorer"] < 1:
+        fail(f"the robustness path never launched a scorer kernel: {counts}")
+    jdir.cleanup()
+    del os.environ["SEQALIGN_BACKOFF_BASE"]
+    return counts
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

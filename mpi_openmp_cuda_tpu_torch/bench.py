@@ -16,8 +16,9 @@ The record, ``wrap_report("bench", ...)``, exactly one stdout line:
 * ``metric``, ``value`` (elements/s over ``device_wall_us``; null off the
   card), ``unit``;
 * ``device_wall_us``: device time of one run of the batch's launches
-  (``dispatch.bucket_launches``, built once) each with its
-  ``finish_rows`` epilogue, ``DEVICE_REPS`` runs back to back behind a
+  (``dispatch.bucket_launches``, built once: one a launch group) and the
+  batch's one ``finish_rows`` epilogue and copy back to pinned memory,
+  ``DEVICE_REPS`` runs back to back behind a
   sleeping kernel, CUDA events (``utils.timing.time_ms``); the attempt
   recorded is chosen by the GEMM-probe gate below;
 * ``e2e_first_run_s``: host clock around the first ``score_codes`` call
@@ -283,13 +284,16 @@ def attempt_logger(on_card: bool):
 
 
 def schedule_run(launches):
-    """One run of the batch on the device, nothing copied back: every
-    launch with its ``finish_rows`` epilogue."""
-    from .ops.cuda_scorer import score_rows
+    """One run of the batch on the device as the production path makes
+    it: every launch, then the batch's one ``finish_rows`` epilogue and
+    its one copy to pinned host memory (``dispatch.BucketedPending``)."""
+    from .ops.dispatch import BucketedPending, run_launch
+
+    count = sum(b.idx.size for b in launches)
 
     def run():
-        for b in launches:
-            score_rows(b.state, b.l2s)
+        parts = [(b.idx, run_launch(b, "cuda"), b.state.lens) for b in launches]
+        BucketedPending(parts, count, launches[0].state.len1, finish=True)._start_copy()
 
     return run
 

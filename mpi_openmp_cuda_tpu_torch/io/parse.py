@@ -100,9 +100,83 @@ def load_problem(path: str | None = None) -> Problem:
 
 @contextlib.contextmanager
 def open_input(path: str | None = None):
-    """Context manager yielding the input stream (stdin for None/'-')."""
+    """Context manager yielding the input stream (stdin for None/'-');
+    the streaming parse holds it open across the whole scoring loop."""
     if path is None or path == "-":
         yield sys.stdin
     else:
         with open(path, "r", encoding="ascii") as f:
             yield f
+
+
+# ---- streaming parse (the --stream pipeline's input side) -----------------
+
+
+def _iter_tokens(stream: TextIO, bufsize: int = 1 << 20):
+    """Yield whitespace-delimited tokens without reading the whole stream."""
+    leftover = ""
+    while True:
+        block = stream.read(bufsize)
+        if not block:
+            if leftover:
+                yield leftover
+            return
+        if leftover:
+            block = leftover + block
+        parts = block.split()
+        # A block ending mid-token holds that token back for the next read.
+        leftover = parts.pop() if parts and not block[-1].isspace() else ""
+        yield from parts
+
+
+@dataclass
+class StreamHeader:
+    """Parsed header of a streaming problem; Seq2s are pulled on demand.
+
+    The reference reads the whole batch before computing (main.c:96-108).
+    Streaming keeps host memory bounded by the chunk size and lets the CLI
+    overlap parsing chunk i+1 with device compute on chunk i — the host-IO
+    / device-compute pipelining tier (SURVEY §2.4 PP row).
+    """
+
+    weights: list[int]
+    seq1: str
+    seq1_codes: np.ndarray
+    num_seq2: int
+    _tokens: object  # token iterator positioned at the first Seq2
+
+    def iter_chunks(self, chunk_size: int):
+        """Yield ``(start_index, [seq2_codes...])`` of <= chunk_size
+        sequences each, encoding (and validating) lazily.  Raises
+        InputFormatError if the stream ends before ``num_seq2`` sequences.
+        """
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        done = 0
+        while done < self.num_seq2:
+            take = min(chunk_size, self.num_seq2 - done)
+            codes: list[np.ndarray] = []
+            for _ in range(take):
+                tok = next(self._tokens, None)
+                if tok is None:
+                    raise InputFormatError(
+                        f"declared {self.num_seq2} sequences but stream "
+                        f"ended at {done + len(codes)}"
+                    )
+                codes.append(encode_normalized(tok))
+            yield done, codes
+            done += take
+
+
+def parse_stream_header(stream: TextIO) -> StreamHeader:
+    """Parse weights/Seq1/N and return a header whose chunks stream."""
+    tokens = _iter_tokens(stream)
+    head = [t for _, t in zip(range(6), tokens)]
+    weights, seq1, n = _parse_header_tokens(head)
+    return StreamHeader(
+        weights=weights,
+        seq1=seq1,
+        seq1_codes=encode_normalized(seq1),
+        num_seq2=n,
+        _tokens=tokens,
+    )

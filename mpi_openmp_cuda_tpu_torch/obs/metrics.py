@@ -1,10 +1,10 @@
 """The run-report envelope (counterpart of ``mpi_openmp_cuda_tpu/obs/
 metrics.py``'s report serializer).
 
-Only the envelope is ported so far: :func:`wrap_report` and the envelope
-and ``kind="bench"`` checks of :func:`validate_report`.  The schema name
-and version are the JAX package's, so one validator reads the records of
-both packages.
+Ported so far: :func:`wrap_report`, the envelope and ``kind="bench"``
+checks of :func:`validate_report`, and :func:`drain_snapshot`, which the
+journal's drain record reads.  The schema name and version are the JAX
+package's, so one validator reads the records of both packages.
 """
 
 from __future__ import annotations
@@ -12,6 +12,19 @@ from __future__ import annotations
 #: The one report envelope (run reports AND bench records).
 RUN_REPORT_SCHEMA = "mpi_openmp_cuda_tpu.run-report"
 RUN_REPORT_VERSION = 1
+
+# The armed metrics registry (anything with ``snapshot() -> dict``), or
+# None.  The registry itself arrives with the port's obs plane; until then
+# nothing arms one and the journal's drain record carries no snapshot.
+_active = None
+
+
+def drain_snapshot() -> dict | None:
+    """The extra payload of the journal's ``{"event": "drain"}`` record:
+    ``{"metrics": snapshot}`` when a registry is armed, else None."""
+    if _active is None:
+        return None
+    return {"metrics": _active.snapshot()}
 
 
 def wrap_report(kind: str, body: dict, *, meta: dict | None = None) -> dict:

@@ -26,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..resilience.policy import KernelUnavailableError
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -48,7 +50,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError(
+    raise KernelUnavailableError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
         "kernels are compiled at first use"
     )
@@ -65,7 +67,7 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
     """Run one ``nvcc`` per job ``{tag: (source, library, extra flags)}``,
     all started together, each into a temporary file moved onto its
     library when it succeeds; returns ``{tag: ptxas report}``.  Raises
-    ``RuntimeError`` with the compiler's output when one fails."""
+    ``KernelUnavailableError`` with the compiler's output when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (src, out, flags) in jobs.items():
@@ -87,15 +89,16 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelUnavailableError("kernel build failed: " + "\n".join(failed))
     return reports
 
 
 def build(names) -> dict[str, str]:
     """Compile every named kernel whose library is missing, one ``nvcc``
     per source, all started together; returns ``{name: ptxas report}`` for
-    the kernels compiled by this call.  Raises ``RuntimeError`` with the
-    compiler's output when one fails."""
+    the kernels compiled by this call.  Raises ``KernelUnavailableError``
+    (fatal to the run, never retried) with the compiler's output when one
+    fails."""
     jobs = {}
     for name in names:
         out = _target(name)
@@ -126,6 +129,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            try:
+                lib = ctypes.CDLL(str(_target(name)))
+            except OSError as e:
+                raise KernelUnavailableError(f"cannot load the {name} kernel: {e}") from e
             _libs[name] = lib
         return lib

@@ -1,6 +1,6 @@
 """Work counts of the scorer kernels, the H100's data-sheet peaks, and the
 bound and floor built from them (the accounting role of the JAX package's
-``pallas_scorer.kernel_vpu_pass_elems`` and ``schedule.kernel_configs``).
+``pallas_scorer.kernel_vpu_pass_elems``).
 
 A launch's work is counted from what its data needs, not from its padded
 shapes: the (offset, char) cells of every searchable pair, the three

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..resilience.policy import DeviceFaultError, KernelUnavailableError
 from ..utils.constants import ALPHABET_SIZE, INT32_MIN
 from . import _build
 
@@ -279,6 +280,21 @@ def _entry(name: str):
     return typed_entry(_build.load(name), name)
 
 
+# CUDA errors after which the context is unusable (illegal address, launch
+# timeout, device-side assert, hardware stack error, illegal instruction,
+# misaligned address, invalid address space, invalid PC, launch failure,
+# unknown): a launch reporting one raises DeviceFaultError.  Any other
+# code (no image for this device, a bad launch configuration) is the
+# kernel being unusable here: KernelUnavailableError.
+STICKY_CUDA_ERRORS = frozenset({700, 702, 710, 714, 715, 716, 717, 718, 719, 999})
+
+
+def launch_error(name: str, err: int) -> RuntimeError:
+    """The error a failed launch of ``name`` with CUDA error ``err`` raises."""
+    cls = DeviceFaultError if err in STICKY_CUDA_ERRORS else KernelUnavailableError
+    return cls(f"{name} failed: CUDA error {err}")
+
+
 def call_entry(fn, state: ScorerState, *extra: int) -> torch.Tensor:
     """One launch of a typed scorer entry on the state's CUDA device: [B, 4]
     rows.  ``extra`` are the kernel's own int arguments after ``l2p``.  It
@@ -295,7 +311,7 @@ def call_entry(fn, state: ScorerState, *extra: int) -> torch.Tensor:
             _stream(),
         )
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+        raise launch_error(fn.__name__, err)
     return out
 
 

@@ -1,32 +1,63 @@
-"""Batch dispatch: length buckets, padding, kernel choice, async results.
+"""Batch dispatch: length buckets, launch groups, padding, backend choice,
+asynchronous results.
 
 The port of ``mpi_openmp_cuda_tpu/ops/dispatch.py``'s single-device path.
-Rows are grouped by their 128-wide L2P bucket (rows of at most 64 chars by
-their packing class 8/16/32/64), each bucket is padded into rectangular
-int32 operands and scored by one kernel launch on the scorer's device,
-and the results come back to the host once per bucket, in input order.
+Rows are grouped by their 128-wide L2P bucket (rows of at most 64 chars
+by their packing class 8/16/32/64, on the ``cuda`` backend), the fused
+buckets are partitioned into launch groups (``ops/schedule.py``), each
+group is padded into rectangular int32 operands on the scorer's device
+and scored by one launch, and the whole batch comes back to the host in
+one copy, in input order.
+
+Backends:
+
+* ``cuda`` — the Hopper kernels (``ops/cuda_scorer.py``; their plain
+  PyTorch versions on a CPU device);
+* ``mm`` — the one-hot fp32 matmul formulation (``ops/matmul_scorer.py``),
+  a bucket past its fp32 window routed to ``gather``
+  (:func:`effective_backend`);
+* ``gather`` — the int32 gather formulation (``ops/gather_scorer.py``);
+* ``oracle`` — the host numpy reference.
+
+``auto`` is ``cuda``, always: a kernel that fails to build or launch is
+an error (``KernelUnavailableError``), never a quiet move to another
+backend; the CLI's ``--degrade`` is the opt-in chain.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..models.encoding import encode_normalized, pad_to
+from ..resilience import watchdog
+from ..resilience.faults import fire as _fault
 from ..utils.constants import BUF_SIZE_SEQ1, BUF_SIZE_SEQ2
-from .bounds import check_int32_window
-from .cuda_scorer import PACK_CLASSES, ScorerState, kernel_table, score_rows
+from .bounds import check_int32_window, mm_max_exact_value
+from .cuda_scorer import (
+    PACK_CLASSES, ScorerState, finish_rows, fused_scorer, kernel_table, packed_scorer,
+)
+from .gather_scorer import gather_rows
+from .matmul_scorer import mm_rows
 from .oracle import score_batch_oracle
 from .values import max_abs_value, value_table
+
+BACKENDS = ("cuda", "mm", "gather", "oracle")
 
 _LANE = 128
 
 # Length buckets smaller than this merge into the next wider bucket:
 # below it, a separate launch and copy cost more than padding.
 MIN_BUCKET_ROWS = 8
+
+# Seconds between polls of a result's CUDA event while a deadline is armed.
+_POLL_S = 50e-6
 
 
 def round_up(x: int, mult: int) -> int:
@@ -81,15 +112,16 @@ def pack_classes() -> tuple[int, ...]:
     return PACK_CLASSES
 
 
-def plan_buckets(sizes) -> dict[int, list[int]]:
+def plan_buckets(sizes, *, packable: bool = True) -> dict[int, list[int]]:
     """Input indices grouped by L2P shape bucket, rows of at most 64 chars
-    by their packing class, with groups of fewer than
-    :data:`MIN_BUCKET_ROWS` rows merged into the next wider one."""
+    by their packing class when ``packable`` (the ``cuda`` backend), with
+    groups of fewer than :data:`MIN_BUCKET_ROWS` rows merged into the next
+    wider one."""
     classes = pack_classes()
 
     def bucket_key(size: int) -> int:
         l2p = round_up(max(size, 1), _LANE)
-        if l2p == _LANE and size <= classes[-1]:
+        if packable and l2p == _LANE and size <= classes[-1]:
             return next(s for s in classes if s >= size)
         return l2p
 
@@ -119,6 +151,15 @@ def choose_rowpack(l2p: int, lens) -> int | None:
     return next(s for s in classes if s >= max(live))
 
 
+def effective_backend(backend: str, maxv: int, l2p: int) -> str:
+    """The formulation a backend runs on a bucket of width ``l2p`` at
+    max |table value| ``maxv``: ``mm`` becomes ``gather`` past the fp32
+    window there (``bounds.mm_max_exact_value``)."""
+    if backend == "mm" and maxv > mm_max_exact_value(l2p):
+        return "gather"
+    return backend
+
+
 def pad_batch_rows(batch: PaddedBatch, bp: int) -> tuple[np.ndarray, np.ndarray]:
     """Zero-pad the batch rows/lengths to ``bp`` rows (zero rows are len-0
     pairs, dropped on output)."""
@@ -130,60 +171,28 @@ def pad_batch_rows(batch: PaddedBatch, bp: int) -> tuple[np.ndarray, np.ndarray]
 
 
 @dataclass(frozen=True)
-class PendingResult:
-    """A launched, not yet fetched result: ``raw`` is a [B, 3] int32
-    tensor on the scorer's device (or a host array on the oracle path).
-    Kernel launches are asynchronous, so host work can overlap them until
-    ``result()`` copies the [count, 3] rows to the host."""
+class PlannedLaunch:
+    """One launch planned on the host: its bucket keys, the input rows it
+    scores (ascending), its padded operands and its packing class."""
 
-    raw: object
-    count: int
-
-    def result(self) -> np.ndarray:
-        raw = self.raw
-        if isinstance(raw, torch.Tensor):
-            raw = raw.cpu().numpy()
-        return np.asarray(raw).reshape(-1, 3)[: self.count]
-
-
-@dataclass(frozen=True)
-class BucketedPending:
-    """Pending results of a length-bucketed dispatch; every bucket is
-    launched before any is fetched, and ``result()`` copies each bucket to
-    the host once and restores input order."""
-
-    parts: list  # [(row_indices, PendingResult)]
-    count: int
-
-    def result(self) -> np.ndarray:
-        out = np.zeros((self.count, 3), dtype=np.int32)
-        for idx, pend in self.parts:
-            out[idx] = pend.result()
-        return out
-
-
-@dataclass(frozen=True)
-class BucketLaunch:
-    """One kernel launch of a batch: the input rows it scores (ascending),
-    its bucket's operands on the device, and its packing class (None: the
-    fused kernel)."""
-
+    keys: tuple
     idx: np.ndarray
-    state: ScorerState
+    batch: PaddedBatch
     l2s: int | None
 
 
-def bucket_launches(
-    seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, device: torch.device
-) -> list[BucketLaunch]:
-    """The launches that score one batch on ``device``: caps and the int32
+def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
+                  fuse: bool = True):
+    """``(val_flat, [PlannedLaunch])`` of one batch: caps and the int32
     gate checked on the whole batch (an error names the caller's input
     index before anything is launched), rows grouped by
-    :func:`plan_buckets`, each group padded by :func:`pad_problem` and
-    moved to the device, its kernel chosen by :func:`choose_rowpack`.
-    :class:`AlignmentScorer` launches exactly these."""
-    if not seq2_codes:
-        return []
+    :func:`plan_buckets`, fused buckets partitioned into launch groups by
+    ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
+    one launch a bucket, the schedule the groups are held against), each
+    group padded by :func:`pad_problem` and its kernel chosen by
+    :func:`choose_rowpack`."""
+    from .schedule import plan_fusion_groups
+
     if seq1_codes.size > BUF_SIZE_SEQ1:
         raise ValueError(
             f"Seq1 length {seq1_codes.size} exceeds BUF_SIZE_SEQ1={BUF_SIZE_SEQ1}"
@@ -193,26 +202,235 @@ def bucket_launches(
             raise ValueError(
                 f"Seq2[{i}] length {c.size} exceeds BUF_SIZE_SEQ2={BUF_SIZE_SEQ2}"
             )
-    sizes = [int(c.size) for c in seq2_codes]
     val_flat = value_table(weights).astype(np.int32).reshape(-1)
+    if not seq2_codes:
+        return val_flat, []
+    sizes = [int(c.size) for c in seq2_codes]
     check_int32_window(max_abs_value(val_flat), max(sizes))
-    val = torch.from_numpy(kernel_table(val_flat)).to(device)
-    groups = plan_buckets(sizes)
-    launches = []
-    for key in sorted(groups):
-        idx = np.asarray(sorted(groups[key]), dtype=np.int64)
+    cuda = backend == "cuda"
+    groups = plan_buckets(sizes, packable=cuda)
+    group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
+                  if cuda and fuse else [(k,) for k in sorted(groups)])
+    plans = []
+    for keys in group_keys:
+        idx = np.asarray(sorted(i for k in keys for i in groups[k]), dtype=np.int64)
         batch = pad_problem(seq1_codes, [seq2_codes[i] for i in idx])
-        state = ScorerState(
-            seq1ext=torch.from_numpy(batch.seq1ext).to(device),
-            len1=batch.len1,
-            rows=torch.from_numpy(batch.seq2).to(device),
-            lens=torch.from_numpy(batch.len2).to(device),
-            val=val,
-            max_len2=int(batch.len2.max()),
-        )
-        l2s = choose_rowpack(batch.l2p, batch.len2)
-        launches.append(BucketLaunch(idx, state, l2s))
-    return launches
+        l2s = choose_rowpack(batch.l2p, batch.len2) if cuda else None
+        plans.append(PlannedLaunch(tuple(keys), idx, batch, l2s))
+    return val_flat, plans
+
+
+@dataclass(frozen=True)
+class BucketLaunch:
+    """One kernel launch of a batch: the input rows it scores (ascending),
+    its operands on the device, its packing class (None: the fused
+    kernel), the bucket keys of its launch group and the table's max
+    |value|."""
+
+    idx: np.ndarray
+    state: ScorerState
+    l2s: int | None
+    keys: tuple = ()
+    maxv: int = 0  # max |table value|, known on the host
+
+
+def _host_tensor(arr: np.ndarray, pin: bool) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.pin_memory() if pin else t
+
+
+def _to_device(plan: PlannedLaunch, val: torch.Tensor, maxv: int,
+               device: torch.device) -> BucketLaunch:
+    """The plan's operands on ``device``; on a CUDA device the copies come
+    from pinned memory and do not block the host."""
+    pin = device.type == "cuda"
+    b = plan.batch
+    state = ScorerState(
+        seq1ext=_host_tensor(b.seq1ext, pin).to(device, non_blocking=pin),
+        len1=b.len1,
+        rows=_host_tensor(b.seq2, pin).to(device, non_blocking=pin),
+        lens=_host_tensor(b.len2, pin).to(device, non_blocking=pin),
+        val=val,
+        max_len2=int(b.len2.max()),
+    )
+    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv)
+
+
+def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
+    """A digest of one dispatch's operands (backend, weights, Seq1, every
+    row's length and codes): a :class:`StagedFeed` feeds only a dispatch
+    with the same digest."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(backend.encode())
+    h.update(np.asarray(weights, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(seq1_codes, dtype=np.int8).tobytes())
+    h.update(np.array([c.size for c in seq2_codes], dtype=np.int64).tobytes())
+    for c in seq2_codes:
+        h.update(np.ascontiguousarray(c, dtype=np.int8).tobytes())
+    return h.digest()
+
+
+class StagedFeed:
+    """The launches of ONE upcoming dispatch whose host-to-device copies
+    were started early (:meth:`AlignmentScorer.prestage_codes`), planned
+    once for the operands of ``digest``.  On a CUDA device the copies run
+    on a side stream and ``event`` marks their end; :meth:`take` makes the
+    current stream wait on it before handing the launches out, so nothing
+    reads a staged tensor before its copy has landed.  ``take`` empties
+    the feed: it feeds at most one attempt, and a retried dispatch plans
+    and copies again from the host."""
+
+    def __init__(self, digest: bytes, event, launches: list[BucketLaunch]):
+        self.digest = digest
+        self._event = event
+        self._launches = launches
+
+    def take(self, digest: bytes) -> list[BucketLaunch] | None:
+        """The staged launches when ``digest`` is the one they were staged
+        for (None otherwise, or once taken)."""
+        launches, self._launches = self._launches, None
+        if launches is None or digest != self.digest:
+            return None
+        if self._event is not None:
+            stream = torch.cuda.current_stream(launches[0].state.rows.device)
+            stream.wait_event(self._event)
+            for b in launches:
+                st = b.state
+                for t in (st.seq1ext, st.rows, st.lens, st.val):
+                    t.record_stream(stream)
+        return launches
+
+
+def _upload(val_flat, plans, device: torch.device) -> list[BucketLaunch]:
+    """The plans' operands on ``device`` (one value table for all)."""
+    pin = device.type == "cuda"
+    val = _host_tensor(kernel_table(val_flat), pin).to(device, non_blocking=pin)
+    maxv = max_abs_value(val_flat)
+    return [_to_device(plan, val, maxv, device) for plan in plans]
+
+
+def bucket_launches(
+    seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, device: torch.device,
+    *, backend: str = "cuda", staged: StagedFeed | None = None, fuse: bool = True,
+) -> list[BucketLaunch]:
+    """The launches that score one batch on ``device``: the plans of
+    :func:`plan_launches` with their operands on the device, or those of
+    ``staged`` when it was staged for the same operands (checked by
+    :func:`operand_digest`; the production schedule only).
+    :class:`AlignmentScorer` launches exactly these."""
+    if staged is not None and fuse:
+        launches = staged.take(operand_digest(seq1_codes, seq2_codes, weights, backend))
+        if launches is not None:
+            return launches
+    val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, backend, fuse=fuse)
+    return _upload(val_flat, plans, device) if plans else []
+
+
+def run_launch(launch: BucketLaunch, backend: str) -> torch.Tensor:
+    """One launch on ``backend``: the kernels' raw [B, 4] rows for
+    ``cuda`` (``finish_rows`` runs once for the whole batch), finished
+    [B, 3] rows for ``mm`` and ``gather``."""
+    st = launch.state
+    if backend == "cuda":
+        return fused_scorer(st) if launch.l2s is None else packed_scorer(st, launch.l2s)
+    val_flat = st.val.reshape(-1)
+    if effective_backend(backend, launch.maxv, st.rows.shape[1]) == "mm":
+        return mm_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
+    return gather_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
+
+
+def _wait(event) -> None:
+    """Block until ``event`` has completed: polled while a deadline is
+    armed (a CUDA wait cannot be interrupted), else a plain wait."""
+    if watchdog.active_watchdog() is None:
+        event.synchronize()
+        return
+    while not event.query():
+        watchdog.check_expired("the device result wait")
+        time.sleep(_POLL_S)
+
+
+class PendingResult:
+    """A result that is already on the host (the oracle path, an empty
+    batch), with the same ``prefetch``/``result`` contract as
+    :class:`BucketedPending`."""
+
+    def __init__(self, raw, count: int):
+        self.raw = raw
+        self.count = count
+
+    def prefetch(self) -> None:
+        _fault("device_transfer")
+
+    def result(self) -> np.ndarray:
+        with watchdog.guard("chunk result gather"):
+            _fault("chunk_scoring")
+            return np.asarray(self.raw).reshape(-1, 3)[: self.count]
+
+
+class BucketedPending:
+    """The launched, not yet fetched result of a batch.
+
+    ``parts`` are ``(input rows, [B, 4] raw kernel rows or [B, 3] finished
+    rows, lens)`` on the scorer's device; every launch was queued before
+    any is fetched.  Materialising concatenates the parts on the device,
+    runs ``finish_rows`` once over all raw rows, scatters them into input
+    order and copies the [count, 3] result to the host once:
+    :meth:`prefetch` starts that copy into pinned memory
+    (``non_blocking``) and records a CUDA event, :meth:`result` waits for
+    the event under the deadline guard."""
+
+    def __init__(self, parts: list, count: int, len1: int, finish: bool):
+        self.parts = parts
+        self.count = count
+        self.len1 = len1
+        self.finish = finish
+        self._host = None
+        self._event = None
+
+    def _start_copy(self) -> None:
+        def cat(k):
+            return self.parts[0][k] if len(self.parts) == 1 else torch.cat(
+                [p[k] for p in self.parts])
+
+        rows = cat(1)
+        if self.finish:
+            rows = finish_rows(rows, cat(2), self.len1)
+        dev = rows.device
+        cuda = dev.type == "cuda"
+        order = np.concatenate([p[0] for p in self.parts])
+        if np.array_equal(order, np.arange(self.count)):
+            out = rows  # already in input order (one launch, or sorted parts)
+        else:
+            # The scatter's index goes up from pinned memory: a pageable
+            # copy would wait for the device.
+            idx = _host_tensor(order, cuda).to(dev, non_blocking=cuda)
+            out = torch.empty((self.count, 3), dtype=torch.int32, device=dev)
+            out[idx] = rows
+        if cuda:
+            host = torch.empty((self.count, 3), dtype=torch.int32, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            host = out
+        self._host = host
+
+    def prefetch(self) -> None:
+        """Start the device-to-host copy (the ``device_transfer`` fault
+        site; advisory: a copy not started here starts in ``result``)."""
+        _fault("device_transfer")
+        if self._host is None:
+            self._start_copy()
+
+    def result(self) -> np.ndarray:
+        with watchdog.guard("bucketed result gather"):
+            _fault("chunk_scoring")
+            if self._host is None:
+                self._start_copy()
+            if self._event is not None:
+                _wait(self._event)
+            return self._host.numpy()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -233,37 +451,67 @@ class AlignmentScorer:
     """Front door to the scoring paths.
 
     backend: 'auto' or 'cuda' (the Hopper kernels; on a CPU device their
-    plain PyTorch versions), or 'oracle' (host numpy reference).
+    plain PyTorch versions), 'mm' (one-hot fp32 matmul), 'gather' (int32
+    gather) or 'oracle' (host numpy reference).
     device: 'cuda' by default; 'cpu' only when asked for.
     """
 
     def __init__(self, backend: str = "auto", device=None):
         if backend == "auto":
             backend = "cuda"
-        if backend not in ("cuda", "oracle"):
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         # The oracle scores on the host and touches no device.
         self.device = None if backend == "oracle" else resolve_device(device)
+        self._side = None  # the staging stream (CUDA, made at first use)
 
-    def score_codes(self, seq1_codes, seq2_codes, weights) -> np.ndarray:
+    def score_codes(self, seq1_codes, seq2_codes, weights, *, staged=None) -> np.ndarray:
         """[B, 3] int32 array of (score, n, k) rows, input order."""
-        return self.score_codes_async(seq1_codes, seq2_codes, weights).result()
+        return self.score_codes_async(seq1_codes, seq2_codes, weights, staged=staged).result()
 
     def score_codes_async(
-        self, seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights
+        self, seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, *,
+        staged: StagedFeed | None = None,
     ) -> PendingResult | BucketedPending:
-        """``score_codes`` without waiting for the device->host copy."""
+        """``score_codes`` without waiting for the device-to-host copy.
+        ``staged`` is an optional :class:`StagedFeed` from
+        :meth:`prestage_codes` (single-use)."""
+        with watchdog.guard("chunk dispatch"):
+            _fault("chunk_dispatch")
+        if not seq2_codes:
+            return PendingResult(np.zeros((0, 3), dtype=np.int32), 0)
         if self.backend == "oracle":
             out = np.array(
                 score_batch_oracle(seq1_codes, seq2_codes, weights), dtype=np.int32
             ).reshape(-1, 3)
             return PendingResult(out, out.shape[0])
-        parts = [
-            (b.idx, PendingResult(score_rows(b.state, b.l2s), b.idx.size))
-            for b in bucket_launches(seq1_codes, seq2_codes, weights, self.device)
-        ]
-        return BucketedPending(parts, len(seq2_codes))
+        launches = bucket_launches(
+            seq1_codes, seq2_codes, weights, self.device, backend=self.backend, staged=staged
+        )
+        parts = [(b.idx, run_launch(b, self.backend), b.state.lens) for b in launches]
+        return BucketedPending(parts, len(seq2_codes), int(seq1_codes.size),
+                               finish=self.backend == "cuda")
+
+    def prestage_codes(self, seq1_codes, seq2_codes, weights) -> StagedFeed | None:
+        """Plan a future :meth:`score_codes_async` of the same operands and
+        start its host-to-device copies, on a side CUDA stream that
+        records one event at their end.  None where staging does not apply
+        (the oracle, an empty batch)."""
+        if self.backend == "oracle" or not seq2_codes:
+            return None
+        val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, self.backend)
+        cuda = self.device.type == "cuda"
+        if cuda and self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        event = None
+        with torch.cuda.stream(self._side) if cuda else contextlib.nullcontext():
+            launches = _upload(val_flat, plans, self.device)
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(self._side)
+        return StagedFeed(operand_digest(seq1_codes, seq2_codes, weights, self.backend),
+                          event, launches)
 
     def score(self, seq1: str, seq2_list: list[str], weights) -> np.ndarray:
         return self.score_codes(

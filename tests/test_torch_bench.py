@@ -27,6 +27,7 @@ from mpi_openmp_cuda_tpu_torch.io.parse import load_problem  # noqa: E402
 from mpi_openmp_cuda_tpu_torch.models import workload as tworkload  # noqa: E402
 from mpi_openmp_cuda_tpu_torch.obs import metrics as tmetrics  # noqa: E402
 from mpi_openmp_cuda_tpu_torch.ops import costs  # noqa: E402
+from mpi_openmp_cuda_tpu_torch.ops import schedule as tschedule  # noqa: E402
 from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches  # noqa: E402
 
 Attempt = tbench.Attempt
@@ -134,7 +135,9 @@ def test_bench_cpu_prints_one_line_without_rate_fields(backend):
     assert "stress_small.txt" in rec["metric"] and rec["unit"] == "elements/s/chip"
     assert not [k for k in rec if any(f in k for f in RATE_FIELDS)], rec
     assert "power_limit_w" not in rec and "probe_gated" not in rec
-    assert rec["launches"] == (2 if backend == "cuda" else 0)
+    stress = load_problem(str(REPO / "tests" / "fixtures" / "stress_small.txt"))
+    want = len(tschedule.production_schedule(stress, "cpu")) if backend == "cuda" else 0
+    assert rec["launches"] == want
     assert rec["kernel_launches"] == {"fused_scorer": 0, "packed_scorer": 0, "issue_probe": 0}
     assert rec["cold_start_s"] >= rec["e2e_first_run_s"] > 0
 

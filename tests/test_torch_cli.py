@@ -133,7 +133,12 @@ def test_port_import_loads_no_jax():
     code = (
         "import sys, mpi_openmp_cuda_tpu_torch, mpi_openmp_cuda_tpu_torch.io.cli, "
         "mpi_openmp_cuda_tpu_torch.ops.cuda_scorer, mpi_openmp_cuda_tpu_torch.bench, "
-        "mpi_openmp_cuda_tpu_torch.ops.probe; "
+        "mpi_openmp_cuda_tpu_torch.ops.probe, mpi_openmp_cuda_tpu_torch.ops.schedule, "
+        "mpi_openmp_cuda_tpu_torch.ops.gather_scorer, "
+        "mpi_openmp_cuda_tpu_torch.ops.matmul_scorer, "
+        "mpi_openmp_cuda_tpu_torch.io.pipeline, mpi_openmp_cuda_tpu_torch.utils.journal, "
+        "mpi_openmp_cuda_tpu_torch.utils.selfcheck, "
+        "mpi_openmp_cuda_tpu_torch.resilience.watchdog; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_openmp_cuda_tpu')]; print(bad); sys.exit(bool(bad))"
     )

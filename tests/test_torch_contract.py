@@ -28,6 +28,7 @@ from mpi_openmp_cuda_tpu_torch.models import classmat as tclassmat
 from mpi_openmp_cuda_tpu_torch.models import encoding as tencoding
 from mpi_openmp_cuda_tpu_torch.models import groups as tgroups
 from mpi_openmp_cuda_tpu_torch.ops import dispatch as tdispatch
+from mpi_openmp_cuda_tpu_torch.ops import schedule as tschedule
 from mpi_openmp_cuda_tpu_torch.ops import oracle as toracle
 from mpi_openmp_cuda_tpu_torch.ops import values as tvalues
 from mpi_openmp_cuda_tpu_torch.utils import constants as tconstants
@@ -191,10 +192,19 @@ def test_padding_and_buckets_match_on_fixture(path):
     launches = tdispatch.bucket_launches(
         prob.seq1_codes, prob.seq2_codes, prob.weights, torch.device("cpu")
     )
+    # One launch a launch group: the planner's partition of the JAX buckets.
+    parts = tschedule.plan_fusion_groups(want_groups, sizes, prob.seq1_codes.size)
+    assert [b.keys for b in launches] == parts
     assert [b.idx.tolist() for b in launches] == [
+        sorted(i for k in part for i in want_groups[k]) for part in parts
+    ]
+    singles = tdispatch.bucket_launches(
+        prob.seq1_codes, prob.seq2_codes, prob.weights, torch.device("cpu"), fuse=False
+    )
+    assert [b.idx.tolist() for b in singles] == [
         sorted(want_groups[k]) for k in sorted(want_groups)
     ]
-    for launch in launches:
+    for launch in launches + singles:
         codes = [prob.seq2_codes[i] for i in launch.idx]
         got = tdispatch.pad_problem(prob.seq1_codes, codes)
         want = jdispatch.pad_problem(prob.seq1_codes, codes)

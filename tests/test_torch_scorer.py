@@ -29,6 +29,7 @@ from mpi_openmp_cuda_tpu_torch.ops import bounds as tbounds
 from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
 from mpi_openmp_cuda_tpu_torch.ops import dispatch as tdispatch
 from mpi_openmp_cuda_tpu_torch.ops import oracle as toracle
+from mpi_openmp_cuda_tpu_torch.ops import schedule as tschedule
 from mpi_openmp_cuda_tpu_torch.ops import values as tvalues
 
 W = [10, 2, 3, 4]
@@ -319,12 +320,20 @@ def test_bucket_launches_cover_every_row_once():
     seq1 = rng.integers(1, 27, size=300).astype(np.int8)
     lens = [5] * 9 + [30] * 8 + [100] * 8 + [0, 301]
     seqs = [rng.integers(1, 27, size=n).astype(np.int8) for n in lens]
-    launches = tdispatch.bucket_launches(seq1, seqs, W, torch.device("cpu"))
-    assert [b.l2s for b in launches] == [8, 32, None, None]
-    assert sorted(np.concatenate([b.idx for b in launches]).tolist()) == list(range(len(seqs)))
-    for b in launches:
-        assert b.state.rows.shape[0] == b.idx.size  # no padded rows
-        assert b.state.lens.tolist() == [lens[i] for i in b.idx]
+    cpu = torch.device("cpu")
+    singles = tdispatch.bucket_launches(seq1, seqs, W, cpu, fuse=False)
+    assert [b.l2s for b in singles] == [8, 32, None, None]
+    assert [b.keys for b in singles] == [(8,), (32,), (128,), (384,)]
+    launches = tdispatch.bucket_launches(seq1, seqs, W, cpu)
+    groups = tdispatch.plan_buckets(lens)
+    parts = tschedule.plan_fusion_groups(groups, lens, seq1.size)
+    assert [b.keys for b in launches] == parts and parts[:2] == [(8,), (32,)]
+    assert [b.l2s for b in launches] == [8, 32] + [None] * (len(parts) - 2)
+    for ls in (singles, launches):
+        assert sorted(np.concatenate([b.idx for b in ls]).tolist()) == list(range(len(seqs)))
+        for b in ls:
+            assert b.state.rows.shape[0] == b.idx.size  # no padded rows
+            assert b.state.lens.tolist() == [lens[i] for i in b.idx]
     assert tdispatch.bucket_launches(seq1, [], W, torch.device("cpu")) == []
 
 
