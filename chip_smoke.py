@@ -83,7 +83,27 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    ``gather``, ``SEQALIGN_DRAIN=1`` (75) then ``--resume``, and
    ``--deadline 0.5 --retries 2 --faults hang:dispatch:fail=1``; every
    stdout == its golden (the fixture's ``.out``, the oracle's for
-   max-size), and a scorer kernel must have launched.
+   max-size), and a scorer kernel must have launched;
+12. gather routing on cuda (the int32 gate): the gate fault's cases C
+   (``1000000000 1 1 1``) and D (a 64-char row beside a 5-char Seq1)
+   through the CLI print the JAX package's rows (:data:`GATE_CASES`) and
+   the oracle's; max-size at ``700000 1 1 1`` (``L*M < 2^31 <= 2*L*M``)
+   runs every launch as gather, shown by zero fused and packed launches
+   across its CLI run, its rows == the oracle; one step past the
+   admission gate the scorer raises and the CLI exits 65 naming 2^31;
+13. the obs plane on cuda: max-size and every fixture through the CLI
+   with ``--metrics-out``, ``--trace-out``, ``--profile`` and
+   ``--heartbeat 0.01``: stdout == its golden, the report and the trace
+   validate, the report's launch counters == the launch-count deltas,
+   the ``chunk_gather`` span >= the device time of the run's launches
+   (phase 5's CUDA-event times), one trace ``dispatch`` row per launch
+   group, each with a modelled wall > 0; ``--trace DIR`` writes a
+   ``torch.profiler`` trace that names the fused tile and finish
+   kernels; a ``--faults chunk_scoring:fail=1 --retries 2`` run and a
+   ``SEQALIGN_DRAIN=1 --journal`` run (75) leave reports whose counters
+   match; then the warm max-size CLI wall (min of five) with the plane
+   off and with ``--metrics-out``, interleaved, and the span totals of
+   the fastest armed run.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: the CLI run of
@@ -126,6 +146,19 @@ ABLATE_BASE_TOL = 0.05
 # The kernel the packing rule picks for a bucket may time at most this share
 # slower than the other kernel.
 RULE_SLACK = 0.03
+# The int32 gate fault's inputs and the JAX package's rows for them
+# (``python -m mpi_openmp_cuda_tpu --backend oracle``; ROADMAP Queue 3).
+GATE_CASES = {
+    "C": ("1000000000 1 1 1\nABBAB\n3\nA\nAB\nBA\n",
+          [(1000000000, 0, 0), (2000000000, 0, 0), (2000000000, 1, 1)]),
+    "D": ("16777216 1 1 1\nABBAB\n2\nAB\n" + "AB" * 32 + "\n",
+          [(33554432, 0, 0), (-2147483648, 0, 0)]),
+}
+# Max-size at these weights sits between the kernels' window and the gate.
+GATHER_WEIGHTS = [700000, 1, 1, 1]
+# Span totals phase 13 prints for the warm max-size CLI run.
+SPAN_PATHS = ("parse", "setup", "score", "score.chunk_dispatch", "score.chunk_gather",
+              "print")
 
 
 def log(msg: str) -> None:
@@ -486,9 +519,12 @@ def main() -> int:
     # -- 5. the main path's launches: check, time, bound -----------------
     total = {name: {"n": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                     "by": {"bytes": 0.0, "operations": 0.0}} for name in names}
+    run_kernel_ms = {}  # per input: device ms of its CLI run's launches
+    run_launches = {}  # per input: its CLI run's launch groups
     for tag, path in inputs.items():
         prob = load_problem(str(path))
         launches = bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights, dev)
+        run_launches[tag] = len(launches)
         per = {name: [0, 0.0, 0.0, 0.0] for name in names}
         for launch in launches:
             name, kern, plain = kernel_of(launch)
@@ -508,6 +544,7 @@ def main() -> int:
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += b_ms
             tot["by"][b_by] += b_ms
+        run_kernel_ms[tag] = sum(ms for _, ms, _, _ in per.values())
         for name, (n, ms, plain_ms, b_ms) in per.items():
             if n:
                 log(f"input {tag} {name}: {n} launches, sum kernel {ms:.6f} ms, "
@@ -579,6 +616,9 @@ def main() -> int:
     groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card)
     backends_phase(np, torch, (seq1_max, seqs_max), prefix_best, time_ms, card)
     robust_counts = robustness_phase(torch, cli, cs, compare, fixtures, inputs)
+    # -- 12-13. gather routing, the obs plane ------------------------------
+    gather_counts = gather_route_phase(np, torch, cli, cs, (seq1_max, seqs_max), prefix_best)
+    obs_counts = obs_phase(torch, cli, cs, fixtures, inputs, run_kernel_ms, run_launches, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -588,8 +628,8 @@ def main() -> int:
         bucket_launches(seq1_max, seqs_max, WEIGHTS, dev), card,
     )
     bench_counts = bench_phase(probe)
-    paths = {"cli": counts, "robustness": robust_counts, "bench": bench_counts,
-             "ablation": abl_counts}
+    paths = {"cli": counts, "robustness": robust_counts, "gather route": gather_counts,
+             "obs": obs_counts, "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -887,6 +927,191 @@ def robustness_phase(torch, cli, cs, compare, fixtures, inputs) -> dict[str, int
         fail(f"the robustness path never launched a scorer kernel: {counts}")
     jdir.cleanup()
     del os.environ["SEQALIGN_BACKOFF_BASE"]
+    return counts
+
+
+def rows_text(rows) -> str:
+    return "".join(f"#{i}: score: {s}, n: {n}, k: {k}\n" for i, (s, n, k) in enumerate(rows))
+
+
+def gather_route_phase(np, torch, cli, cs, max_size, prefix_best) -> dict[str, int]:
+    """Phase 12: launches past the kernels' int32 window run the gather
+    formulation on the card, and the admission gate still refuses past
+    ``len2 * max|v| < 2^31``.  Returns the phase's launch counts (all
+    from cases C and D; the max-size run must add none)."""
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.ops import bounds
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import (
+        AlignmentScorer, bucket_launches, effective_backend)
+
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    for case, (text, want) in GATE_CASES.items():
+        path = Path(tmp.name) / f"case{case}.txt"
+        path.write_text(text)
+        prob = load_problem(str(path))
+        oracle = [prefix_best(prob.seq1_codes, q, prob.weights) for q in prob.seq2_codes]
+        err = []
+        rc, out, _ = run_cli(cli, ["--input", str(path)], err)
+        if rc != 0 or out.decode() != rows_text(want) or oracle != want:
+            fail(f"gate case {case}: rc {rc}, stdout {out.decode()!r} (want the JAX "
+                 f"rows {want}, oracle {oracle}); stderr {err[0][-400:]}")
+        log(f"gate case {case}: rows == the JAX package's == oracle, launches so far "
+            f"{dict(cs.launch_counts)}")
+    counts = dict(cs.launch_counts)
+
+    seq1, seqs = max_size
+    scored = max(int(q.size) for q in seqs if 0 < q.size <= seq1.size)
+    m = GATHER_WEIGHTS[0]
+    if not scored * m < 2**31 <= 2 * scored * m:
+        fail(f"max-size at {GATHER_WEIGHTS}: L*M {scored * m} is not in [2^31/2, 2^31)")
+    launches = bucket_launches(seq1, seqs, GATHER_WEIGHTS, dev)
+    routes = {effective_backend("cuda", b.maxv, b.state.rows.shape[1], b.max_scored)
+              for b in launches}
+    if routes != {"gather"}:
+        fail(f"max-size at {GATHER_WEIGHTS}: launches route to {routes}, want gather")
+    path = Path(tmp.name) / "max-size-gather.txt"
+    path.write_text(as_text(np, seq1, seqs, GATHER_WEIGHTS))
+    before = dict(cs.launch_counts)
+    rc, out, wall = run_cli(cli, ["--input", str(path)])
+    delta = {k: cs.launch_counts[k] - before[k] for k in before}
+    want = rows_text(prefix_best(seq1, q, GATHER_WEIGHTS) for q in seqs)
+    if rc != 0 or out.decode() != want:
+        fail(f"max-size at {GATHER_WEIGHTS}: rc {rc}, stdout differs from the oracle")
+    if any(delta.values()):
+        fail(f"max-size at {GATHER_WEIGHTS} launched kernels {delta}; want gather only")
+    log(f"max-size at {GATHER_WEIGHTS} (L {scored}, L*M {scored * m} < 2^31 <= 2*L*M): "
+        f"{len(launches)} launches, all gather, kernel launch delta {delta}, "
+        f"{len(seqs)} rows == oracle, wall {wall * 1e3:.3f} ms")
+
+    past = [bounds.max_admitted_value(scored) + 1, 1, 1, 1]
+    try:
+        AlignmentScorer().score_codes(seq1, seqs, past)
+    except ValueError as e:
+        if "2^31" not in str(e):
+            fail(f"past the gate: {e}")
+    else:
+        fail(f"max-size at {past} was admitted past L*M < 2^31")
+    path.write_text(as_text(np, seq1, seqs, past))
+    err = []
+    rc, out, _ = run_cli(cli, ["--input", str(path)], err)
+    if rc != 65 or out or "2^31" not in err[0]:
+        fail(f"CLI past the gate: rc {rc}, stdout {len(out)} bytes, stderr {err[0][-300:]}")
+    log(f"max-size at {past}: the scorer raises and the CLI exits 65 naming 2^31")
+    tmp.cleanup()
+    return counts
+
+
+def obs_phase(torch, cli, cs, fixtures, inputs, kernel_ms, n_launches, card) -> dict[str, int]:
+    """Phase 13: the CLI on cuda with the obs plane armed.  Returns the
+    launch counts of its runs over max-size and the fixtures."""
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["SEQALIGN_CACHE_DIR"] = tmp.name  # flight-recorder dumps
+    os.environ["SEQALIGN_BACKOFF_BASE"] = "0"
+    names = tuple(cs.launch_counts)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    report, trace = Path(tmp.name) / "run.json", Path(tmp.name) / "trace.json"
+    for tag in [f.name for f in fixtures] + ["max-size"]:
+        path = inputs[tag]
+        before = dict(cs.launch_counts)
+        err = []
+        rc, out, wall = run_cli(cli, ["--input", str(path), "--metrics-out", str(report),
+                                      "--trace-out", str(trace), "--profile",
+                                      "--heartbeat", "0.01"], err)
+        delta = {k: cs.launch_counts[k] - before[k] for k in names}
+        if rc != 0 or out != path.with_suffix(".out").read_bytes():
+            fail(f"obs {tag}: rc {rc}, stdout differs from its golden: {err[0][-400:]}")
+        rec, tr = json.loads(report.read_text()), json.loads(trace.read_text())
+        validate_report(rec)
+        validate_report(tr)
+        got = {k: rec["counters"].get(f"{k}_launches", 0) for k in names}
+        if got != delta:
+            fail(f"obs {tag}: report launch counters {got} != launch-count deltas {delta}")
+        gather_ms = rec["spans"]["totals"].get("score.chunk_gather", 0.0) * 1e3
+        if gather_ms < kernel_ms[tag]:
+            fail(f"obs {tag}: chunk_gather {gather_ms:.6f} ms < the launches' device "
+                 f"time {kernel_ms[tag]:.6f} ms: the span did not wait for the device")
+        rows = tr["gap_attribution"]["launches"]
+        dispatch = [e for e in tr["traceEvents"] if e["name"] == "dispatch"]
+        if len(dispatch) != len(rows) or len(rows) != n_launches[tag] or any(
+                r["modelled_s"] <= 0 for r in rows):
+            fail(f"obs {tag}: {len(dispatch)} dispatch rows, {len(rows)} gap rows, want "
+                 f"{n_launches[tag]} with a modelled wall > 0: {rows}")
+        if "[profile]" not in err[0]:
+            fail(f"obs {tag}: no [profile] report on stderr")
+        log(f"obs {tag}: stdout == golden, report + trace valid, launches {delta} == "
+            f"report, chunk_gather {gather_ms:.6f} ms >= device {kernel_ms[tag]:.6f} ms, "
+            f"{len(rows)} dispatch rows, modelled "
+            f"{[round(r['modelled_s'] * 1e3, 6) for r in rows]} ms, measured "
+            f"{[round(r['measured_s'] * 1e3, 6) for r in rows]} ms, heartbeat lines "
+            f"{err[0].count('[obs] ')}, wall {wall * 1e3:.3f} ms [{card}]")
+    counts = dict(cs.launch_counts)
+
+    big = str(inputs["max-size"])
+    prof_dir = Path(tmp.name) / "prof"
+    # --trace as a user runs it, in a process of its own.
+    proc = subprocess.run(
+        [sys.executable, "-m", PKG, "--input", big, "--trace", str(prof_dir)],
+        cwd=REPO, capture_output=True, timeout=300,
+    )
+    traces = list(prof_dir.glob("trace-*.json"))
+    if proc.returncode != 0 or len(traces) != 1 or (
+            proc.stdout != inputs["max-size"].with_suffix(".out").read_bytes()):
+        fail(f"--trace: rc {proc.returncode}, {len(traces)} trace files in {prof_dir}, "
+             f"stderr {proc.stderr.decode()[-400:]}")
+    kernels = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]
+               if e.get("cat") == "kernel"}
+    fused = [k for k in kernels if "fused::" in k]
+    if not any("tile_kernel" in k for k in fused) or not any(
+            "finish_kernel" in k for k in fused):
+        fail(f"--trace: the torch.profiler trace names no fused tile and finish kernels: "
+             f"{sorted(kernels)}")
+    log(f"--trace max-size: torch.profiler trace names {sorted(k[:60] for k in fused)}")
+
+    err = []
+    rc, out, _ = run_cli(cli, ["--input", big, "--faults", "chunk_scoring:fail=1",
+                               "--retries", "2", "--metrics-out", str(report)], err)
+    c = json.loads(report.read_text())
+    if rc != 0 or out != inputs["max-size"].with_suffix(".out").read_bytes() or (
+            c["exit_code"], c["counters"].get("faults_injected"),
+            c["counters"].get("retry_attempts")) != (0, 1, 1):
+        fail(f"obs faults run: rc {rc}, report {c['exit_code']} {c['counters']}")
+    log(f"obs --faults chunk_scoring:fail=1 --retries 2: exit 0, counters {c['counters']}")
+    os.environ["SEQALIGN_DRAIN"] = "1"
+    try:
+        rc, out, _ = run_cli(cli, ["--input", big, "--journal",
+                                   str(Path(tmp.name) / "drain.jsonl"),
+                                   "--metrics-out", str(report)], [])
+    finally:
+        del os.environ["SEQALIGN_DRAIN"]
+    c = json.loads(report.read_text())
+    dispatched = c["counters"].get("chunks_dispatched", 0) + sum(
+        c["counters"].get(f"{k}_launches", 0) for k in names)
+    if rc != 75 or out or c["exit_code"] != 75 or dispatched:
+        fail(f"obs drain run: rc {rc}, report {c['exit_code']} {c['counters']}")
+    log(f"obs SEQALIGN_DRAIN=1 --journal: exit 75, report exit_code 75, counters "
+        f"{c['counters']}")
+
+    # The warm max-size CLI wall with the plane off and on, interleaved.
+    walls = {"off": [], "on": []}
+    totals = []
+    for _ in range(5):
+        walls["off"].append(run_cli(cli, ["--input", big])[2])
+        walls["on"].append(run_cli(cli, ["--input", big, "--metrics-out", str(report)])[2])
+        totals.append(json.loads(report.read_text())["spans"]["totals"])
+    best = min(range(5), key=walls["on"].__getitem__)
+    for key, ws in walls.items():
+        log(f"obs max-size warm CLI wall, plane {key}: min {min(ws) * 1e3:.3f} ms of "
+            f"{[round(w * 1e3, 3) for w in ws]} [{card}]")
+    log(f"obs max-size span totals of the fastest armed run: "
+        f"{ {p: round(totals[best].get(p, 0.0) * 1e3, 3) for p in SPAN_PATHS} } ms [{card}]")
+    del os.environ["SEQALIGN_CACHE_DIR"], os.environ["SEQALIGN_BACKOFF_BASE"]
+    tmp.cleanup()
     return counts
 
 

@@ -31,6 +31,9 @@ The record, ``wrap_report("bench", ...)``, exactly one stdout line:
   ``launches`` (launches per run) and ``kernel_launches`` (launches per
   kernel during this bench, probes included);
 * ``device`` and ``power_limit_w`` (``nvidia-smi``), or ``"cpu"``;
+* ``feed_overlap``: whether the CLI stages its copies in on a side
+  stream (``io/pipeline.py::feed_overlap_enabled``), a setting two
+  records must share to be compared;
 * on the card: ``gemm_probe_bf16_tflops`` (the lower of the two bf16
   ``torch.matmul`` probes bracketing the recorded attempt),
   ``probe_quiet_ref_tflops`` and ``probe_gated`` where the card has a
@@ -380,6 +383,7 @@ def main(argv=None) -> int:
                     help="device to score on (default cuda; cpu only when asked for)")
     args = ap.parse_args(argv)
 
+    from .io.pipeline import feed_overlap_enabled
     from .obs.metrics import wrap_report
     from .ops import cuda_scorer, probe
     from .ops.dispatch import AlignmentScorer, bucket_launches, resolve_device
@@ -425,6 +429,7 @@ def main(argv=None) -> int:
         "formulation": backend if backend == "oracle" or on_card else "plain",
         "launches": len(launches),
         "device": "cpu" if device.type == "cpu" else torch.cuda.get_device_name(device),
+        "feed_overlap": feed_overlap_enabled(),
     }
     if on_card:
         record.update(device_fields(problem, launches, device))

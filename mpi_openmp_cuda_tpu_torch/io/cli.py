@@ -6,15 +6,21 @@ stdout.  Diagnostics go to stderr; on any failure nothing reaches stdout.
 The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s single-process batch
 path: ``--stream`` (chunked, pipelined), ``--journal``/``--resume``,
 ``--retries``, ``--faults``, ``--degrade``, ``--deadline``,
-``--selfcheck``, and the drain on SIGTERM/SIGINT (or ``SEQALIGN_DRAIN=1``).
+``--selfcheck``, the drain on SIGTERM/SIGINT (or ``SEQALIGN_DRAIN=1``),
+and the obs plane: ``--metrics``, ``--metrics-out``, ``--heartbeat``,
+``--profile``, ``--trace`` and ``--trace-out``.
 
-Exit codes (BSD sysexits): 0 ok; 64 usage (bad flags or flag
-combinations, a malformed ``--faults`` spec); 65 fatal (bad input,
-weights outside the int32 gate, no CUDA device without ``--device cpu``,
+Exit codes: 0 ok; 2 a usage error argparse rejects (an unknown flag, a
+bad value; the usage text goes to stderr, as in the JAX CLI); 64 a
+rejected flag combination or a malformed ``--faults`` spec; 65 fatal (bad
+input, weights outside the int32 gate, no CUDA device without ``--device cpu``,
 a kernel that fails to build or launch without ``--degrade``, a journal
 of another problem, an exhausted retry budget); 75 resumable (a drain,
 or a failure rooted in a watchdog deadline: rerun, with ``--resume``
-under ``--journal``); 1 when the reader of stdout went away.
+under ``--journal``); 1 when the reader of stdout went away.  With
+``--metrics-out`` / ``--trace-out`` the run report and the trace are
+written on every exit path, the exit code inside; a fatal exit also
+dumps the flight recorder.
 """
 
 from __future__ import annotations
@@ -23,18 +29,25 @@ import argparse
 import contextlib
 import io
 import os
+import signal
 import sys
 
 import numpy as np
 
+from ..obs import arm_observability, disarm_observability
+from ..obs import export as obs_export
+from ..obs import flightrec as obs_flightrec
+from ..obs import trace as obs_trace
 from ..obs.events import log_line
+from ..obs.metrics import gauge as obs_gauge
 from ..ops.dispatch import AlignmentScorer
 from ..resilience.degrade import BackendDegrader, run_degrading, verify_rows_against_oracle
 from ..resilience.drain import DrainInterrupt, drain_guard, drain_requested
 from ..resilience.faults import activate_faults, deactivate_faults, parse_spec
 from ..resilience.policy import RetryPolicy
 from ..resilience.watchdog import DeadlineExpiredError, activate_watchdog, deactivate_watchdog
-from ..utils.env import env_float, env_int, env_str
+from ..utils.env import env_flag, env_float, env_int, env_str
+from ..utils.profiling import PhaseTimer, device_trace
 from .parse import load_problem, open_input, parse_stream_header
 from .pipeline import ChunkPipeline, FeedStager, PendingWindow
 from .printer import guarded_stdout, print_results, write_json_sidecar
@@ -47,13 +60,10 @@ EX_TEMPFAIL = 75
 PROG = "mpi_openmp_cuda_tpu_torch"
 
 
-class UsageError(Exception):
-    """A bad command line (exit code 64)."""
-
-
-class _Parser(argparse.ArgumentParser):
-    def error(self, message):
-        raise UsageError(message)
+def _sigusr2_dump(signum, frame) -> None:
+    """SIGUSR2 dumps the flight recorder without stopping the run
+    (registered only while the obs plane is armed)."""
+    obs_flightrec.dump_active("sigusr2")
 
 
 def _typed(cast, ok, want):
@@ -67,7 +77,7 @@ def _typed(cast, ok, want):
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
-    p = _Parser(
+    p = argparse.ArgumentParser(
         prog=PROG,
         description="Batch sequence-alignment scorer on PyTorch + CUDA "
         "(stdin/stdout contract of the MPI+OpenMP+CUDA reference).",
@@ -132,6 +142,43 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="after scoring, rescore a deterministic sample on the host "
         "oracle and fail on any mismatch",
     )
+    p.add_argument("--profile", action="store_true",
+                   help="print per-phase wall-clock timings to stderr")
+    p.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="capture a torch.profiler trace (CPU and CUDA activities) of the "
+        "scoring phase into DIR as a Chrome trace (trace-<pid>.json)",
+    )
+    p.add_argument(
+        "--trace-out", default=None, metavar="PATH",
+        help="write a Chrome-trace/Perfetto JSON timeline to PATH when the "
+        "run exits (every exit code): host spans, bus events and one row per "
+        "launch group, measured beside the Hopper launch model, with a "
+        "gap_attribution summary (SEQALIGN_TRACE; implies --metrics; "
+        "distinct from --trace, the torch.profiler trace)",
+    )
+    p.add_argument(
+        "--metrics", action="store_true",
+        help="arm the observability plane: resilience counters, config gauges "
+        "and per-phase spans collected for the run (SEQALIGN_METRICS; implied "
+        "by --metrics-out, --heartbeat and --trace-out); off by default, and "
+        "then every instrumentation site is a single attribute check",
+    )
+    p.add_argument(
+        "--metrics-out", default=None, metavar="PATH",
+        help="write the versioned JSON run report to PATH (plus a PATH.prom "
+        "Prometheus text sidecar) when the run exits, failed (65) and "
+        "preempted (75) exits included (SEQALIGN_METRICS_OUT; implies "
+        "--metrics)",
+    )
+    p.add_argument(
+        "--heartbeat", type=_typed(float, lambda v: v > 0, "> 0"), default=None,
+        metavar="S",
+        help="emit a one-line '[obs] chunk I/N retries=R degraded=D' status to "
+        "stderr from the watchdog monitor thread after every S quiet seconds "
+        "(SEQALIGN_HEARTBEAT_S; implies --metrics and composes with "
+        "--deadline on the same monitor thread)",
+    )
     return p
 
 
@@ -170,6 +217,21 @@ def _build_policy(args) -> tuple[RetryPolicy, str | None]:
     return RetryPolicy(retries=retries), fault_spec
 
 
+def _build_obs(args) -> tuple[bool, str | None, float | None, str | None]:
+    """``(armed, metrics_out, heartbeat_s, trace_out)``: each flag falls
+    back to its env var, and any of ``--metrics`` / ``--metrics-out`` /
+    ``--heartbeat`` / ``--trace-out`` arms the plane."""
+    metrics_out = args.metrics_out or env_str("SEQALIGN_METRICS_OUT")
+    trace_out = args.trace_out or env_str("SEQALIGN_TRACE")
+    heartbeat_s = (args.heartbeat if args.heartbeat is not None
+                   else env_float("SEQALIGN_HEARTBEAT_S"))
+    if heartbeat_s is not None and heartbeat_s <= 0:
+        raise ValueError(f"SEQALIGN_HEARTBEAT_S must be > 0, got {heartbeat_s}")
+    enabled = bool(args.metrics or env_flag("SEQALIGN_METRICS") or metrics_out
+                   or heartbeat_s or trace_out)
+    return enabled, metrics_out or None, heartbeat_s, trace_out or None
+
+
 def _make_degrader(args) -> BackendDegrader:
     """The run's degrade chain state (a pass-through unless --degrade);
     replacement scorers keep the device."""
@@ -180,44 +242,57 @@ def _make_degrader(args) -> BackendDegrader:
     )
 
 
-def _run_batch(args, policy, out) -> None:
+def _run_batch(args, policy, out, timer) -> None:
     from ..utils.journal import ResultJournal
 
-    problem = load_problem(args.input)
-    deg = _make_degrader(args)
-    journal = None
-    if args.journal:
-        _check_resume(args)
-        journal = ResultJournal(args.journal)
-    # No feed staging here: no device work runs before the one dispatch,
-    # so there is nothing for early copies to overlap (--stream stages).
+    with timer.phase("parse"):
+        problem = load_problem(args.input)
+    journal = staged = None
+    with timer.phase("setup"):
+        deg = _make_degrader(args)
+        if args.journal:
+            _check_resume(args)
+            journal = ResultJournal(args.journal)
+        else:
+            # The batch's copies in start before the score phase, as in
+            # the JAX CLI; single-use, so a retry or a degraded scorer
+            # copies again.  Not under --journal, whose resume scores a
+            # reduced subset.
+            staged = FeedStager(deg).stage(
+                problem.seq1_codes, problem.seq2_codes, problem.weights)
+    obs_gauge("backend", deg.scorer.backend)
 
     def score_once(sc):
         if journal is not None:
             return journal.score_with_resume(sc, problem)
-        return sc.score_codes(problem.seq1_codes, problem.seq2_codes, problem.weights)
+        return sc.score_codes(problem.seq1_codes, problem.seq2_codes, problem.weights,
+                              staged=staged)
 
     def verify(rows):
         verify_rows_against_oracle(
             problem.seq1_codes, problem.seq2_codes, problem.weights, rows)
 
-    results = run_degrading(
-        policy, deg, lambda: score_once(deg.scorer), score_once, "scoring",
-        verify=verify if deg.enabled else None,
-    )
+    with timer.phase("score"), device_trace(args.trace):
+        results = run_degrading(
+            policy, deg, lambda: score_once(deg.scorer), score_once, "scoring",
+            verify=verify if deg.enabled else None,
+        )
     if args.selfcheck:
         from ..utils.selfcheck import verify_results
 
-        checked = verify_results(problem, results)
-        log_line(f"{PROG}: selfcheck OK ({checked} sequences re-verified on the "
-                 "host oracle)")
-    if args.json:
-        write_json_sidecar(results, args.json,
-                           meta={"backend": deg.scorer.backend, "device": args.device})
-    print_results(results, out=out)
+        with timer.phase("selfcheck"):
+            checked = verify_results(problem, results)
+            log_line(f"{PROG}: selfcheck OK ({checked} sequences re-verified on "
+                     "the host oracle)")
+    with timer.phase("print"):
+        if args.json:
+            write_json_sidecar(results, args.json,
+                               meta={"backend": deg.scorer.backend, "device": args.device})
+        print_results(results, out=out)
+    timer.report()
 
 
-def _run_streaming(args, policy, out) -> None:
+def _run_streaming(args, policy, out, timer) -> None:
     """The --stream pipeline: parse and score CHUNK sequences at a time
     with a window of chunks in flight (each one's device-to-host copy
     started at dispatch, the next chunk's host-to-device copies staged
@@ -227,11 +302,16 @@ def _run_streaming(args, policy, out) -> None:
     a hash-matching record are scored."""
     from ..utils.journal import JournalMismatchError, StreamJournal, seq_hash
 
-    deg = _make_degrader(args)
+    with timer.phase("setup"):
+        deg = _make_degrader(args)
+    obs_gauge("backend", deg.scorer.backend)
     all_results = [] if args.json else None
     lines = io.StringIO()
     with open_input(args.input) as stream:
-        header = parse_stream_header(stream)
+        with timer.phase("parse_header"):
+            header = parse_stream_header(stream)
+        # The denominator of the heartbeat's "chunk I/N".
+        obs_gauge("chunks_total", -(-header.num_seq2 // args.stream))
         journal, done = None, {}
         if args.journal:
             _check_resume(args)
@@ -296,6 +376,8 @@ def _run_streaming(args, policy, out) -> None:
                 all_results.extend(out_rows)
 
         with contextlib.ExitStack() as stack:
+            stack.enter_context(timer.phase("stream"))
+            stack.enter_context(device_trace(args.trace))
             if journal is not None:
                 stack.enter_context(journal)
             window = PendingWindow(max(1, env_int("TPU_SEQALIGN_STREAM_DEPTH", 4)), finish)
@@ -335,14 +417,16 @@ def _run_streaming(args, policy, out) -> None:
     if args.json:
         write_json_sidecar(all_results, args.json,
                            meta={"backend": deg.scorer.backend, "device": args.device})
+    timer.report()
 
 
 def run(argv: list[str] | None = None) -> int:
     try:
         args = build_arg_parser().parse_args(argv)
-    except UsageError as e:
-        print(f"{PROG}: usage: {e}", file=sys.stderr)
-        return EX_USAGE
+    except SystemExit as e:
+        # argparse's own verdict: usage text on stderr and 2 for a bad
+        # command line, 0 after --help.
+        return e.code if isinstance(e.code, int) else EX_USAGE
     if args.stream and args.selfcheck:
         print(f"{PROG}: error: --selfcheck cannot be combined with --stream "
               "(selfcheck re-verifies against the fully-materialised problem)",
@@ -352,8 +436,8 @@ def run(argv: list[str] | None = None) -> int:
         print(f"{PROG}: error: --resume requires --journal PATH (the journal "
               "is what a resume resumes from)", file=sys.stderr)
         return EX_USAGE
-    # A malformed spec is a usage error, caught before the runtime try
-    # below would make it a 65.
+    # A malformed spec or env value is a usage error, caught before the
+    # runtime try below would make it a 65.
     try:
         policy, fault_spec = _build_policy(args)
         if fault_spec:
@@ -361,40 +445,93 @@ def run(argv: list[str] | None = None) -> int:
         deadline = args.deadline
         if deadline is None:
             deadline = env_float("SEQALIGN_DEADLINE_S")
+        obs_on, metrics_out, heartbeat_s, trace_out = _build_obs(args)
+        frec_depth = env_int("SEQALIGN_FLIGHTREC_DEPTH") if obs_on else 0
     except ValueError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return EX_USAGE
     drain = None
+    registry = recorder = prev_usr2 = None
+    rc: int | None = None
     try:
+        # The obs plane arms before anything that can publish into it
+        # (faults, the watchdog, scoring); the finally below flushes the
+        # report and the trace on every exit path, 65 and 75 included.
+        if obs_on:
+            registry, recorder = arm_observability(
+                with_trace=bool(trace_out), flightrec_depth=frec_depth)
+            try:
+                prev_usr2 = signal.signal(signal.SIGUSR2, _sigusr2_dump)
+            except (ValueError, AttributeError, OSError):
+                # Not the main thread, or no SIGUSR2 on this platform.
+                prev_usr2 = None
+        # --profile shares the armed span recorder: profile phases and the
+        # run report's spans are one measurement.
+        timer = PhaseTimer(enabled=args.profile, recorder=recorder)
         activate_faults(fault_spec)
-        if deadline:
-            activate_watchdog(deadline)
+        if deadline or heartbeat_s:
+            # Heartbeat-only (no deadline) is legal: the monitor then
+            # enforces nothing and only emits the status line.
+            activate_watchdog(
+                deadline or None, heartbeat_s=heartbeat_s,
+                heartbeat=obs_export.heartbeat_callback() if heartbeat_s else None,
+            )
         drain = drain_guard()
         drain.__enter__()
         # Native libraries (the CUDA runtime, nvcc's build) may write to
         # fd 1; only the result lines reach the real stdout.
         with guarded_stdout() as out:
             if args.stream:
-                _run_streaming(args, policy, out)
+                _run_streaming(args, policy, out, timer)
             else:
-                _run_batch(args, policy, out)
-        return EX_OK
+                _run_batch(args, policy, out, timer)
+        rc = EX_OK
     except DrainInterrupt as e:
         # A requested preemption: nothing printed, the journal flushed.
         print(f"{PROG}: drained: {e}", file=sys.stderr)
-        return EX_TEMPFAIL
+        rc = EX_TEMPFAIL
     except BrokenPipeError:
-        return 1
+        rc = 1
     except Exception as e:  # fail-stop: diagnose on stderr, nonzero exit
         print(f"{PROG}: error: {e}", file=sys.stderr)
-        return EX_TEMPFAIL if _is_resumable(e) else EX_FATAL
+        rc = EX_TEMPFAIL if _is_resumable(e) else EX_FATAL
     finally:
+        if registry is not None:
+            _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2)
         # Faults, the watchdog and the drain handlers are armed per run:
         # library callers after a CLI run see none of them.
         deactivate_faults()
         deactivate_watchdog()
         if drain is not None:
             drain.__exit__(None, None, None)
+    return rc
+
+
+def _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2) -> None:
+    """The obs plane's exit: a fatal exit dumps the flight recorder, the
+    trace and the run report are written with the exit code (a failed
+    write warns, never masks the run's verdict), SIGUSR2 is restored and
+    the plane disarmed."""
+    if rc == EX_FATAL:
+        obs_flightrec.dump_active("fatal-exit")
+    tracer = obs_trace.active_trace()
+    try:
+        obs_export.flush_trace(tracer, trace_out, exit_code=rc)
+    except Exception as e:
+        print(f"{PROG}: warning: trace not written ({e})", file=sys.stderr)
+    try:
+        obs_export.flush_run_report(
+            registry, recorder, metrics_out, exit_code=rc,
+            extra={"gap_attribution": tracer.gap_attribution()} if tracer else None,
+        )
+    except Exception as e:
+        print(f"{PROG}: warning: run report not written ({e})", file=sys.stderr)
+    if prev_usr2 is not None:
+        try:
+            signal.signal(signal.SIGUSR2, prev_usr2)
+        except (ValueError, OSError):
+            pass
+    disarm_observability()
 
 
 def main() -> None:

@@ -12,12 +12,15 @@ Publishers in this package (failure paths only, never per-element work):
 ``watchdog.guard``         guard arm/disarm (``state``)
 ``drain.request``          the first drain signal of a run
 ``fault.injected``         each injected fault (faults.py)
+``recompile``              each nvcc build of a kernel (``ops/_build.py``)
 ``log``                    every :func:`log_line` diagnostic (``line``)
 =========================  ==============================================
 
-Subscribers are synchronous and must not raise.  The metrics registry
-that subscribes in the JAX package arrives with the port's obs plane;
-events are in addition to the stderr lines, never instead of them.
+Subscribers are synchronous and must not raise: the metrics registry
+(:meth:`~.metrics.MetricsRegistry.record_event`), the trace recorder and
+the flight recorder subscribe when the CLI arms the plane
+(:func:`~mpi_openmp_cuda_tpu_torch.obs.arm_observability`).  Events are
+in addition to the stderr lines, never instead of them.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ def activate_bus() -> EventBus:
 def deactivate_bus() -> None:
     global _active
     _active = None
+
+
+def active_bus() -> EventBus | None:
+    return _active
 
 
 def publish(event: str, **fields) -> None:

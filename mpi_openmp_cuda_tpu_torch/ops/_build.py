@@ -13,6 +13,8 @@ stale library is never loaded.  ``build()`` starts one ``nvcc`` per
 source, all at once, and returns each compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills); ``build_variants()`` does the same
 for the sweep scripts' builds of one source under other ``-D`` settings.
+Each successful nvcc build publishes one ``recompile`` event on the obs
+bus (the run report's ``recompiles`` counter).
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -26,6 +28,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..obs.events import publish
 from ..resilience.policy import KernelUnavailableError
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -88,6 +91,7 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            publish("recompile", kernel=tag)
     if failed:
         raise KernelUnavailableError("kernel build failed: " + "\n".join(failed))
     return reports

@@ -1,28 +1,37 @@
-"""Numeric bounds of the Hopper scorers: the int32 overflow gate of the
-kernels and the gather formulation, and the fp32 window of the mm one.
+"""Numeric bounds of the Hopper scorers: the int32 admission gate, the
+narrower window of the two CUDA kernels, and the fp32 window of the mm
+formulation.
 
 Both CUDA kernels (``csrc/fused_scorer.cu``, ``csrc/packed_scorer.cu``)
 and their plain PyTorch versions run int32 end to end: no matmul feed,
 no float window, no packed (score, key) word.  So the only bound is that
-no int32 quantity they form can wrap.  Derivation, with
-``M = max |v|`` over the [27, 27] value table and ``L = len2`` of the
-longest scored row:
+no int32 quantity they form can wrap.  Derivation, with ``M = max |v|``
+over the [27, 27] value table and ``L`` the longest *scored* row (``0 <
+len2 <= len1``; a row with len2 = 0 or len2 > len1 gets its sentinel
+whatever its sums hold, and no scored quantity reads them):
 
 * each pair value ``d0 = val[s2[i], s1[n+i]]`` and ``d1 = val[s2[i],
   s1[n+i+1]]`` has ``|d| <= M``;
-* the running sum ``t1 = sum_{i<j} d1`` has ``|t1| <= j*M <= L*M``;
-* the running delta prefix ``G = sum_{i<kappa} (d0 - d1)`` has
-  ``|G| <= 2*kappa*M <= 2*L*M`` — the largest magnitude formed;
-* every candidate ``t1 + G`` is the true score of one (n, k) placement,
-  a sum of ``L`` table entries, so ``|t1 + G| <= L*M``.
+* every candidate is the true score of one (n, k) placement, a sum of
+  ``len2`` table entries, so ``|score| <= L*M``; so are the gather
+  formulation's partial sums (``ops/gather_scorer.py``: the prefixes
+  ``c0``, ``c1``, the totals and ``t1 - c1``, a true suffix sum) — every
+  quantity it forms is a true partial score;
+* the kernels also form the running delta prefix ``G = sum_{i<kappa}
+  (d0 - d1)``, with ``|G| <= 2*kappa*M <= 2*L*M`` — the largest magnitude
+  any path forms.
 
-Hence ``2*L*M <= 2^31 - 1`` keeps every partial sum, every strict ``>``
-comparison and every candidate exact in int32.  It also keeps the
-``INT32_MIN`` sentinel of masked candidates strictly below every real
-score (``-L*M > -2^30 > INT32_MIN``).  At the Seq2 cap (L = 2000) the gate
-admits ``M <= 536870``.  The gather formulation (``ops/gather_scorer.py``)
-forms the same quantities in int32 (``c0``, ``t1 - c1``, their sum) and
-sits under the same gate.
+Hence two bounds.  **Admission** (:func:`check_int32_window`, on the
+whole batch): ``L*M <= 2^31 - 1`` keeps every score and every gather
+partial exact, and the ``INT32_MIN`` sentinel of masked candidates
+strictly below every real score (``-L*M >= -(2^31 - 1) > INT32_MIN``).
+Past it a score itself leaves int32 and the batch is refused.  **The
+kernels' window** (:func:`kernel_fits`, per launch): ``2*L*M <= 2^31 -
+1`` keeps ``G`` exact too; a launch whose own longest scored row breaks
+it runs the gather formulation instead (``dispatch.effective_backend``),
+as the JAX package routes such weights to its gather body.  At the Seq2
+cap (L = 2000) the kernels take ``M <= 536870`` and the batch is
+admitted up to ``M <= 1073741``.
 
 The ``mm`` formulation (``ops/matmul_scorer.py``) runs in IEEE fp32 on
 Hopper: TF32 is switched off around its matmuls (TF32 keeps 11
@@ -56,19 +65,32 @@ INT32_MAX = 2147483647  # = 2^31 - 1
 
 def max_exact_value(max_len2: int) -> int:
     """Largest |table value| the int32 kernels score exactly when the
-    longest row has ``max_len2`` Seq2 characters."""
+    longest scored row has ``max_len2`` Seq2 characters (``2*L*M``)."""
     return INT32_MAX // (2 * max(int(max_len2), 1))
 
 
+def max_admitted_value(max_len2: int) -> int:
+    """Largest |table value| a batch is admitted at when its longest
+    scored row has ``max_len2`` characters (``L*M``; the gather
+    formulation scores it exactly)."""
+    return INT32_MAX // max(int(max_len2), 1)
+
+
+def kernel_fits(max_abs_value: int, max_len2: int) -> bool:
+    """True when the int32 kernels are exact for this max |value| and
+    longest scored row."""
+    return max_abs_value <= max_exact_value(max_len2)
+
+
 def check_int32_window(max_abs_value: int, max_len2: int) -> None:
-    """Raise ``ValueError`` when ``2 * max_len2 * max_abs_value`` leaves
-    int32 (the gate derived in this module's docstring)."""
-    limit = max_exact_value(max_len2)
+    """Raise ``ValueError`` when ``max_len2 * max_abs_value`` leaves int32
+    (the admission gate derived in this module's docstring)."""
+    limit = max_admitted_value(max_len2)
     if max_abs_value > limit:
         raise ValueError(
             f"weights too large for exact int32 scoring: max |value| "
             f"{max_abs_value} exceeds {limit} for Seq2 length {max_len2} "
-            "(2 * len2 * max|v| must stay below 2^31)"
+            "(len2 * max|v| must stay below 2^31)"
         )
 
 

@@ -21,7 +21,9 @@ rules, as ``_pallas_rows`` does.
 Each wrapper runs its kernel on CUDA tensors and its plain version
 (:func:`fused_scorer_plain`, :func:`packed_scorer_plain`) on CPU tensors
 only; on any other device it raises.  ``launch_counts`` counts the kernel
-launches, so a run can show which kernels its main path went through.
+launches, so a run can show which kernels its main path went through;
+with the obs plane armed the run report counts them too
+(``fused_scorer_launches``, ``packed_scorer_launches``).
 """
 
 from __future__ import annotations
@@ -33,12 +35,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs.metrics import inc as _obs_inc
 from ..resilience.policy import DeviceFaultError, KernelUnavailableError
 from ..utils.constants import ALPHABET_SIZE, INT32_MIN
 from . import _build
 
 # Kernel launches per wrapper: incremented only where a kernel is launched.
 launch_counts = {"fused_scorer": 0, "packed_scorer": 0}
+# Their counters in the run report, when the obs plane is armed.
+_REPORT_COUNTERS = {name: f"{name}_launches" for name in launch_counts}
 
 TILE = 128  # offsets per kernel block (one tile); L1P is a multiple of it
 PACK_CLASSES = (8, 16, 32, 64)
@@ -319,6 +324,7 @@ def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on the state's CUDA device and count it."""
     out = call_entry(_entry(name), state, *extra)
     launch_counts[name] += 1
+    _obs_inc(_REPORT_COUNTERS[name])
     return out
 
 

@@ -12,7 +12,8 @@ one copy, in input order.
 Backends:
 
 * ``cuda`` — the Hopper kernels (``ops/cuda_scorer.py``; their plain
-  PyTorch versions on a CPU device);
+  PyTorch versions on a CPU device), a launch past the kernels' int32
+  window routed to ``gather`` (:func:`effective_backend`);
 * ``mm`` — the one-hot fp32 matmul formulation (``ops/matmul_scorer.py``),
   a bucket past its fp32 window routed to ``gather``
   (:func:`effective_backend`);
@@ -22,6 +23,14 @@ Backends:
 ``auto`` is ``cuda``, always: a kernel that fails to build or launch is
 an error (``KernelUnavailableError``), never a quiet move to another
 backend; the CLI's ``--degrade`` is the opt-in chain.
+
+Obs hooks (each one module-attribute check when the plane is off): the
+``chunk_dispatch`` span (plan, copies in, launches queued: enqueue time
+only) and the ``chunk_gather`` span (epilogue, copy back and the wait for
+it: the device time), the ``chunks_dispatched``, ``feed_prestages`` and
+``feed_prestage_hits`` counters, the ``config_fused_groups`` and
+``config_rowpack`` gauges, and one trace launch per launch group, from
+its dispatch to the batch's rows on the host.
 """
 
 from __future__ import annotations
@@ -36,10 +45,13 @@ import numpy as np
 import torch
 
 from ..models.encoding import encode_normalized, pad_to
+from ..obs.metrics import gauge as _obs_gauge, inc as _obs_inc
+from ..obs.spans import fence as _obs_fence, span as _obs_span
+from ..obs.trace import active_trace, trace_launch_begin, trace_launch_end
 from ..resilience import watchdog
 from ..resilience.faults import fire as _fault
 from ..utils.constants import BUF_SIZE_SEQ1, BUF_SIZE_SEQ2
-from .bounds import check_int32_window, mm_max_exact_value
+from .bounds import check_int32_window, kernel_fits, mm_max_exact_value
 from .cuda_scorer import (
     PACK_CLASSES, ScorerState, finish_rows, fused_scorer, kernel_table, packed_scorer,
 )
@@ -56,7 +68,7 @@ _LANE = 128
 # below it, a separate launch and copy cost more than padding.
 MIN_BUCKET_ROWS = 8
 
-# Seconds between polls of a result's CUDA event while a deadline is armed.
+# Seconds between polls of a result's CUDA event while a watchdog runs.
 _POLL_S = 50e-6
 
 
@@ -106,9 +118,9 @@ def pad_problem(seq1_codes: np.ndarray, seq2_codes: list[np.ndarray]) -> PaddedB
 
 def pack_classes() -> tuple[int, ...]:
     """Row-packing classes the packed kernel admits.  Its scores are plain
-    int32 words (no packed score/key word as on the TPU), so the one gate
-    of ``ops/bounds.py`` covers it and every class is legal at every
-    weight that gate admits."""
+    int32 words (no packed score/key word as on the TPU), so the kernels'
+    one window of ``ops/bounds.py`` covers it and every class is legal at
+    every weight inside that window."""
     return PACK_CLASSES
 
 
@@ -151,11 +163,15 @@ def choose_rowpack(l2p: int, lens) -> int | None:
     return next(s for s in classes if s >= max(live))
 
 
-def effective_backend(backend: str, maxv: int, l2p: int) -> str:
-    """The formulation a backend runs on a bucket of width ``l2p`` at
-    max |table value| ``maxv``: ``mm`` becomes ``gather`` past the fp32
-    window there (``bounds.mm_max_exact_value``)."""
+def effective_backend(backend: str, maxv: int, l2p: int, max_len2: int = 0) -> str:
+    """The formulation a backend runs on a launch of width ``l2p`` at max
+    |table value| ``maxv`` whose longest scored row has ``max_len2``
+    chars: ``mm`` becomes ``gather`` past the fp32 window there
+    (``bounds.mm_max_exact_value``), ``cuda`` past the kernels' int32
+    window (``bounds.kernel_fits``: ``2 * len2 * max|v| < 2^31``)."""
     if backend == "mm" and maxv > mm_max_exact_value(l2p):
+        return "gather"
+    if backend == "cuda" and not kernel_fits(maxv, max_len2):
         return "gather"
     return backend
 
@@ -184,8 +200,9 @@ class PlannedLaunch:
 def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
                   fuse: bool = True):
     """``(val_flat, [PlannedLaunch])`` of one batch: caps and the int32
-    gate checked on the whole batch (an error names the caller's input
-    index before anything is launched), rows grouped by
+    admission gate checked on the whole batch, over its scored rows (an
+    error names the caller's input index before anything is launched),
+    rows grouped by
     :func:`plan_buckets`, fused buckets partitioned into launch groups by
     ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
     one launch a bucket, the schedule the groups are held against), each
@@ -206,16 +223,21 @@ def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     if not seq2_codes:
         return val_flat, []
     sizes = [int(c.size) for c in seq2_codes]
-    check_int32_window(max_abs_value(val_flat), max(sizes))
+    scored = [x for x in sizes if 0 < x <= seq1_codes.size]
+    if scored:
+        check_int32_window(max_abs_value(val_flat), max(scored))
     cuda = backend == "cuda"
     groups = plan_buckets(sizes, packable=cuda)
     group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
                   if cuda and fuse else [(k,) for k in sorted(groups)])
+    _obs_gauge("config_fused_groups", len(group_keys))
     plans = []
     for keys in group_keys:
         idx = np.asarray(sorted(i for k in keys for i in groups[k]), dtype=np.int64)
         batch = pad_problem(seq1_codes, [seq2_codes[i] for i in idx])
         l2s = choose_rowpack(batch.l2p, batch.len2) if cuda else None
+        if cuda:
+            _obs_gauge("config_rowpack", l2s if l2s is not None else 0)
         plans.append(PlannedLaunch(tuple(keys), idx, batch, l2s))
     return val_flat, plans
 
@@ -224,14 +246,16 @@ def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
 class BucketLaunch:
     """One kernel launch of a batch: the input rows it scores (ascending),
     its operands on the device, its packing class (None: the fused
-    kernel), the bucket keys of its launch group and the table's max
-    |value|."""
+    kernel), the bucket keys of its launch group, the table's max |value|
+    and the longest scored row (``0 < len2 <= len1``), both known on the
+    host."""
 
     idx: np.ndarray
     state: ScorerState
     l2s: int | None
     keys: tuple = ()
-    maxv: int = 0  # max |table value|, known on the host
+    maxv: int = 0  # max |table value|
+    max_scored: int = 0
 
 
 def _host_tensor(arr: np.ndarray, pin: bool) -> torch.Tensor:
@@ -253,7 +277,9 @@ def _to_device(plan: PlannedLaunch, val: torch.Tensor, maxv: int,
         val=val,
         max_len2=int(b.len2.max()),
     )
-    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv)
+    live = b.len2[(b.len2 > 0) & (b.len2 <= b.len1)]
+    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv,
+                        int(live.max()) if live.size else 0)
 
 
 def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
@@ -291,6 +317,7 @@ class StagedFeed:
         launches, self._launches = self._launches, None
         if launches is None or digest != self.digest:
             return None
+        _obs_inc("feed_prestage_hits", len(launches))
         if self._event is not None:
             stream = torch.cuda.current_stream(launches[0].state.rows.device)
             stream.wait_event(self._event)
@@ -329,19 +356,26 @@ def bucket_launches(
 def run_launch(launch: BucketLaunch, backend: str) -> torch.Tensor:
     """One launch on ``backend``: the kernels' raw [B, 4] rows for
     ``cuda`` (``finish_rows`` runs once for the whole batch), finished
-    [B, 3] rows for ``mm`` and ``gather``."""
+    [B, 3] rows for ``mm`` and ``gather``.  A ``cuda`` launch past the
+    kernels' window runs ``gather`` and hands back its rows in the raw
+    layout, the score repeated as ``eq``: ``finish_rows`` maps them back
+    unchanged, since gather already applied the equal-length and
+    unsearchable rules."""
     st = launch.state
-    if backend == "cuda":
+    route = effective_backend(backend, launch.maxv, st.rows.shape[1], launch.max_scored)
+    if route == "cuda":
         return fused_scorer(st) if launch.l2s is None else packed_scorer(st, launch.l2s)
     val_flat = st.val.reshape(-1)
-    if effective_backend(backend, launch.maxv, st.rows.shape[1]) == "mm":
+    if route == "mm":
         return mm_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
-    return gather_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
+    rows = gather_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
+    return torch.cat([rows, rows[:, :1]], dim=1) if backend == "cuda" else rows
 
 
-def _wait(event) -> None:
-    """Block until ``event`` has completed: polled while a deadline is
-    armed (a CUDA wait cannot be interrupted), else a plain wait."""
+def wait_event(event) -> None:
+    """Block until ``event`` has completed: polled while the run's
+    watchdog runs (a CUDA wait cannot be interrupted by its deadline),
+    else a plain wait."""
     if watchdog.active_watchdog() is None:
         event.synchronize()
         return
@@ -365,7 +399,9 @@ class PendingResult:
     def result(self) -> np.ndarray:
         with watchdog.guard("chunk result gather"):
             _fault("chunk_scoring")
-            return np.asarray(self.raw).reshape(-1, 3)[: self.count]
+            with _obs_span("chunk_gather"):
+                _obs_fence(self.raw)
+                return np.asarray(self.raw).reshape(-1, 3)[: self.count]
 
 
 class BucketedPending:
@@ -385,6 +421,7 @@ class BucketedPending:
         self.count = count
         self.len1 = len1
         self.finish = finish
+        self.trace_keys = ()  # the trace launches this result closes
         self._host = None
         self._event = None
 
@@ -426,10 +463,13 @@ class BucketedPending:
     def result(self) -> np.ndarray:
         with watchdog.guard("bucketed result gather"):
             _fault("chunk_scoring")
-            if self._host is None:
-                self._start_copy()
-            if self._event is not None:
-                _wait(self._event)
+            with _obs_span("chunk_gather"):
+                if self._host is None:
+                    self._start_copy()
+                if self._event is not None:
+                    wait_event(self._event)
+            for key in self.trace_keys:
+                trace_launch_end(key)
             return self._host.numpy()
 
 
@@ -479,6 +519,7 @@ class AlignmentScorer:
         :meth:`prestage_codes` (single-use)."""
         with watchdog.guard("chunk dispatch"):
             _fault("chunk_dispatch")
+        _obs_inc("chunks_dispatched")
         if not seq2_codes:
             return PendingResult(np.zeros((0, 3), dtype=np.int32), 0)
         if self.backend == "oracle":
@@ -486,12 +527,22 @@ class AlignmentScorer:
                 score_batch_oracle(seq1_codes, seq2_codes, weights), dtype=np.int32
             ).reshape(-1, 3)
             return PendingResult(out, out.shape[0])
-        launches = bucket_launches(
-            seq1_codes, seq2_codes, weights, self.device, backend=self.backend, staged=staged
-        )
-        parts = [(b.idx, run_launch(b, self.backend), b.state.lens) for b in launches]
-        return BucketedPending(parts, len(seq2_codes), int(seq1_codes.size),
-                               finish=self.backend == "cuda")
+        with _obs_span("chunk_dispatch"):
+            launches = bucket_launches(
+                seq1_codes, seq2_codes, weights, self.device, backend=self.backend,
+                staged=staged,
+            )
+            parts = [(b.idx, run_launch(b, self.backend), b.state.lens) for b in launches]
+            pending = BucketedPending(parts, len(seq2_codes), int(seq1_codes.size),
+                                      finish=self.backend == "cuda")
+        if active_trace() is not None:
+            # One trace launch per launch group, keyed by the pending
+            # result that closes it.
+            pending.trace_keys = [(id(pending), i) for i in range(len(launches))]
+            for key, b in zip(pending.trace_keys, launches):
+                trace_launch_begin(key, len1=b.state.len1,
+                                   lens=[seq2_codes[j].size for j in b.idx])
+        return pending
 
     def prestage_codes(self, seq1_codes, seq2_codes, weights) -> StagedFeed | None:
         """Plan a future :meth:`score_codes_async` of the same operands and
@@ -510,6 +561,7 @@ class AlignmentScorer:
             if cuda:
                 event = torch.cuda.Event()
                 event.record(self._side)
+        _obs_inc("feed_prestages")
         return StagedFeed(operand_digest(seq1_codes, seq2_codes, weights, self.backend),
                           event, launches)
 

@@ -18,7 +18,9 @@ L1P`` and mutant positions ``k < L2P``:
 * ``len2 == len1`` scores positionally (``c0`` at n = 0), ``len2 > len1``
   or ``len2 == 0`` gives ``(INT32_MIN, 0, 0)``.
 
-Every quantity is int32 and exact under the gate of ``ops/bounds.py``.
+Every quantity is int32 and exact under the admission gate of
+``ops/bounds.py`` (``L * max|v| < 2^31`` over the scored rows), which
+is why launches past the kernels' narrower window run here.
 Plain PyTorch on the scorer's device, in chunks of pairs to bound
 memory.  It is the bottom rung of the degrade chain, so it shares no code
 with the kernels' plain versions (``cuda_scorer._kernel_rows``).
@@ -44,7 +46,9 @@ def _score_pairs(vw, wext, len1, rows, lens) -> torch.Tensor:
     idx0 = (n + i)[None]  # [1, noff, L2P]
     base = rows.long()[:, None, :] * wext  # [cb, 1, L2P]
     ln = lens.long()[:, None, None]
-    charmask = i[None] < ln
+    # A row longer than Seq1 is never scored: its chars are masked so its
+    # sums stay inside the gate of ops/bounds.py, which counts scored rows.
+    charmask = i[None] < torch.where(ln <= len1, ln, 0)
     v0 = torch.where(charmask, vw[base + idx0], 0)
     v1 = torch.where(charmask, vw[base + idx0 + 1], 0)
     c0 = torch.cumsum(v0, dim=2, dtype=torch.int32)

@@ -1,8 +1,8 @@
-"""Wall-clock deadlines around device work (the port of
-``mpi_openmp_cuda_tpu/resilience/watchdog.py``, without the heartbeat,
-which belongs to the obs plane).
+"""Wall-clock deadlines around device work, and the obs plane's
+heartbeat (the port of ``mpi_openmp_cuda_tpu/resilience/watchdog.py``).
 
-One monitor thread per run (``--deadline`` / ``SEQALIGN_DEADLINE_S``).
+One monitor thread per run (``--deadline`` / ``SEQALIGN_DEADLINE_S``,
+and/or ``--heartbeat`` / ``SEQALIGN_HEARTBEAT_S``).
 Each blocking boundary — the dispatch and the result materialisation in
 ``ops/dispatch.py`` — arms :meth:`Watchdog.guard` around itself.  The
 monitor waits on a ``threading.Condition`` with the deadline as timeout
@@ -17,6 +17,13 @@ wait polls a CUDA event (``event.query()``) and, between polls, the
 armed guard's expiry, raising :class:`DeadlineExpiredError` once it is
 set (:func:`check_expired`).  An injected ``hang:*`` fault blocks on the
 same expiry event, so it expires deterministically.
+
+With a heartbeat interval the monitor also calls the heartbeat callback
+(``obs.export.heartbeat_callback``: one ``[obs]`` line) after every
+quiet interval; heartbeat-only mode (no deadline) enforces nothing.  The
+callback and every bus publish run outside the monitor's condition:
+they take the obs recorders' own locks, which must never nest under a
+watchdog lock (a stalled subscriber would stall every ``guard()``).
 """
 
 from __future__ import annotations
@@ -54,10 +61,17 @@ class Watchdog:
     guarded boundaries all run on the calling thread; nested guards are
     no-ops under the outer deadline).  ``stop()`` joins the thread."""
 
-    def __init__(self, deadline_s: float, *, log=None):
-        if deadline_s is None or deadline_s <= 0:
+    def __init__(self, deadline_s: float | None, *, log=None,
+                 heartbeat_s: float | None = None, heartbeat=None):
+        if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"watchdog deadline must be > 0 seconds, got {deadline_s}")
-        self.deadline_s = float(deadline_s)
+        if deadline_s is None and heartbeat_s is None:
+            raise ValueError("watchdog needs a deadline, a heartbeat interval, or both")
+        if heartbeat_s is not None and heartbeat_s <= 0:
+            raise ValueError(f"heartbeat interval must be > 0 seconds, got {heartbeat_s}")
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
+        self.heartbeat_s = None if heartbeat_s is None else float(heartbeat_s)
+        self._heartbeat = heartbeat
         self.expiries = 0
         self._log = log or log_line
         self._cond = threading.Condition()
@@ -81,23 +95,31 @@ class Watchdog:
             thread.join()
 
     def _monitor(self) -> None:
+        hb = self.heartbeat_s
         while True:
+            beat = False
             expired = None
             with self._cond:
                 if self._stopped:
                     return
-                if self._arm is None:
-                    self._cond.wait()
-                    continue
-                cur = self._arm
-                disarmed = self._cond.wait_for(
-                    lambda: self._stopped or self._arm is not cur,
-                    timeout=self.deadline_s,
-                )
-                if not disarmed:
-                    self.expiries += 1
-                    cur.expired.set()
-                    expired = cur
+                if self._arm is None or self.deadline_s is None:
+                    # Idle, or heartbeat-only (guards carry no deadline):
+                    # sleep a heartbeat interval (forever without one) and
+                    # beat on each quiet timeout.
+                    notified = self._cond.wait(timeout=hb)
+                    beat = not notified and not self._stopped
+                else:
+                    cur = self._arm
+                    disarmed = self._cond.wait_for(
+                        lambda: self._stopped or self._arm is not cur,
+                        timeout=self.deadline_s,
+                    )
+                    if not disarmed:
+                        self.expiries += 1
+                        cur.expired.set()
+                        expired = cur
+            if beat and self._heartbeat is not None:
+                self._heartbeat()
             if expired is not None:
                 # Published outside the condition: a subscriber must never
                 # stall guard() or stop() callers.
@@ -139,10 +161,11 @@ class Watchdog:
         """An injected hang: block on the armed guard's expiry, then raise
         :class:`DeadlineExpiredError`; with no guard armed, fail fast."""
         token = self.current()
-        if token is None:
+        if token is None or self.deadline_s is None:
             raise HangWithoutDeadlineError(
                 f"injected hang at {site!r} outside any deadline-armed "
-                "watchdog guard; refusing to block forever"
+                "watchdog guard; refusing to block forever (a heartbeat-only "
+                "watchdog enforces no deadline)"
             )
         token.expired.wait()
         raise DeadlineExpiredError(
@@ -154,11 +177,13 @@ class Watchdog:
 _active: Watchdog | None = None
 
 
-def activate_watchdog(deadline_s: float, *, log=None) -> Watchdog:
-    """Arm and start a fresh watchdog for one run."""
+def activate_watchdog(deadline_s: float | None, *, log=None,
+                      heartbeat_s: float | None = None, heartbeat=None) -> Watchdog:
+    """Arm and start a fresh watchdog for one run; ``deadline_s=None``
+    with a heartbeat runs it in heartbeat-only mode."""
     global _active
     deactivate_watchdog()
-    _active = Watchdog(deadline_s, log=log)
+    _active = Watchdog(deadline_s, log=log, heartbeat_s=heartbeat_s, heartbeat=heartbeat)
     _active.start()
     return _active
 

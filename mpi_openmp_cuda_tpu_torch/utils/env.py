@@ -43,6 +43,26 @@ ENV_VARS: tuple[EnvVar, ...] = (
     EnvVar("TPU_SEQALIGN_FEED_OVERLAP", "flag", True,
            "stage the next chunk's host->device copies on a side CUDA "
            "stream while the current chunk computes (0 disables)"),
+    EnvVar("SEQALIGN_METRICS", "flag", False,
+           "arm the observability plane (same as --metrics)"),
+    EnvVar("SEQALIGN_METRICS_OUT", "str", None,
+           "write the JSON run report (and a .prom sidecar) here on exit "
+           "(same as --metrics-out)"),
+    EnvVar("SEQALIGN_HEARTBEAT_S", "float", None,
+           "seconds between [obs] status lines on stderr (same as "
+           "--heartbeat)"),
+    EnvVar("SEQALIGN_TRACE", "str", None,
+           "write the Chrome-trace JSON timeline here on exit (same as "
+           "--trace-out)"),
+    EnvVar("SEQALIGN_FLIGHTREC_DEPTH", "int", 256,
+           "flight-recorder ring depth while the obs plane is armed "
+           "(0 disables)"),
+    EnvVar("SEQALIGN_CACHE_DIR", "str", None,
+           "the port's cache home (flight-recorder dumps under "
+           "<dir>/flightrec)"),
+    EnvVar("TPU_SEQALIGN_COMPILE_CACHE", "str", None,
+           "off/0 disables the cache home; a directory is the legacy "
+           "home when SEQALIGN_CACHE_DIR is unset"),
 )
 
 _REGISTRY = {v.name: v for v in ENV_VARS}
@@ -100,3 +120,21 @@ def env_flag(name: str, default: bool | None = None) -> bool:
         f"{name} must be a boolean flag (1/0/true/false/yes/no/on/off), "
         f"got {raw!r} ({var.doc})"
     )
+
+
+def cache_home() -> str | None:
+    """The port's cache root, or None when caching is disabled
+    (``TPU_SEQALIGN_COMPILE_CACHE=off``/``0``); the JAX package's
+    ``utils/platform.py::cache_home`` with the port's own default.
+
+    Precedence: ``SEQALIGN_CACHE_DIR``, else a ``TPU_SEQALIGN_COMPILE_CACHE``
+    directory, else ``~/.cache/mpi_openmp_cuda_tpu_torch``."""
+    legacy = env_str("TPU_SEQALIGN_COMPILE_CACHE")
+    if legacy is not None and legacy.strip().lower() in ("off", "0", ""):
+        return None
+    explicit = env_str("SEQALIGN_CACHE_DIR")
+    if explicit:
+        return explicit
+    if legacy:
+        return legacy
+    return os.path.join(os.path.expanduser("~"), ".cache", "mpi_openmp_cuda_tpu_torch")

@@ -67,9 +67,37 @@ def test_json_sidecar(tmp_path, capfd):
     "args", [["--bogus"], ["--device", "tpu"], ["--backend", "pallas"], ["--input"]]
 )
 def test_usage_errors_exit_64(args, capfd):
-    out, err = _port(args, capfd, tcli.EX_USAGE)
+    """A command line argparse rejects exits with argparse's own 2 and the
+    usage text on stderr, as the JAX CLI does (64 is kept for rejected
+    flag combinations and malformed --faults specs)."""
+    out, err = _port(args, capfd, 2)
     assert out == ""
     assert "usage" in err
+
+
+# The gate fault's two inputs: weights the reference scores exactly (the
+# JAX CLI exits 0 on both) that the port once refused with 65.
+GATE_CASES = {
+    "C": "1000000000 1 1 1\nABBAB\n3\nA\nAB\nBA\n",
+    "D": "16777216 1 1 1\nABBAB\n2\nAB\n" + "AB" * 32 + "\n",
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_gate_cases_match_the_jax_cli_and_the_oracle(case, tmp_path, capfd):
+    from mpi_openmp_cuda_tpu.io.parse import load_problem
+    from mpi_openmp_cuda_tpu.ops.oracle import prefix_best
+
+    path = tmp_path / f"case{case}.txt"
+    path.write_text(GATE_CASES[case])
+    out, _ = _port(["--input", str(path), "--device", "cpu"], capfd, 0)
+    jax_out, _ = run_cli_inproc("--input", str(path), capsys=capfd)
+    assert out == jax_out
+    prob = load_problem(str(path))
+    assert out == "".join(
+        f"#{i}: score: {s}, n: {n}, k: {k}\n"
+        for i, (s, n, k) in enumerate(
+            prefix_best(prob.seq1_codes, q, prob.weights) for q in prob.seq2_codes))
 
 
 @pytest.mark.parametrize(

@@ -369,8 +369,10 @@ def test_plain_exact_across_tpu_feed_regimes(weights):
 
 
 def test_int32_gate_edge_is_exact_and_past_it_raises():
-    """At the largest admitted max|v| the int32 paths still equal the int64
-    oracle; one past it the scorer refuses the batch."""
+    """At the largest max|v| of the kernels' window the int32 paths still
+    equal the int64 oracle; one past it the batch runs the gather
+    formulation, still exact; past the admission gate (len2 * max|v| >=
+    2^31) the scorer refuses the batch."""
     rng = np.random.default_rng(4)
     seq1 = rng.integers(1, 27, size=40).astype(np.int8)
     seqs = [rng.integers(1, 27, size=n).astype(np.int8) for n in (9, 12, 16)]
@@ -382,10 +384,90 @@ def test_int32_gate_edge_is_exact_and_past_it_raises():
         )
         assert _rows(got) == _oracle(seq1, seqs, weights)
         _assert_fused_formulations_agree(seq1, seqs, weights)
+    top = tbounds.max_admitted_value(16)
+    assert 16 * top <= 2**31 - 1 < 16 * (top + 1)
+    for big in (m + 1, top):
+        got = tdispatch.AlignmentScorer("cuda", device="cpu").score_codes(
+            seq1, seqs, [big, 1, 1, 1]
+        )
+        assert _rows(got) == _oracle(seq1, seqs, [big, 1, 1, 1])
     with pytest.raises(ValueError, match="2\\^31"):
         tdispatch.AlignmentScorer("cuda", device="cpu").score_codes(
-            seq1, seqs, [m + 1, 1, 1, 1]
+            seq1, seqs, [top + 1, 1, 1, 1]
         )
+
+
+def _route_spy(monkeypatch):
+    """Count the formulations dispatch.run_launch reaches."""
+    calls = {"fused": 0, "packed": 0, "gather": 0}
+    for name, key in (("fused_scorer", "fused"), ("packed_scorer", "packed"),
+                      ("gather_rows", "gather")):
+        orig = getattr(tdispatch, name)
+
+        def spy(*a, _orig=orig, _key=key, **k):
+            calls[_key] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(tdispatch, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("lens,packed", [((300, 520, 700), False), ((5, 17, 40, 64), True)],
+                         ids=["fused-bucket", "packed-bucket"])
+def test_launch_past_the_kernels_window_runs_gather(lens, packed, monkeypatch):
+    """A launch with L*M < 2^31 <= 2*L*M runs the int32 gather formulation
+    (no kernel), in the kernels' raw layout, and equals the oracle."""
+    rng = np.random.default_rng(11)
+    seq1 = rng.integers(1, 27, size=800).astype(np.int8)
+    seqs = [rng.integers(1, 27, size=n).astype(np.int8) for n in lens]
+    big = tbounds.max_exact_value(max(lens)) + 1
+    assert max(lens) * big < 2**31 <= 2 * max(lens) * big
+    weights = [big, 1, big - 7, 2]
+    launches = tdispatch.bucket_launches(seq1, seqs, weights, torch.device("cpu"))
+    assert [b.l2s is not None for b in launches] == [packed]
+    assert tdispatch.effective_backend("cuda", launches[0].maxv, launches[0].state.rows.shape[1],
+                                       launches[0].max_scored) == "gather"
+    calls = _route_spy(monkeypatch)
+    got = tdispatch.AlignmentScorer("cuda", device="cpu").score_codes(seq1, seqs, weights)
+    assert calls == {"fused": 0, "packed": 0, "gather": 1}
+    assert _rows(got) == _oracle(seq1, seqs, weights)
+
+
+def test_launch_inside_the_window_keeps_its_kernel(monkeypatch):
+    rng = np.random.default_rng(12)
+    seq1 = rng.integers(1, 27, size=300).astype(np.int8)
+    seqs = [rng.integers(1, 27, size=n).astype(np.int8) for n in (150, 200)]
+    weights = [tbounds.max_exact_value(200), 1, 1, 1]
+    calls = _route_spy(monkeypatch)
+    got = tdispatch.AlignmentScorer("cuda", device="cpu").score_codes(seq1, seqs, weights)
+    assert calls == {"fused": 1, "packed": 0, "gather": 0}
+    assert _rows(got) == _oracle(seq1, seqs, weights)
+
+
+def test_unscored_rows_do_not_count_toward_the_gate():
+    """Rows longer than Seq1 or empty get sentinels; only scored rows set
+    L (case D of the gate fault: a 64-char row beside a 5-char Seq1)."""
+    seq1 = np.array([1, 2, 2, 1, 2], dtype=np.int8)
+    seqs = [np.array([1, 2], dtype=np.int8), np.tile([1, 2], 32).astype(np.int8),
+            np.zeros(0, dtype=np.int8)]
+    for m in (16777216, tbounds.max_admitted_value(2)):
+        got = tdispatch.AlignmentScorer("cuda", device="cpu").score_codes(seq1, seqs,
+                                                                          [m, 1, 1, 1])
+        assert _rows(got) == _oracle(seq1, seqs, [m, 1, 1, 1])
+        assert _rows(got)[1:] == [(INT32_MIN, 0, 0)] * 2
+
+
+@pytest.mark.parametrize("backend", ["cuda", "gather", "mm"])
+def test_refusal_once_len2_times_max_value_reaches_2_31(backend):
+    seq1 = np.arange(1, 21, dtype=np.int8)
+    seqs = [np.arange(1, 9, dtype=np.int8),
+            (np.arange(30) % 26 + 1).astype(np.int8)]  # 30 > len1: unscored
+    top = tbounds.max_admitted_value(8)
+    got = tdispatch.AlignmentScorer(backend, device="cpu").score_codes(seq1, seqs, [top, 1, 1, 1])
+    assert _rows(got) == _oracle(seq1, seqs, [top, 1, 1, 1])
+    with pytest.raises(ValueError, match="2\\^31"):
+        tdispatch.AlignmentScorer(backend, device="cpu").score_codes(
+            seq1, seqs, [top + 1, 1, 1, 1])
 
 
 def test_scorer_cpu_bucketed_batch_matches_oracle():
