@@ -103,7 +103,27 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    ``SEQALIGN_DRAIN=1 --journal`` run (75) leave reports whose counters
    match; then the warm max-size CLI wall (min of five) with the plane
    off and with ``--metrics-out``, interleaved, and the span totals of
-   the fastest armed run.
+   the fastest armed run;
+14. several devices (``parallel/``) on the one card, every fused launch
+   of the phase held == its plain version on a ``window_state`` rebuilt
+   from its operands: ``BatchSharding`` over ``[cuda:0] x 4`` on every
+   fixture and max-size (launch counts set to 0 first: 4 launches a
+   bucket, no collective counted inside the compute, one gather a
+   bucket, rows == the single-device rows == the golden), ``--mesh 1``
+   through ``io.cli.run`` on the fixtures and a mesh one larger than the
+   card count refused (65, the JAX CLI's message); ``RingSharding`` over
+   ``[cuda:0] x 8`` as ``seq:8`` (the fixtures, max-size and
+   :func:`ring_problems`: the mostly-dead shards, Seq1 6144, Seq1 12288
+   with L2P 12288) and as ``2x4`` (fixtures, max-size, mostly-dead): rows
+   == golden or oracle, R shifts and one all_gather a shard, 8 window
+   launches a dispatch, the ``len1_eff`` range and the largest dynamic
+   shared memory printed; two processes of ``--distributed`` on the card
+   (``gloo``: the ranks share it) with ``--mesh 2`` and ``--mesh seq:2``
+   on mixedcase and max-size (rank 0 == golden, rank 1 silent, both 0)
+   and a parse failure on rank 0 (both 65 within 60 s); then max-size's
+   warm wall single-device, over ``[cuda:0] x 4`` and over ``seq:8``
+   with each path's summed launch time (CUDA events), and a two-process
+   job's wall.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: the CLI run of
@@ -619,6 +639,9 @@ def main() -> int:
     # -- 12-13. gather routing, the obs plane ------------------------------
     gather_counts = gather_route_phase(np, torch, cli, cs, (seq1_max, seqs_max), prefix_best)
     obs_counts = obs_phase(torch, cli, cs, fixtures, inputs, run_kernel_ms, run_launches, card)
+    # -- 14. several devices: batch mesh, the Seq1 ring, two processes ------
+    mesh_counts = mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best,
+                             time_ms, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -629,7 +652,8 @@ def main() -> int:
     )
     bench_counts = bench_phase(probe)
     paths = {"cli": counts, "robustness": robust_counts, "gather route": gather_counts,
-             "obs": obs_counts, "bench": bench_counts, "ablation": abl_counts}
+             "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
+             "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1113,6 +1137,285 @@ def obs_phase(torch, cli, cs, fixtures, inputs, kernel_ms, n_launches, card) -> 
     del os.environ["SEQALIGN_CACHE_DIR"], os.environ["SEQALIGN_BACKOFF_BASE"]
     tmp.cleanup()
     return counts
+
+
+def ring_problems(np) -> dict:
+    """The Seq1 ring's own inputs beyond the fixtures and max-size, as the
+    JAX package's ring tests make them: the mostly-dead-shards case (Seq1
+    205 over seq:8: Bs 128, shards 2-7 hold no valid offset), Seq1 6144
+    with 4 Seq2 of 100-2500 and Seq1 12288 with Seq2 of 300, 3500 and
+    12280 (past both of the reference's caps; L2P 12288)."""
+    rng = np.random.default_rng(0)
+    seq1 = rng.integers(1, 4, size=205).astype(np.int8)
+    dead = [rng.integers(1, 4, size=int(n)).astype(np.int8)
+            for n in rng.integers(1, 160, size=6)]
+    dead += [seq1.copy(), rng.integers(1, 4, size=240).astype(np.int8)]
+    rng = np.random.default_rng(1)
+    s6 = rng.integers(1, 27, size=6144).astype(np.int8)
+    q6 = [rng.integers(1, 27, size=int(n)).astype(np.int8)
+          for n in rng.integers(100, 2500, size=4)]
+    rng = np.random.default_rng(2)
+    s12 = rng.integers(1, 27, size=12288).astype(np.int8)
+    q12 = [rng.integers(1, 27, size=n).astype(np.int8) for n in (300, 3500, 12280)]
+    return {"mostly-dead shards": (seq1, dead, [2, 1, 1, 1]),
+            "Seq1 6144": (s6, q6, WEIGHTS), "Seq1 12288": (s12, q12, WEIGHTS)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_job(argv, stdin_path, nproc=2, timeout=120) -> list:
+    """One ``--distributed`` job of ``nproc`` processes of the CLI on this
+    host (torchrun's variables set by hand), rank 0 reading
+    ``stdin_path``; returns the started processes."""
+    port = free_port()
+    procs = []
+    for rank in range(nproc):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(nproc), "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(nproc)}
+        with open(stdin_path if rank == 0 else os.devnull, "rb") as stdin:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", PKG, "--distributed", *argv], stdin=stdin,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=REPO))
+    return procs
+
+
+def finish_job(procs, timeout=120) -> list[tuple[int, bytes, bytes]]:
+    """``(exit code, stdout, stderr)`` of each process of a job; a process
+    still running after ``timeout`` seconds is killed and fails."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        fail(f"a --distributed job did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_ms,
+               card) -> dict[str, dict[str, int]]:
+    """Phase 14: several devices.  Returns the launch counts of its paths."""
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.ops import dispatch
+    from mpi_openmp_cuda_tpu_torch.ops.costs import bound_ms
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, bucket_launches
+    from mpi_openmp_cuda_tpu_torch.parallel import ring as ring_mod
+    from mpi_openmp_cuda_tpu_torch.parallel.ring import RingSharding, ring_plan
+    from mpi_openmp_cuda_tpu_torch.parallel.sharding import BatchSharding
+
+    dev0 = torch.device("cuda:0")
+    tmp = tempfile.TemporaryDirectory()
+    probs = {}
+    for f in fixtures:
+        p = load_problem(str(f))
+        probs[f.name] = (p.seq1_codes, p.seq2_codes, p.weights)
+    p = load_problem(str(inputs["max-size"]))
+    probs["max-size"] = (p.seq1_codes, p.seq2_codes, p.weights)
+    ring_only = ring_problems(np)
+
+    def want_rows(tag, s1, seqs, w):
+        if tag in inputs:
+            gold = inputs[tag].with_suffix(".out").read_text()
+        else:
+            gold = rows_text(prefix_best(s1, q, w) for q in seqs)
+        return gold
+
+    # Every fused launch of the phase's paths, held against the plain
+    # version on a window_state rebuilt from its operands' bytes.
+    seen = []
+    real = cs.fused_scorer
+
+    def checked(state):
+        raw = real(state)
+        ws = cs.window_state(state.seq1ext.cpu().numpy(), state.len1,
+                             state.rows.cpu().numpy(), state.lens.cpu().numpy(),
+                             state.val.cpu().numpy().reshape(-1), state.rows.device)
+        compare("fused_scorer", raw, cs.fused_scorer_plain(ws))
+        seen.append(state)
+        return raw
+
+    def spy(on: bool):
+        dispatch.fused_scorer = ring_mod.fused_scorer = checked if on else real
+
+    single = AlignmentScorer("cuda", device=dev0)
+    single_rows = {tag: single.score_codes(*args) for tag, args in probs.items()}
+
+    # -- 1. batch sharding over [cuda:0] x 4 ----------------------------------
+    b4 = BatchSharding.over_devices(devices=[dev0] * 4)
+    sc4 = AlignmentScorer("cuda", device=dev0, sharding=b4)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    spy(True)
+    try:
+        want_launches = 0
+        batch_states = {}
+        for tag, (s1, seqs, w) in probs.items():
+            if not seqs:
+                continue
+            b4.comm.reset_counts()
+            first = len(seen)
+            pend = sc4.score_codes_async(s1, seqs, w)
+            if b4.comm.counts:
+                fail(f"batch mesh {tag}: collectives inside the compute: {dict(b4.comm.counts)}")
+            rows = pend.result()
+            batch_states[tag] = seen[first:]
+            parts = len(pend.parts)
+            want_launches += 4 * parts
+            if dict(b4.comm.counts) != {"gather": parts}:
+                fail(f"batch mesh {tag}: collectives {dict(b4.comm.counts)}, want "
+                     f"{parts} gathers and nothing else")
+            if rows_text(rows) != want_rows(tag, s1, seqs, w) or not np.array_equal(
+                    rows, single_rows[tag]):
+                fail(f"batch mesh {tag}: rows differ from the single-device rows or the golden")
+            log(f"batch mesh [cuda:0]x4 {tag}: {len(seqs)} rows == single device == "
+                f"golden, {parts} buckets x 4 shard launches == plain, collectives "
+                f"{dict(b4.comm.counts)} (none in the compute)")
+    finally:
+        spy(False)
+    batch_counts = dict(cs.launch_counts)
+    if batch_counts["fused_scorer"] != want_launches or batch_counts["packed_scorer"]:
+        fail(f"batch mesh launch counts {batch_counts}, want {want_launches} fused")
+    seen.clear()
+    for f in fixtures:
+        rc, out, _ = run_cli(cli, ["--input", str(f), "--mesh", "1"])
+        if rc != 0 or out != f.with_suffix(".out").read_bytes():
+            fail(f"cli --mesh 1 {f.name}: rc {rc}, stdout differs from the golden")
+    n = torch.cuda.device_count()
+    err = []
+    rc, out, _ = run_cli(cli, ["--input", str(fixtures[0]), "--mesh", str(n + 1)], err)
+    msg = f"requested {n + 1} devices but only {n} available"
+    if rc != 65 or out or msg not in err[0]:
+        fail(f"cli --mesh {n + 1}: rc {rc}, stderr {err[0][-300:]} (want 65, {msg!r})")
+    log(f"cli --mesh 1 on {len(fixtures)} fixtures == golden; --mesh {n + 1}: 65, {msg!r}")
+
+    # -- 2. the Seq1 ring over [cuda:0] x 8 -----------------------------------
+    rings = {"seq:8": RingSharding.over_devices(seq=8, devices=[dev0] * 8),
+             "2x4": RingSharding.over_devices(seq=4, batch=2, devices=[dev0] * 8)}
+    ring_inputs = {**probs, **ring_only}
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    spy(True)
+    ring_states = {}
+    try:
+        for mesh, rs in rings.items():
+            scr = AlignmentScorer("cuda", device=dev0, sharding=rs)
+            for tag, (s1, seqs, w) in ring_inputs.items():
+                if not seqs:
+                    continue
+                if mesh == "2x4" and tag in ring_only and tag != "mostly-dead shards":
+                    continue
+                rs.comm.reset_counts()
+                first = len(seen)
+                rows = scr.score_codes(s1, seqs, w)
+                if rows_text(rows) != want_rows(tag, s1, seqs, w):
+                    fail(f"ring {mesh} {tag}: rows differ from the golden/oracle")
+                st = seen[first:]
+                l1p = -(-s1.size // 128) * 128
+                l2p = -(-max(q.size for q in seqs) // 128) * 128
+                bs, r_steps = ring_plan(l1p, l2p, rs.sp, True)
+                want = {"shift": r_steps * 8, "all_gather": 8, "gather": 1}
+                # Each shift moves one Bs block and each all_gather the [sp,
+                # bl, 4] candidates: nothing moves Seq1 whole.
+                bl = -(-len(seqs) // rs.dp)
+                sizes = {k: {e for kk, e in rs.comm.log if kk == k} for k in want}
+                if dict(rs.comm.counts) != want or len(st) != 8 or sizes["shift"] != {bs} or (
+                        sizes["all_gather"] != {rs.sp * bl * 4}):
+                    fail(f"ring {mesh} {tag}: collectives {dict(rs.comm.counts)} (want {want}), "
+                         f"elements {sizes}, {len(st)} window launches (want 8)")
+                effs = [x.len1 for x in st]
+                smem = max(cs.check_smem(x) for x in st)
+                ring_states[(mesh, tag)] = st
+                log(f"ring {mesh} {tag}: {len(seqs)} rows == golden/oracle; Bs {bs}, R "
+                    f"{r_steps}, L2P {l2p}, 8 window launches == plain on window_state, "
+                    f"len1_eff {min(effs)}..{max(effs)}, dynamic smem {smem} B a block")
+    finally:
+        spy(False)
+    ring_counts = dict(cs.launch_counts)
+    if ring_counts["fused_scorer"] != 8 * len(ring_states):
+        fail(f"ring launch counts {ring_counts}, want {8 * len(ring_states)} fused")
+    all_eff = [x.len1 for sts in ring_states.values() for x in sts]
+    all_l2p = [x.rows.shape[1] for sts in ring_states.values() for x in sts]
+    log(f"ring windows: {len(all_eff)} launches, len1_eff {min(all_eff)}..{max(all_eff)} "
+        f"(Bs up to {max(x.l1p for sts in ring_states.values() for x in sts)}), L2P up to "
+        f"{max(all_l2p)}, largest dynamic smem "
+        f"{max(cs.check_smem(x) for sts in ring_states.values() for x in sts)} B")
+
+    # -- 3. two processes on the one card -------------------------------------
+    big = inputs["max-size"]
+    small = next(f for f in fixtures if f.stem == "mixedcase")
+    report = Path(tmp.name) / "rank0.json"
+    jobs = {}
+    for mesh in ("2", "seq:2"):
+        for path in (small, big):
+            extra = ["--metrics-out", str(report)] if (mesh, path) == ("2", big) else []
+            jobs[(mesh, path.name)] = (launch_job(["--mesh", mesh, *extra], path), path)
+    bad = Path(tmp.name) / "bad.txt"
+    bad.write_text("1 2 3\n")
+    t0 = time.perf_counter()
+    jobs[("abort", "bad")] = (launch_job(["--mesh", "2"], bad), None)
+    for key, (procs, path) in jobs.items():
+        outs = finish_job(procs, timeout=60 if path is None else 120)
+        (rc0, out0, err0), (rc1, out1, err1) = outs
+        if path is None:
+            if (rc0, rc1) != (65, 65) or out0 or out1 or b"aborting" not in err1:
+                fail(f"2-process parse failure: rc {rc0}/{rc1}, stderr {err1[-300:]!r}")
+            log(f"2-process parse failure on rank 0: both ranks exit 65 within "
+                f"{time.perf_counter() - t0:.1f} s, rank 1 'aborting'")
+            continue
+        if rc0 or rc1 or out0 != path.with_suffix(".out").read_bytes() or out1:
+            fail(f"2-process --mesh {key[0]} {key[1]}: rc {rc0}/{rc1}, rank 1 stdout "
+                 f"{len(out1)} bytes; stderr {err0[-400:]!r} {err1[-400:]!r}")
+        log(f"2-process --distributed --mesh {key[0]} {key[1]}: rank 0 stdout == golden, "
+            f"rank 1 silent, both exit 0")
+    rec = json.loads(report.read_text())
+    dist_counts = {k: rec["counters"].get(f"{k}_launches", 0) for k in cs.launch_counts}
+    if dist_counts["fused_scorer"] < 1:
+        fail(f"the 2-process max-size job's rank 0 launched no fused kernel: {dist_counts}")
+    log(f"2-process --mesh 2 max-size, rank 0's launches {dist_counts}, transport "
+        f"{rec['gauges'].get('distributed_transport')}")
+
+    # -- 4. times --------------------------------------------------------------
+    s1, seqs, w = probs["max-size"]
+    ring8 = AlignmentScorer("cuda", device=dev0, sharding=rings["seq:8"])
+    walls = {}
+    for name, sc in (("single", single), ("[cuda:0]x4", sc4), ("seq:8", ring8)):
+        ws = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sc.score_codes(s1, seqs, w)
+            ws.append(time.perf_counter() - t0)
+        walls[name] = ws
+    kern = {"single": [b.state for b in bucket_launches(s1, seqs, w, dev0)],
+            "[cuda:0]x4": batch_states["max-size"],
+            "seq:8": ring_states[("seq:8", "max-size")]}
+    for name in walls:
+        ms = sum(time_ms(lambda x=x: cs.fused_scorer(x), reps=20) for x in kern[name])
+        b_ms = sum(bound_ms(x)[0] for x in kern[name])
+        log(f"max-size {name}: warm wall min {min(walls[name]) * 1e3:.3f} ms of "
+            f"{[round(x * 1e3, 3) for x in walls[name]]}, {len(kern[name])} launches "
+            f"summing {ms:.6f} ms of device time, bound {b_ms:.6f} ms [{card}]")
+    procs = launch_job(["--mesh", "2"], big)
+    t0 = time.perf_counter()
+    (rc0, out0, _), (rc1, _, _) = finish_job(procs)
+    wall = time.perf_counter() - t0
+    if rc0 or rc1 or out0 != big.with_suffix(".out").read_bytes():
+        fail("2-process --mesh 2 max-size (timed): wrong exit or stdout")
+    log(f"2-process --distributed --mesh 2 max-size job wall {wall:.3f} s, process "
+        f"start to exit [{card}]")
+    tmp.cleanup()
+    return {"batch mesh": batch_counts, "ring": ring_counts, "2-process rank 0": dist_counts}
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

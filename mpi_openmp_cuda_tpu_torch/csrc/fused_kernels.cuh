@@ -509,6 +509,33 @@ finish_kernel(const int* __restrict__ seq1ext, int len1,
   }
 }
 
+// The tile kernel's launch shape at row width l2p: the blocks of a (pair,
+// tile) cluster, the segments (warps) a block, and its dynamic shared
+// memory, 4 * (732 + s2n + nblk * nseg * 9 * 32) + 128 + s2n bytes with
+// s2n = block_chars(l2p, nseg, nblk): 26.9 KB at the Seq2 cap (l2p =
+// 2048, 2 x 8 segments), 52.5 KB at l2p = 12288.
+struct TileShape {
+  int nblk;
+  int nseg;
+  size_t smem;
+};
+
+constexpr size_t kDefaultSmem = 48 * 1024;  // a launch's without opting in
+
+inline TileShape tile_shape(int l2p) {
+  // Segments a (pair, tile), and the blocks they are spread over: short
+  // rows stay in one block (a second one would stage the table again for
+  // a few chars each).
+  int nsegt = (l2p + kSegChars - 1) / kSegChars;
+  nsegt = nsegt > kMaxSeg * kCluster ? kMaxSeg * kCluster : nsegt;
+  const int nblk = nsegt > kMaxSeg ? kCluster : 1;
+  const int nseg = (nsegt + nblk - 1) / nblk;
+  const int s2n = block_chars(l2p, nseg, nblk);
+  const size_t smem =
+      sizeof(int) * (kTabWords + s2n + nblk * nseg * kComb * 32) + kTile + s2n;
+  return {nblk, nseg, smem};
+}
+
 // seq1ext: [ntiles * 128 + l2p + 1] int32 codes; rows: [batch, l2p] int32,
 // l2p a multiple of 4; lens: [batch] int32; val: [27 * 27] int32 with
 // row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch ([batch,
@@ -522,18 +549,20 @@ cudaError_t launch(const int* seq1ext, int len1, const int* rows,
   if (batch == 0) return cudaSuccess;
   // The 16-byte Seq2 loads and the packed window need whole groups of 4.
   if (l2p % 4 != 0) return cudaErrorInvalidValue;
-  // Segments a (pair, tile), and the blocks they are spread over: short
-  // rows stay in one block (a second one would stage the table again for
-  // a few chars each).
-  int nsegt = (l2p + kSegChars - 1) / kSegChars;
-  nsegt = nsegt > kMaxSeg * kCluster ? kMaxSeg * kCluster : nsegt;
-  const int nblk = nsegt > kMaxSeg ? kCluster : 1;
-  const int nseg = (nsegt + nblk - 1) / nblk;
-  // 26.7 KB at the Seq2 cap (l2p = 2048, 2 x 8 segments): under the 48 KB
-  // default.
-  const int s2n = block_chars(l2p, nseg, nblk);
-  const size_t smem =
-      sizeof(int) * (kTabWords + s2n + nblk * nseg * kComb * 32) + kTile + s2n;
+  const TileShape shape = tile_shape(l2p);
+  const int nblk = shape.nblk;
+  const int nseg = shape.nseg;
+  const size_t smem = shape.smem;
+  // Past the 48 KB a launch gets by default (L2P from 11,008 on: the
+  // ring's windows lift the Seq2 cap), the kernel opts in to more, up to
+  // what the card allows a block (227 KB on the H100: L2P up to 84,224);
+  // the wrapper refuses a launch past that before it gets here.
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tile_kernel<VAR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   // The tile kernel: clusters of nblk blocks along z.
   cudaLaunchAttribute attr = {};
   attr.id = cudaLaunchAttributeClusterDimension;

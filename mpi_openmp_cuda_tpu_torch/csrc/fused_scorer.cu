@@ -22,3 +22,20 @@ extern "C" int fused_scorer_launch(const int* seq1ext, int len1,
       seq1ext, len1, rows, lens, batch, l2p, ntiles, val, partial, out,
       stream));
 }
+
+// Dynamic shared memory a tile block takes at row width l2p, in bytes.
+extern "C" long long fused_scorer_smem(int l2p) {
+  return static_cast<long long>(fused::tile_shape(l2p).smem);
+}
+
+// Dynamic shared memory the current device allows a block after opting
+// in, in bytes (a negative CUDA error code when it cannot be read).
+extern "C" long long fused_scorer_smem_limit() {
+  int dev = 0;
+  int bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? bytes : -static_cast<long long>(err);
+}

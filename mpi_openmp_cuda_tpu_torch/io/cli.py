@@ -3,19 +3,24 @@
 Parse stdin (or ``--input``), score every Seq2 with ``AlignmentScorer``
 on the chosen device, and print ``#i: score: S, n: N, k: K`` per Seq2 on
 stdout.  Diagnostics go to stderr; on any failure nothing reaches stdout.
-The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s single-process batch
-path: ``--stream`` (chunked, pipelined), ``--journal``/``--resume``,
+The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s batch path:
+``--stream`` (chunked, pipelined), ``--journal``/``--resume``,
 ``--retries``, ``--faults``, ``--degrade``, ``--deadline``,
 ``--selfcheck``, the drain on SIGTERM/SIGINT (or ``SEQALIGN_DRAIN=1``),
-and the obs plane: ``--metrics``, ``--metrics-out``, ``--heartbeat``,
-``--profile``, ``--trace`` and ``--trace-out``.
+the obs plane (``--metrics``, ``--metrics-out``, ``--heartbeat``,
+``--profile``, ``--trace`` and ``--trace-out``), and several devices:
+``--mesh`` (batch sharding, the Seq1 ring, both) and ``--distributed``
+(one process a device, torchrun's environment; only rank 0 reads the
+input and prints, the other ranks feed from its broadcasts and print
+nothing).
 
 Exit codes: 0 ok; 2 a usage error argparse rejects (an unknown flag, a
 bad value; the usage text goes to stderr, as in the JAX CLI); 64 a
 rejected flag combination or a malformed ``--faults`` spec; 65 fatal (bad
 input, weights outside the int32 gate, no CUDA device without ``--device cpu``,
 a kernel that fails to build or launch without ``--degrade``, a journal
-of another problem, an exhausted retry budget); 75 resumable (a drain,
+of another problem, an exhausted retry budget, a mesh larger than the
+devices there are); 75 resumable (a drain,
 or a failure rooted in a watchdog deadline: rerun, with ``--resume``
 under ``--journal``); 1 when the reader of stdout went away.  With
 ``--metrics-out`` / ``--trace-out`` the run report and the trace are
@@ -95,6 +100,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="device to score on (default cuda; cpu only when asked for)",
+    )
+    p.add_argument(
+        "--mesh", default=None,
+        help="device mesh: 'N' or 'batch:N' shards the Seq2 batch over N "
+        "devices (data parallel); 'seq:N' ring-shards Seq1 over N devices "
+        "(sequence/context parallel, past the reference's length caps); "
+        "'DxS' composes both on a 2-D mesh (default: one device).  On "
+        "--device cpu the host counts as SEQALIGN_HOST_DEVICES devices",
+    )
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="join a multi-process job first (torch.distributed, from "
+        "torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK): "
+        "one device a process, rank 0 reads the input and prints; without "
+        "--mesh the batch is sharded over every process",
     )
     p.add_argument("--json", default=None, metavar="PATH",
                    help="also write results as a JSON sidecar file")
@@ -232,39 +252,83 @@ def _build_obs(args) -> tuple[bool, str | None, float | None, str | None]:
     return enabled, metrics_out or None, heartbeat_s, trace_out or None
 
 
-def _make_degrader(args) -> BackendDegrader:
+def _make_scorer(args, distributed: bool) -> AlignmentScorer:
+    """The run's scorer: ``--mesh``'s sharding (``parallel/specs.py``), or,
+    in a ``--distributed`` job without one, the batch sharded over every
+    process (the reference's MPI_Scatter, main.c:174)."""
+    from ..ops.dispatch import resolve_device
+    from ..parallel.specs import build_sharding
+
+    if args.backend != "oracle":  # the oracle touches no device
+        resolve_device(args.device)  # no card and no --device cpu: that error first
+    sharding = build_sharding(args.mesh, device=args.device)
+    if sharding is None and distributed:
+        from ..parallel.sharding import BatchSharding
+
+        sharding = BatchSharding.over_devices(None, device=args.device)
+    return AlignmentScorer(args.backend, device=args.device, sharding=sharding)
+
+
+def _make_degrader(args, scorer) -> BackendDegrader:
     """The run's degrade chain state (a pass-through unless --degrade);
-    replacement scorers keep the device."""
+    replacement scorers keep the device and the sharding."""
     return BackendDegrader(
-        AlignmentScorer(args.backend, device=args.device),
-        lambda b: AlignmentScorer(b, device=args.device),
+        scorer,
+        lambda b: AlignmentScorer(b, device=args.device, sharding=scorer.sharding),
         enabled=bool(args.degrade),
     )
 
 
-def _run_batch(args, policy, out, timer) -> None:
+def _run_batch(args, policy, out, timer, dist=None) -> None:
+    """The batch path.  In a multi-process job (``dist``) only rank 0
+    parses, and broadcasts the problem (an abort header when its parse
+    fails, so no rank hangs) and, under ``--journal``, its journal's done
+    set, so every rank runs the same schedule; only rank 0 prints."""
     from ..utils.journal import ResultJournal
 
+    multi = dist is not None and dist.process_count() > 1
+    coordinator = dist is None or dist.is_coordinator()
     with timer.phase("parse"):
-        problem = load_problem(args.input)
-    journal = staged = None
+        problem = None
+        if coordinator:
+            try:
+                problem = load_problem(args.input)
+            except Exception:
+                if dist is not None:
+                    dist.broadcast_problem(None, failed=True)
+                raise
+        if dist is not None:
+            problem = dist.broadcast_problem(problem)
+    journal = staged = done = None
     with timer.phase("setup"):
-        deg = _make_degrader(args)
+        deg = _make_degrader(args, _make_scorer(args, dist is not None))
         if args.journal:
-            _check_resume(args)
             journal = ResultJournal(args.journal)
+            if not multi:
+                _check_resume(args)
+            elif coordinator:
+                try:
+                    _check_resume(args)
+                    done = journal.load_done(problem)
+                except Exception:
+                    dist.broadcast_index_set(None, failed=True)
+                    raise
+                dist.broadcast_index_set(sorted(done))
+            else:
+                done = {int(i): None for i in dist.broadcast_index_set(None)}
         else:
             # The batch's copies in start before the score phase, as in
             # the JAX CLI; single-use, so a retry or a degraded scorer
             # copies again.  Not under --journal, whose resume scores a
-            # reduced subset.
+            # reduced subset, nor on a mesh (its shards are placed at
+            # dispatch).
             staged = FeedStager(deg).stage(
                 problem.seq1_codes, problem.seq2_codes, problem.weights)
     obs_gauge("backend", deg.scorer.backend)
 
     def score_once(sc):
         if journal is not None:
-            return journal.score_with_resume(sc, problem)
+            return journal.score_with_resume(sc, problem, done=done, record=coordinator)
         return sc.score_codes(problem.seq1_codes, problem.seq2_codes, problem.weights,
                               staged=staged)
 
@@ -277,7 +341,7 @@ def _run_batch(args, policy, out, timer) -> None:
             policy, deg, lambda: score_once(deg.scorer), score_once, "scoring",
             verify=verify if deg.enabled else None,
         )
-    if args.selfcheck:
+    if args.selfcheck and coordinator:
         from ..utils.selfcheck import verify_results
 
         with timer.phase("selfcheck"):
@@ -285,134 +349,222 @@ def _run_batch(args, policy, out, timer) -> None:
             log_line(f"{PROG}: selfcheck OK ({checked} sequences re-verified on "
                      "the host oracle)")
     with timer.phase("print"):
-        if args.json:
-            write_json_sidecar(results, args.json,
-                               meta={"backend": deg.scorer.backend, "device": args.device})
-        print_results(results, out=out)
+        if coordinator:  # the other ranks print nothing (main.c:199-211)
+            if args.json:
+                write_json_sidecar(results, args.json,
+                                   meta={"backend": deg.scorer.backend,
+                                         "device": args.device})
+            print_results(results, out=out)
     timer.report()
 
 
-def _run_streaming(args, policy, out, timer) -> None:
+def _run_streaming_worker(args, policy, timer, dist) -> None:
+    """A ``--stream`` run on a rank other than 0: receive the stream
+    header, then score every broadcast chunk in the coordinator's own
+    order, one chunk in flight (dispatch chunk i + 1, then gather chunk
+    i), until the end sentinel.  It parses, journals and prints nothing."""
+    with timer.phase("setup"):
+        scorer = _make_scorer(args, True)
+    weights, seq1, _ = dist.broadcast_stream_meta(None)
+
+    def finish(promise, codes, budget):
+        first = [promise]
+
+        def attempt():
+            if first:
+                return first.pop().result()
+            return scorer.score_codes(seq1, codes, weights)
+
+        policy.run(attempt, "chunk scoring", budget)
+
+    with timer.phase("stream"):
+        held = None
+        while True:
+            codes = dist.broadcast_chunk(None)
+            if codes is None:
+                break
+            item = None
+            if codes:
+                budget = policy.new_budget()
+                promise = policy.run(
+                    lambda: scorer.score_codes_async(seq1, codes, weights),
+                    "chunk dispatch", budget)
+                item = (promise, codes, budget)
+            if held is not None:
+                finish(*held)
+            held = item
+        if held is not None:
+            finish(*held)
+    timer.report()
+
+
+def _run_streaming(args, policy, out, timer, dist=None) -> None:
     """The --stream pipeline: parse and score CHUNK sequences at a time
     with a window of chunks in flight (each one's device-to-host copy
     started at dispatch, the next chunk's host-to-device copies staged
     while the current one computes).  Output is buffered and written only
     after the whole stream succeeds.  With --journal, a
     ``StreamJournal`` resumes chunk by chunk: only the sequences without
-    a hash-matching record are scored."""
+    a hash-matching record are scored.
+
+    In a multi-process job (``dist``) rank 0 broadcasts the stream header
+    and then each (journal-reduced) chunk before dispatching it, with one
+    chunk in flight, the schedule :func:`_run_streaming_worker` mirrors
+    collective for collective; any failure on rank 0 broadcasts an abort
+    at the collective the other ranks wait in, so none hangs."""
     from ..utils.journal import JournalMismatchError, StreamJournal, seq_hash
 
+    multi = dist is not None and dist.process_count() > 1
+    if multi and not dist.is_coordinator():
+        _run_streaming_worker(args, policy, timer, dist)
+        return
     with timer.phase("setup"):
-        deg = _make_degrader(args)
+        deg = _make_degrader(args, _make_scorer(args, dist is not None))
     obs_gauge("backend", deg.scorer.backend)
     all_results = [] if args.json else None
     lines = io.StringIO()
-    with open_input(args.input) as stream:
+    try:
+        stream_cm = open_input(args.input)
+    except Exception:
+        if multi:
+            dist.broadcast_stream_meta(None, failed=True)
+        raise
+    with stream_cm as stream:
         with timer.phase("parse_header"):
-            header = parse_stream_header(stream)
-        # The denominator of the heartbeat's "chunk I/N".
-        obs_gauge("chunks_total", -(-header.num_seq2 // args.stream))
-        journal, done = None, {}
-        if args.journal:
-            _check_resume(args)
-            journal = StreamJournal(args.journal, header.weights, header.seq1_codes,
-                                    header.num_seq2)
-            done = journal.load()
-        pipe = ChunkPipeline(policy, deg)
-        # No staging under --journal: a resumed chunk is reduced to its
-        # unscored subset, so a whole-chunk prestage would move dead bytes.
-        stager = FeedStager(deg, enabled=False if journal is not None else None)
-        seq1, weights = header.seq1_codes, header.weights
+            try:
+                header = parse_stream_header(stream)
+            except Exception:
+                if multi:
+                    dist.broadcast_stream_meta(None, failed=True)
+                raise
+        if multi:
+            dist.broadcast_stream_meta((header.weights, header.seq1_codes, header.num_seq2))
+        end_sent = False
+        try:
+            # The denominator of the heartbeat's "chunk I/N".
+            obs_gauge("chunks_total", -(-header.num_seq2 // args.stream))
+            journal, done = None, {}
+            if args.journal:
+                _check_resume(args)
+                journal = StreamJournal(args.journal, header.weights, header.seq1_codes,
+                                        header.num_seq2)
+                done = journal.load()
+            pipe = ChunkPipeline(policy, deg)
+            # No staging under --journal (a resumed chunk is reduced to its
+            # unscored subset, so a whole-chunk prestage would move dead
+            # bytes) nor in a multi-process job (the chunk order is the
+            # collective schedule).
+            stager = FeedStager(
+                deg, enabled=False if (journal is not None or multi) else None)
+            seq1, weights = header.seq1_codes, header.weights
 
-        def submit(start, codes, staged=None):
-            """Dispatch a chunk: (promise, start, codes, pend, rows, hashes,
-            budget); with a journal only the unrecorded rows are scored."""
-            budget = policy.new_budget()
-            if journal is None:
-                promise = pipe.dispatch(seq1, codes, weights, budget, staged=staged)
-                return (promise, start, codes, None, None, None, budget)
-            hashes = [seq_hash(c) for c in codes]
-            pend = []
-            rows = np.zeros((len(codes), 3), dtype=np.int32)
-            for j, h in enumerate(hashes):
-                rec = done.get(start + j)
-                if rec is not None and rec[0] == h:
-                    rows[j] = rec[1]
-                elif rec is not None:
-                    raise JournalMismatchError(
-                        f"journal entry for sequence {start + j} does not match "
-                        "the input (sequence changed); delete the journal or "
-                        "pass a fresh --journal path"
-                    )
-                else:
-                    pend.append(j)
-            promise = None
-            if pend:
-                promise = pipe.dispatch(seq1, [codes[j] for j in pend], weights, budget,
-                                        staged=staged)
-            return (promise, start, codes, pend, rows, hashes, budget)
+            def submit(start, codes, staged=None):
+                """Dispatch a chunk: (promise, start, codes, pend, rows,
+                hashes, budget); with a journal only the unrecorded rows
+                are scored (and broadcast, even when none are left)."""
+                budget = policy.new_budget()
+                if journal is None:
+                    if multi:
+                        dist.broadcast_chunk(codes)
+                    promise = pipe.dispatch(seq1, codes, weights, budget, staged=staged)
+                    return (promise, start, codes, None, None, None, budget)
+                hashes = [seq_hash(c) for c in codes]
+                pend = []
+                rows = np.zeros((len(codes), 3), dtype=np.int32)
+                for j, h in enumerate(hashes):
+                    rec = done.get(start + j)
+                    if rec is not None and rec[0] == h:
+                        rows[j] = rec[1]
+                    elif rec is not None:
+                        raise JournalMismatchError(
+                            f"journal entry for sequence {start + j} does not match "
+                            "the input (sequence changed); delete the journal or "
+                            "pass a fresh --journal path"
+                        )
+                    else:
+                        pend.append(j)
+                if multi:
+                    dist.broadcast_chunk([codes[j] for j in pend])
+                promise = None
+                if pend:
+                    promise = pipe.dispatch(seq1, [codes[j] for j in pend], weights,
+                                            budget, staged=staged)
+                return (promise, start, codes, pend, rows, hashes, budget)
 
-        def finish(promise, start, codes, pend, rows, hashes, budget):
-            res = None
-            if promise is not None:
-                sub = codes if pend is None else [codes[j] for j in pend]
-                res = pipe.materialise(promise, seq1, sub, weights, budget)
-            out_rows = res
-            if pend is not None:
-                out_rows = rows
-                if res is not None:
-                    for j, row in zip(pend, res):
-                        out_rows[j] = row
-                    # An injected append fault fires before the first byte,
-                    # so a retried append duplicates nothing; it gets its
-                    # own budget, apart from the chunk's scoring budget.
-                    policy.run(
-                        lambda: journal.append([start + j for j in pend],
-                                               [hashes[j] for j in pend], res),
-                        "journal append",
-                    )
-            print_results(out_rows, out=lines, start=start)
-            if all_results is not None:
-                all_results.extend(out_rows)
+            def finish(promise, start, codes, pend, rows, hashes, budget):
+                res = None
+                if promise is not None:
+                    sub = codes if pend is None else [codes[j] for j in pend]
+                    res = pipe.materialise(promise, seq1, sub, weights, budget)
+                out_rows = res
+                if pend is not None:
+                    out_rows = rows
+                    if res is not None:
+                        for j, row in zip(pend, res):
+                            out_rows[j] = row
+                        # An injected append fault fires before the first
+                        # byte, so a retried append duplicates nothing; it
+                        # gets its own budget, apart from the chunk's.
+                        policy.run(
+                            lambda: journal.append([start + j for j in pend],
+                                                   [hashes[j] for j in pend], res),
+                            "journal append",
+                        )
+                print_results(out_rows, out=lines, start=start)
+                if all_results is not None:
+                    all_results.extend(out_rows)
 
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(timer.phase("stream"))
-            stack.enter_context(device_trace(args.trace))
-            if journal is not None:
-                stack.enter_context(journal)
-            window = PendingWindow(max(1, env_int("TPU_SEQALIGN_STREAM_DEPTH", 4)), finish)
-            drained_at = None
-            # One chunk of input lookahead: each step dispatches the held
-            # chunk, then stages the chunk just read, then lets the window
-            # finish its oldest entry.
-            held = None
-            for start, codes in header.iter_chunks(args.stream):
-                if drain_requested():
-                    # Admit no more chunks; the window still finishes (and
-                    # journals) what is in flight.  A held, undispatched
-                    # chunk is not admitted: the drain point is its start.
-                    drained_at = held[0] if held is not None else start
-                    held = None
-                    break
-                item = submit(*held) if held is not None else None
-                held = (start, codes, stager.stage(seq1, codes, weights))
-                if item is not None:
-                    window.push(*item)
-            if held is not None:
-                window.push(*submit(*held))
-            window.flush()
-            if drained_at is not None:
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(timer.phase("stream"))
+                stack.enter_context(device_trace(args.trace))
                 if journal is not None:
-                    journal.append_event("drain")
+                    stack.enter_context(journal)
+                depth = 1 if multi else max(1, env_int("TPU_SEQALIGN_STREAM_DEPTH", 4))
+                window = PendingWindow(depth, finish)
+                drained_at = None
+                # One chunk of input lookahead: each step dispatches the
+                # held chunk, then stages the chunk just read, then lets
+                # the window finish its oldest entry.
+                held = None
+                for start, codes in header.iter_chunks(args.stream):
+                    if drain_requested():
+                        # Admit no more chunks; the window still finishes
+                        # (and journals) what is in flight.  A held,
+                        # undispatched chunk is not admitted: the drain
+                        # point is its start.
+                        drained_at = held[0] if held is not None else start
+                        held = None
+                        break
+                    item = submit(*held) if held is not None else None
+                    held = (start, codes, stager.stage(seq1, codes, weights))
+                    if item is not None:
+                        window.push(*item)
+                if held is not None:
+                    window.push(*submit(*held))
+                if multi:
+                    # The end sentinel before the last gather: the other
+                    # ranks learn the stream ended, then gather their last
+                    # chunk, in the same order as here.
+                    dist.broadcast_chunk(None, end=True)
+                    end_sent = True
+                window.flush()
+                if drained_at is not None:
+                    if journal is not None:
+                        journal.append_event("drain")
+                        raise DrainInterrupt(
+                            f"stream preempted before sequence {drained_at} of "
+                            f"{header.num_seq2}; scored chunks are in the journal — "
+                            "rerun with --resume to finish"
+                        )
                     raise DrainInterrupt(
                         f"stream preempted before sequence {drained_at} of "
-                        f"{header.num_seq2}; scored chunks are in the journal — "
-                        "rerun with --resume to finish"
+                        f"{header.num_seq2}; no --journal, so a rerun starts over"
                     )
-                raise DrainInterrupt(
-                    f"stream preempted before sequence {drained_at} of "
-                    f"{header.num_seq2}; no --journal, so a rerun starts over"
-                )
+        except BaseException:
+            if multi and not end_sent:
+                # Release the ranks blocked on the next chunk broadcast.
+                dist.broadcast_chunk(None, failed=True)
+            raise
     out.write(lines.getvalue())
     if args.json:
         write_json_sidecar(all_results, args.json,
@@ -430,6 +582,12 @@ def run(argv: list[str] | None = None) -> int:
     if args.stream and args.selfcheck:
         print(f"{PROG}: error: --selfcheck cannot be combined with --stream "
               "(selfcheck re-verifies against the fully-materialised problem)",
+              file=sys.stderr)
+        return EX_USAGE
+    if args.degrade and args.distributed:
+        print(f"{PROG}: error: --distributed cannot be combined with --degrade "
+              "(the backend choice is the SPMD program itself; a lone host "
+              "degrading its backend desynchronises the collective schedules)",
               file=sys.stderr)
         return EX_USAGE
     if args.resume and not args.journal:
@@ -450,7 +608,7 @@ def run(argv: list[str] | None = None) -> int:
     except ValueError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return EX_USAGE
-    drain = None
+    drain = dist = None
     registry = recorder = prev_usr2 = None
     rc: int | None = None
     try:
@@ -478,13 +636,19 @@ def run(argv: list[str] | None = None) -> int:
             )
         drain = drain_guard()
         drain.__enter__()
-        # Native libraries (the CUDA runtime, nvcc's build) may write to
-        # fd 1; only the result lines reach the real stdout.
+        # Native libraries (the CUDA runtime, nvcc's build, gloo's peer
+        # banners) may write to fd 1; only the result lines reach the real
+        # stdout.  The guard is up before a --distributed job is joined.
         with guarded_stdout() as out:
+            if args.distributed:
+                from ..parallel import distributed as dist
+
+                with timer.phase("distributed_init"):
+                    dist.initialize_distributed(args.device)
             if args.stream:
-                _run_streaming(args, policy, out, timer)
+                _run_streaming(args, policy, out, timer, dist)
             else:
-                _run_batch(args, policy, out, timer)
+                _run_batch(args, policy, out, timer, dist)
         rc = EX_OK
     except DrainInterrupt as e:
         # A requested preemption: nothing printed, the journal flushed.
@@ -504,6 +668,8 @@ def run(argv: list[str] | None = None) -> int:
         deactivate_watchdog()
         if drain is not None:
             drain.__exit__(None, None, None)
+        if dist is not None:
+            dist.shutdown_distributed()
     return rc
 
 

@@ -10,7 +10,10 @@ same classes):
 * :class:`PendingWindow` — the bounded in-flight window: each pushed
   promise's device-to-host copy starts at dispatch (``prefetch``), the
   oldest entry is finished once the window overflows, ``flush()`` drains
-  the rest.
+  the rest.  On a mesh the promises are ``parallel.sharding.
+  ShardedPending``s, whose ``result`` is the gather (in a multi-process
+  job the CLI keeps one chunk in flight: the chunk order is the
+  collective schedule).
 * :class:`FeedStager` — feed overlap: the next chunk's host-to-device
   copies start on a side CUDA stream (``AlignmentScorer.prestage_codes``)
   while the current chunk computes.  Advisory and single-use: a staged

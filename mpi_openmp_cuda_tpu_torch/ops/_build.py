@@ -9,7 +9,11 @@ use, on the machine with the card, into its own shared library under
 
 The file name carries a hash of the sources (the ``.cu`` file and the
 shared ``.cuh`` headers) and flags, so an edited source is rebuilt and a
-stale library is never loaded.  ``build()`` starts one ``nvcc`` per
+stale library is never loaded.  Processes that share the build directory
+(the ranks of a ``--distributed`` job) build each library once: a build
+holds an exclusive file lock on ``build/torch_kernels/.lock`` while it
+checks what is missing and compiles it, each compiler writes a
+temporary file of its own, and ``os.replace`` publishes it whole.  ``build()`` starts one ``nvcc`` per
 source, all at once, and returns each compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills); ``build_variants()`` does the same
 for the sweep scripts' builds of one source under other ``-D`` settings.
@@ -20,7 +24,9 @@ Nothing here runs at import: the CPU tests import every module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -74,7 +80,7 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (src, out, flags) in jobs.items():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
         procs[tag] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
@@ -97,18 +103,32 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
     return reports
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """The build directory's exclusive file lock, for one build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names) -> dict[str, str]:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together; returns ``{name: ptxas report}`` for
-    the kernels compiled by this call.  Raises ``KernelUnavailableError``
-    (fatal to the run, never retried) with the compiler's output when one
-    fails."""
-    jobs = {}
-    for name in names:
-        out = _target(name)
-        if not out.exists():
-            jobs[name] = (CSRC_DIR / f"{name}.cu", out, ())
-    return _compile(jobs)
+    per source, all started together, under the build directory's lock
+    (another process's build of the same sources waits, then finds them
+    built); returns ``{name: ptxas report}`` for the kernels compiled by
+    this call.  Raises ``KernelUnavailableError`` (fatal to the run, never
+    retried) with the compiler's output when one fails."""
+    with _build_lock():
+        jobs = {}
+        for name in names:
+            out = _target(name)
+            if not out.exists():
+                jobs[name] = (CSRC_DIR / f"{name}.cu", out, ())
+        return _compile(jobs)
 
 
 def build_variants(

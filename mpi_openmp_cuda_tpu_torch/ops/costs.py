@@ -42,9 +42,16 @@ INT_OPS_PER_CELL = 3
 LOOKUPS_PER_CELL = 1
 
 
-def needed_cells(len1, lens) -> int:
-    """(offset, char) cells the data needs: valid offsets x chars."""
-    return sum(max(len1 - int(n), 0) * int(n) for n in lens if 0 < int(n) < len1)
+def needed_cells(len1, lens, noff: int | None = None) -> int:
+    """(offset, char) cells the data needs: valid offsets x chars.  A
+    launch that scores only ``noff`` offsets (a Seq1 ring window, whose
+    block-local len1 may pass its L1P) counts at most ``noff`` a pair."""
+    cells = 0
+    for n in lens:
+        n = int(n)
+        if 0 < n < len1:
+            cells += (len1 - n if noff is None else min(len1 - n, noff)) * n
+    return cells
 
 
 @dataclass(frozen=True)
@@ -71,7 +78,7 @@ def state_counts(state) -> WorkCounts:
         state.seq1ext.numel() + state.rows.numel() + state.lens.numel()
         + state.val.numel() + 4 * state.rows.shape[0]
     )
-    cells = needed_cells(state.len1, state.lens.tolist())
+    cells = needed_cells(state.len1, state.lens.tolist(), state.l1p)
     return WorkCounts(cells, INT_OPS_PER_CELL * cells, LOOKUPS_PER_CELL * cells, nbytes)
 
 

@@ -18,6 +18,12 @@ rules, as ``_pallas_rows`` does.
   buckets whose every len2 fits a packing class ``l2s``
   (``dispatch.choose_rowpack``).
 
+:func:`window_state` builds the state of one window of the Seq1 ring
+(``parallel/ring.py``), whose block-local Seq1 length may lie outside
+``[0, L1P]``; the fused kernel takes it as it is.  :func:`check_smem`
+refuses a fused launch whose row width needs more shared memory than the
+card gives a block.
+
 Each wrapper runs its kernel on CUDA tensors and its plain version
 (:func:`fused_scorer_plain`, :func:`packed_scorer_plain`) on CPU tensors
 only; on any other device it raises.  ``launch_counts`` counts the kernel
@@ -93,6 +99,21 @@ def state_from_numpy(seq1ext, len1, rows, lens, val_flat, device) -> ScorerState
     """The port's tensors from the JAX package's numpy operands
     (``dispatch.PaddedBatch`` fields plus ``value_table(w).reshape(-1)``),
     so both packages can be fed the same bytes."""
+    return _numpy_state(seq1ext, len1, rows, lens, val_flat, device, window=False)
+
+
+def window_state(win_k, len1_eff, rows, lens, val_flat, device) -> ScorerState:
+    """The state of one Seq1 ring window (``parallel/ring.py``) from the
+    JAX ring's own numpy operands: ``win_k`` the shard's ``[Bs + L2P + 1]``
+    window (so L1P = Bs) and ``len1_eff = len1 - d * Bs`` its block-local
+    Seq1 length, which may lie outside ``[0, L1P]``: above it on shard 0
+    (every offset of the window valid), zero or below on a shard past the
+    end of Seq1 (no offset valid).  The kernel's offset mask ``n < len1_eff
+    - len2`` then agrees with the global one."""
+    return _numpy_state(win_k, len1_eff, rows, lens, val_flat, device, window=True)
+
+
+def _numpy_state(seq1ext, len1, rows, lens, val_flat, device, *, window) -> ScorerState:
     seq1ext = np.asarray(seq1ext, dtype=np.int32)
     rows = np.asarray(rows, dtype=np.int32)
     lens = np.asarray(lens, dtype=np.int32)
@@ -105,7 +126,8 @@ def state_from_numpy(seq1ext, len1, rows, lens, val_flat, device) -> ScorerState
             f"lens {lens.shape} (need L1P = len(seq1ext) - L2P - 1 > 0, a "
             f"multiple of {TILE})"
         )
-    if not 0 <= len1 <= l1p or (b and not (0 <= lens.min() and lens.max() <= l2p)):
+    len1_ok = INT32_MIN < len1 <= 2**31 - 1 if window else 0 <= len1 <= l1p
+    if not len1_ok or (b and not (0 <= lens.min() and lens.max() <= l2p)):
         raise ValueError("lengths outside the padded shapes")
     for name, codes in (("seq1ext", seq1ext), ("rows", rows)):
         if codes.size and (codes.min() < 0 or codes.max() >= ALPHABET_SIZE):
@@ -328,6 +350,44 @@ def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def _smem_entries():
+    lib = _build.load("fused_scorer")
+    need, limit = lib.fused_scorer_smem, lib.fused_scorer_smem_limit
+    need.restype = limit.restype = ctypes.c_longlong
+    need.argtypes, limit.argtypes = [_INT], []
+    return need, limit
+
+
+@functools.cache
+def _smem_need(l2p: int) -> int:
+    return int(_smem_entries()[0](l2p))
+
+
+@functools.cache
+def _smem_limit(device: torch.device) -> int:
+    with torch.cuda.device(device):
+        limit = _smem_entries()[1]()
+    if limit < 0:
+        raise launch_error("fused_scorer_smem_limit", int(-limit))
+    return int(limit)
+
+
+def check_smem(state: ScorerState) -> int:
+    """The tile kernel's dynamic shared memory at the state's L2P, in
+    bytes, or ``KernelUnavailableError`` when the state's card cannot give
+    a block that much (on the H100, L2P past 84,224)."""
+    l2p = state.rows.shape[1]
+    need = _smem_need(l2p)
+    limit = _smem_limit(state.rows.device)
+    if need > limit:
+        raise KernelUnavailableError(
+            f"fused_scorer: a Seq2 bucket of width L2P {l2p} needs {need} bytes of "
+            f"shared memory a block, more than the {limit} this card allows"
+        )
+    return need
+
+
 def fused_scorer(state: ScorerState) -> torch.Tensor:
     """[B, 4] int32 rows from ``csrc/fused_scorer.cu`` (CUDA tensors) or
     :func:`fused_scorer_plain` (CPU tensors)."""
@@ -336,6 +396,7 @@ def fused_scorer(state: ScorerState) -> torch.Tensor:
     if state.rows.shape[1] % 4:
         raise ValueError(
             f"fused_scorer needs L2P a multiple of 4, got {state.rows.shape[1]}")
+    check_smem(state)
     return _launch("fused_scorer", state)
 
 

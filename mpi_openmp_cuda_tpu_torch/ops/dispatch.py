@@ -24,6 +24,10 @@ Backends:
 an error (``KernelUnavailableError``), never a quiet move to another
 backend; the CLI's ``--degrade`` is the opt-in chain.
 
+A scorer given a sharding (``parallel/``) hands each dispatch to it
+instead: on a batch mesh one sharded dispatch a length bucket, on the
+Seq1 ring one for the whole batch, with the caps lifted there.
+
 Obs hooks (each one module-attribute check when the plane is off): the
 ``chunk_dispatch`` span (plan, copies in, launches queued: enqueue time
 only) and the ``chunk_gather`` span (epilogue, copy back and the wait for
@@ -92,16 +96,27 @@ class PaddedBatch:
         return self.seq2.shape[0]
 
 
-def pad_problem(seq1_codes: np.ndarray, seq2_codes: list[np.ndarray]) -> PaddedBatch:
-    """Encode a ragged problem into bucket-padded rectangular arrays."""
-    len1 = int(seq1_codes.size)
-    if len1 > BUF_SIZE_SEQ1:
-        raise ValueError(f"Seq1 length {len1} exceeds BUF_SIZE_SEQ1={BUF_SIZE_SEQ1}")
+def check_caps(seq1_codes: np.ndarray, seq2_codes: list[np.ndarray]) -> None:
+    """The reference's buffer caps (``BUF_SIZE_SEQ1``, ``BUF_SIZE_SEQ2``);
+    an error names the caller's index of the row past its cap."""
+    if seq1_codes.size > BUF_SIZE_SEQ1:
+        raise ValueError(
+            f"Seq1 length {seq1_codes.size} exceeds BUF_SIZE_SEQ1={BUF_SIZE_SEQ1}"
+        )
     for idx, codes in enumerate(seq2_codes):
         if codes.size > BUF_SIZE_SEQ2:
             raise ValueError(
                 f"Seq2[{idx}] length {codes.size} exceeds BUF_SIZE_SEQ2={BUF_SIZE_SEQ2}"
             )
+
+
+def pad_problem(seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], *,
+                enforce_caps: bool = True) -> PaddedBatch:
+    """Encode a ragged problem into bucket-padded rectangular arrays; the
+    caps give way (``enforce_caps=False``) only on the Seq1 ring."""
+    len1 = int(seq1_codes.size)
+    if enforce_caps:
+        check_caps(seq1_codes, seq2_codes)
     l1p = round_up(len1, _LANE)
     max_l2 = max((c.size for c in seq2_codes), default=1)
     l2p = round_up(max_l2, _LANE)
@@ -124,11 +139,13 @@ def pack_classes() -> tuple[int, ...]:
     return PACK_CLASSES
 
 
-def plan_buckets(sizes, *, packable: bool = True) -> dict[int, list[int]]:
+def plan_buckets(sizes, *, packable: bool = True,
+                 min_rows: int = MIN_BUCKET_ROWS) -> dict[int, list[int]]:
     """Input indices grouped by L2P shape bucket, rows of at most 64 chars
     by their packing class when ``packable`` (the ``cuda`` backend), with
-    groups of fewer than :data:`MIN_BUCKET_ROWS` rows merged into the next
-    wider one."""
+    groups of fewer than ``min_rows`` rows merged into the next wider one
+    (on a batch mesh :data:`MIN_BUCKET_ROWS` times its device count: each
+    bucket pads to the device count)."""
     classes = pack_classes()
 
     def bucket_key(size: int) -> int:
@@ -142,7 +159,7 @@ def plan_buckets(sizes, *, packable: bool = True) -> dict[int, list[int]]:
         groups.setdefault(bucket_key(int(size)), []).append(i)
     keys = sorted(groups)
     for j, k in enumerate(keys[:-1]):
-        if len(groups[k]) < MIN_BUCKET_ROWS:
+        if len(groups[k]) < min_rows:
             groups[keys[j + 1]].extend(groups.pop(k))
     return groups
 
@@ -186,6 +203,20 @@ def pad_batch_rows(batch: PaddedBatch, bp: int) -> tuple[np.ndarray, np.ndarray]
     return rows, lens
 
 
+def admit(seq1_codes, seq2_codes, weights, *, caps: bool = True) -> np.ndarray:
+    """The batch's [729] int32 value table, once the batch has passed the
+    caps (unless ``caps=False``: the Seq1 ring) and the int32 admission
+    gate over its scored rows; checked on the whole batch before anything
+    is launched, so an error names the caller's input index."""
+    if caps:
+        check_caps(seq1_codes, seq2_codes)
+    val_flat = value_table(weights).astype(np.int32).reshape(-1)
+    scored = [c.size for c in seq2_codes if 0 < c.size <= seq1_codes.size]
+    if scored:
+        check_int32_window(max_abs_value(val_flat), max(scored))
+    return val_flat
+
+
 @dataclass(frozen=True)
 class PlannedLaunch:
     """One launch planned on the host: its bucket keys, the input rows it
@@ -210,22 +241,10 @@ def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     :func:`choose_rowpack`."""
     from .schedule import plan_fusion_groups
 
-    if seq1_codes.size > BUF_SIZE_SEQ1:
-        raise ValueError(
-            f"Seq1 length {seq1_codes.size} exceeds BUF_SIZE_SEQ1={BUF_SIZE_SEQ1}"
-        )
-    for i, c in enumerate(seq2_codes):
-        if c.size > BUF_SIZE_SEQ2:
-            raise ValueError(
-                f"Seq2[{i}] length {c.size} exceeds BUF_SIZE_SEQ2={BUF_SIZE_SEQ2}"
-            )
-    val_flat = value_table(weights).astype(np.int32).reshape(-1)
+    val_flat = admit(seq1_codes, seq2_codes, weights)
     if not seq2_codes:
         return val_flat, []
     sizes = [int(c.size) for c in seq2_codes]
-    scored = [x for x in sizes if 0 < x <= seq1_codes.size]
-    if scored:
-        check_int32_window(max_abs_value(val_flat), max(scored))
     cuda = backend == "cuda"
     groups = plan_buckets(sizes, packable=cuda)
     group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
@@ -258,28 +277,34 @@ class BucketLaunch:
     max_scored: int = 0
 
 
-def _host_tensor(arr: np.ndarray, pin: bool) -> torch.Tensor:
+def put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on a CUDA device copied from pinned
+    memory without blocking the host."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.pin_memory() if pin else t
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def max_scored(batch: PaddedBatch) -> int:
+    """The longest scored row (``0 < len2 <= len1``) of a padded batch."""
+    live = batch.len2[(batch.len2 > 0) & (batch.len2 <= batch.len1)]
+    return int(live.max()) if live.size else 0
 
 
 def _to_device(plan: PlannedLaunch, val: torch.Tensor, maxv: int,
                device: torch.device) -> BucketLaunch:
-    """The plan's operands on ``device``; on a CUDA device the copies come
-    from pinned memory and do not block the host."""
-    pin = device.type == "cuda"
+    """The plan's operands on ``device`` (:func:`put`)."""
     b = plan.batch
     state = ScorerState(
-        seq1ext=_host_tensor(b.seq1ext, pin).to(device, non_blocking=pin),
+        seq1ext=put(b.seq1ext, device),
         len1=b.len1,
-        rows=_host_tensor(b.seq2, pin).to(device, non_blocking=pin),
-        lens=_host_tensor(b.len2, pin).to(device, non_blocking=pin),
+        rows=put(b.seq2, device),
+        lens=put(b.len2, device),
         val=val,
         max_len2=int(b.len2.max()),
     )
-    live = b.len2[(b.len2 > 0) & (b.len2 <= b.len1)]
-    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv,
-                        int(live.max()) if live.size else 0)
+    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(b))
 
 
 def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
@@ -330,8 +355,7 @@ class StagedFeed:
 
 def _upload(val_flat, plans, device: torch.device) -> list[BucketLaunch]:
     """The plans' operands on ``device`` (one value table for all)."""
-    pin = device.type == "cuda"
-    val = _host_tensor(kernel_table(val_flat), pin).to(device, non_blocking=pin)
+    val = put(kernel_table(val_flat), device)
     maxv = max_abs_value(val_flat)
     return [_to_device(plan, val, maxv, device) for plan in plans]
 
@@ -441,7 +465,7 @@ class BucketedPending:
         else:
             # The scatter's index goes up from pinned memory: a pageable
             # copy would wait for the device.
-            idx = _host_tensor(order, cuda).to(dev, non_blocking=cuda)
+            idx = put(order, dev)
             out = torch.empty((self.count, 3), dtype=torch.int32, device=dev)
             out[idx] = rows
         if cuda:
@@ -494,9 +518,13 @@ class AlignmentScorer:
     plain PyTorch versions), 'mm' (one-hot fp32 matmul), 'gather' (int32
     gather) or 'oracle' (host numpy reference).
     device: 'cuda' by default; 'cpu' only when asked for.
+    sharding: None (one device), or a ``parallel.sharding.BatchSharding``
+    or ``parallel.ring.RingSharding`` that scores each dispatch over its
+    mesh (no packing, no launch groups, no staged feed there; the caps
+    give way on the ring, ``sharding.unbounded``).
     """
 
-    def __init__(self, backend: str = "auto", device=None):
+    def __init__(self, backend: str = "auto", device=None, sharding=None):
         if backend == "auto":
             backend = "cuda"
         if backend not in BACKENDS:
@@ -504,6 +532,7 @@ class AlignmentScorer:
         self.backend = backend
         # The oracle scores on the host and touches no device.
         self.device = None if backend == "oracle" else resolve_device(device)
+        self.sharding = sharding
         self._side = None  # the staging stream (CUDA, made at first use)
 
     def score_codes(self, seq1_codes, seq2_codes, weights, *, staged=None) -> np.ndarray:
@@ -527,6 +556,9 @@ class AlignmentScorer:
                 score_batch_oracle(seq1_codes, seq2_codes, weights), dtype=np.int32
             ).reshape(-1, 3)
             return PendingResult(out, out.shape[0])
+        if self.sharding is not None:
+            with _obs_span("chunk_dispatch"):
+                return self._dispatch_sharded(seq1_codes, seq2_codes, weights)
         with _obs_span("chunk_dispatch"):
             launches = bucket_launches(
                 seq1_codes, seq2_codes, weights, self.device, backend=self.backend,
@@ -544,12 +576,36 @@ class AlignmentScorer:
                                    lens=[seq2_codes[j].size for j in b.idx])
         return pending
 
+    def _dispatch_sharded(self, seq1_codes, seq2_codes, weights):
+        """A dispatch over the sharding's mesh: on a batch mesh one
+        sharded dispatch a length bucket (at least :data:`MIN_BUCKET_ROWS`
+        rows a device), in key order, as in the JAX package; on the ring
+        one for the whole batch.  Returns a ``ShardedPending``."""
+        from ..parallel.sharding import ShardedPending
+
+        sharding = self.sharding
+        unbounded = bool(getattr(sharding, "unbounded", False))
+        val_flat = admit(seq1_codes, seq2_codes, weights, caps=not unbounded)
+        if not getattr(sharding, "bucketed", False):
+            batch = pad_problem(seq1_codes, seq2_codes, enforce_caps=not unbounded)
+            return sharding.score_async(batch, val_flat, backend=self.backend)
+        groups = plan_buckets([c.size for c in seq2_codes], packable=False,
+                              min_rows=MIN_BUCKET_ROWS * sharding.n_devices)
+        _obs_gauge("config_fused_groups", len(groups))
+        parts = []
+        for key in sorted(groups):
+            idx = np.asarray(groups[key], dtype=np.int64)
+            sub = pad_problem(seq1_codes, [seq2_codes[i] for i in idx])
+            parts.append((idx, sharding.score_async(sub, val_flat, backend=self.backend)))
+        return ShardedPending.merge(parts, len(seq2_codes))
+
     def prestage_codes(self, seq1_codes, seq2_codes, weights) -> StagedFeed | None:
         """Plan a future :meth:`score_codes_async` of the same operands and
         start its host-to-device copies, on a side CUDA stream that
         records one event at their end.  None where staging does not apply
-        (the oracle, an empty batch)."""
-        if self.backend == "oracle" or not seq2_codes:
+        (the oracle, an empty batch, a mesh: its shards are placed at
+        dispatch)."""
+        if self.backend == "oracle" or not seq2_codes or self.sharding is not None:
             return None
         val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, self.backend)
         cuda = self.device.type == "cuda"

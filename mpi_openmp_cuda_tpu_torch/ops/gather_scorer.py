@@ -22,7 +22,8 @@ Every quantity is int32 and exact under the admission gate of
 ``ops/bounds.py`` (``L * max|v| < 2^31`` over the scored rows), which
 is why launches past the kernels' narrower window run here.
 Plain PyTorch on the scorer's device, in chunks of pairs to bound
-memory.  It is the bottom rung of the degrade chain, so it shares no code
+memory.  :func:`ring_window_rows` is the same formulation over one window
+of the Seq1 ring (``parallel/ring.py``), the JAX ring's window body.  It is the bottom rung of the degrade chain, so it shares no code
 with the kernels' plain versions (``cuda_scorer._kernel_rows``).
 """
 
@@ -98,3 +99,47 @@ def score_chunks_body(seq1ext, len1, seq2_chunks, len2_chunks, val_flat) -> torc
         seq1ext, len1, seq2_chunks.reshape(nc * cb, l2p), len2_chunks.reshape(-1), val_flat
     )
     return out.reshape(nc, cb, 3)
+
+
+def ring_window_rows(win, d: int, bs: int, len1: int, rows, lens, val_flat) -> torch.Tensor:
+    """[B, 4] int32 candidates ``(score, n, k, eq)`` of ring shard ``d``
+    (the JAX ring's window body, ``mpi_openmp_cuda_tpu/parallel/ring.py``
+    ``_ring_fn``): over the ``bs`` offsets the shard owns, global offset
+    ``gn = d * bs + n`` valid when ``gn < max(len1 - len2, 0)``, on its
+    window ``win`` of Seq1 codes (at least ``bs + L2P + 1`` of them, the
+    shard's block first).  ``score`` is ``INT32_MIN`` where no offset of
+    the shard is valid, ``n`` is global, and ``eq`` is the k = 0 score at
+    the shard's first offset (the positional score on shard 0)."""
+    b, l2p = rows.shape
+    dev = rows.device
+    out = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out
+    wlen = win.shape[0]
+    vw = val_flat.reshape(ALPHABET_SIZE, ALPHABET_SIZE)[:, win.long()].reshape(-1)
+    n = torch.arange(bs, device=dev)[:, None]
+    i = torch.arange(l2p, device=dev)[None, :]
+    idx0 = (n + i)[None]  # [1, bs, L2P]
+    gn = (d * bs + n)[None]
+    cb = max(1, CHUNK_ELEMS // max(bs * l2p, 1))
+    for s in range(0, b, cb):
+        r, ln = rows[s : s + cb].long(), lens[s : s + cb].long()[:, None, None]
+        base = r[:, None, :] * wlen
+        # Chars of a row longer than Seq1 are masked (never scored), as in
+        # gather_rows, so no sum leaves the admission gate's range.
+        charmask = i[None] < torch.where(ln <= len1, ln, 0)
+        v0 = torch.where(charmask, vw[base + idx0], 0)
+        v1 = torch.where(charmask, vw[base + idx0 + 1], 0)
+        c0 = torch.cumsum(v0, dim=2, dtype=torch.int32)
+        c1 = torch.cumsum(v1, dim=2, dtype=torch.int32)
+        t0, t1 = c0[:, :, -1:], c1[:, :, -1:]
+        scores = torch.cat([t0, c0[:, :, :-1] + (t1 - c1[:, :, :-1])], dim=2)
+        k = i[None]
+        valid = (gn < torch.clamp(len1 - ln, min=0)) & ((k == 0) | (k < ln))
+        flat = torch.where(valid, scores, INT32_MIN).reshape(r.shape[0], -1)
+        bi = torch.argmax(flat, dim=1)  # first max: offset-major, k = 0 first
+        out[s : s + cb, 0] = flat.gather(1, bi[:, None])[:, 0]
+        out[s : s + cb, 1] = (d * bs + bi // l2p).int()
+        out[s : s + cb, 2] = (bi % l2p).int()
+        out[s : s + cb, 3] = c0[:, 0, -1]
+    return out

@@ -25,18 +25,24 @@ Sites:
                           ``BucketedPending.result``)
 ``device_transfer``       the prefetched device->host copy (``prefetch``)
 ``journal_append``        every journal record write (``utils/journal.py``)
+``broadcast_problem``     each coordinator broadcast
+``broadcast_chunk``       (``parallel/distributed.py``)
+``broadcast_index_set``
+``broadcast_stream_meta``
 ``hang:dispatch``         ``chunk_dispatch`` never returns: blocks until the
                           armed watchdog deadline, then raises the transient
                           ``DeadlineExpiredError``
 ``hang:gather``           the same at ``chunk_scoring``
+``hang:broadcast``        the same at every ``broadcast_*`` site, counted
+                          over all four
 ``kill:journal-append``   SIGKILL this process at the scheduled
                           ``journal_append``
 ========================  ====================================================
 
 A hang site needs an armed watchdog (``--deadline``); without one it is
 the fatal ``HangWithoutDeadlineError``.  ``kind=`` is rejected for hang
-and kill sites.  The coordinator broadcast sites and the serve and fleet
-marker sites arrive with their planes.
+and kill sites.  The serve and fleet marker sites arrive with their
+planes.
 """
 
 from __future__ import annotations
@@ -50,14 +56,27 @@ KNOWN_SITES = frozenset({
     "chunk_scoring",
     "device_transfer",
     "journal_append",
+    "broadcast_problem",
+    "broadcast_chunk",
+    "broadcast_index_set",
+    "broadcast_stream_meta",
     "hang:dispatch",
     "hang:gather",
+    "hang:broadcast",
     "kill:journal-append",
 })
 
 # Which fire point each hang/kill site rides; the alias keeps its own
-# invocation counter.
-_HANG_SITES = {"chunk_dispatch": "hang:dispatch", "chunk_scoring": "hang:gather"}
+# invocation counter, so "hang:broadcast:fail=1,after=2" hangs the third
+# broadcast of any kind.
+_HANG_SITES = {
+    "chunk_dispatch": "hang:dispatch",
+    "chunk_scoring": "hang:gather",
+    "broadcast_problem": "hang:broadcast",
+    "broadcast_chunk": "hang:broadcast",
+    "broadcast_index_set": "hang:broadcast",
+    "broadcast_stream_meta": "hang:broadcast",
+}
 _KILL_SITES = {"journal_append": "kill:journal-append"}
 
 

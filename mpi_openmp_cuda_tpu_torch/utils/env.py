@@ -2,7 +2,11 @@
 
 A copy of the registry pattern of ``mpi_openmp_cuda_tpu/utils/
 platform.py``, holding only the variables the port reads so far, under
-the same names as the JAX package, so one shell drives both CLIs.  Every
+the same names as the JAX package, so one shell drives both CLIs, plus
+the rendezvous variables of a ``--distributed`` job under torchrun's
+names (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``); nothing else in the port reads
+them.  Every
 read happens at call time (tests' ``monkeypatch.setenv`` works) and a
 malformed value raises one ``ValueError`` naming the variable.
 """
@@ -63,6 +67,21 @@ ENV_VARS: tuple[EnvVar, ...] = (
     EnvVar("TPU_SEQALIGN_COMPILE_CACHE", "str", None,
            "off/0 disables the cache home; a directory is the legacy "
            "home when SEQALIGN_CACHE_DIR is unset"),
+    EnvVar("SEQALIGN_HOST_DEVICES", "int", 1,
+           "mesh devices the host counts as under --device cpu, each naming "
+           "the one CPU device (the port's counterpart of XLA's "
+           "--xla_force_host_platform_device_count)"),
+    # The rendezvous of a --distributed job, under torchrun's names.
+    EnvVar("MASTER_ADDR", "str", None,
+           "--distributed: the coordinator's (rank 0's) host"),
+    EnvVar("MASTER_PORT", "int", None,
+           "--distributed: the coordinator's TCP port"),
+    EnvVar("WORLD_SIZE", "int", None, "--distributed: processes in the job"),
+    EnvVar("RANK", "int", None, "--distributed: this process's rank"),
+    EnvVar("LOCAL_RANK", "int", None,
+           "--distributed: this process's rank on its host (default RANK)"),
+    EnvVar("LOCAL_WORLD_SIZE", "int", None,
+           "--distributed: processes on this host (default WORLD_SIZE)"),
 )
 
 _REGISTRY = {v.name: v for v in ENV_VARS}

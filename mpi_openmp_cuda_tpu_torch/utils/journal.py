@@ -293,9 +293,14 @@ class ResultJournal:
         if no journal exists)."""
         return self._read(problem_fingerprint(problem))
 
-    def score_with_resume(self, scorer, problem, done=None) -> np.ndarray:
+    def score_with_resume(self, scorer, problem, done=None, record: bool = True) -> np.ndarray:
         """Score ``problem``, journalling per chunk; returns [B, 3] int32.
-        ``done`` overrides the on-disk done-map."""
+
+        ``done`` overrides the on-disk done-map (in a multi-process job
+        every rank gets rank 0's key set, values None, so the chunked
+        schedule below, which is also the collective schedule, is the same
+        on every rank).  ``record=False`` runs that schedule without
+        touching the file: the other ranks own no journal."""
         if done is None:
             done = self._read(problem_fingerprint(problem))
         total = len(problem.seq2_codes)
@@ -306,6 +311,30 @@ class ResultJournal:
             if i < total and row is not None:
                 results[i] = row
 
+        def run(append):
+            for start in range(0, len(pending), self.chunk):
+                if append is not None and drain_requested():
+                    # Chunk-boundary drain: everything scored so far is
+                    # flushed; the caller's CLI exits 75.
+                    raise DrainInterrupt(
+                        f"{total - len(pending) + start} of {total} "
+                        "sequences journalled; rerun with --resume to "
+                        "score the rest"
+                    )
+                idx = pending[start : start + self.chunk]
+                rows = scorer.score_codes(
+                    problem.seq1_codes,
+                    [problem.seq2_codes[i] for i in idx],
+                    problem.weights,
+                )
+                for i, row in zip(idx, rows):
+                    results[i] = row
+                if append is not None:
+                    append(idx, rows)
+
+        if not record:
+            run(None)
+            return results
         fresh = not os.path.exists(self.path) or not done
         mode = "w" if fresh else "a"
         if not fresh:
@@ -325,24 +354,7 @@ class ResultJournal:
                 f.flush()
                 os.fsync(f.fileno())
             try:
-                for start in range(0, len(pending), self.chunk):
-                    if drain_requested():
-                        # Chunk-boundary drain: everything scored so far is
-                        # flushed; the caller's CLI exits 75.
-                        raise DrainInterrupt(
-                            f"{total - len(pending) + start} of {total} "
-                            "sequences journalled; rerun with --resume to "
-                            "score the rest"
-                        )
-                    idx = pending[start : start + self.chunk]
-                    rows = scorer.score_codes(
-                        problem.seq1_codes,
-                        [problem.seq2_codes[i] for i in idx],
-                        problem.weights,
-                    )
-                    for i, row in zip(idx, rows):
-                        results[i] = row
-                    self._append(f, idx, rows)
+                run(lambda idx, rows: self._append(f, idx, rows))
             except DrainInterrupt:
                 _write_event(f, "drain")
                 raise

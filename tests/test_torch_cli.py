@@ -166,7 +166,11 @@ def test_port_import_loads_no_jax():
         "mpi_openmp_cuda_tpu_torch.ops.matmul_scorer, "
         "mpi_openmp_cuda_tpu_torch.io.pipeline, mpi_openmp_cuda_tpu_torch.utils.journal, "
         "mpi_openmp_cuda_tpu_torch.utils.selfcheck, "
-        "mpi_openmp_cuda_tpu_torch.resilience.watchdog; "
+        "mpi_openmp_cuda_tpu_torch.resilience.watchdog, "
+        "mpi_openmp_cuda_tpu_torch.parallel.specs, mpi_openmp_cuda_tpu_torch.parallel.mesh, "
+        "mpi_openmp_cuda_tpu_torch.parallel.comm, mpi_openmp_cuda_tpu_torch.parallel.sharding, "
+        "mpi_openmp_cuda_tpu_torch.parallel.ring, "
+        "mpi_openmp_cuda_tpu_torch.parallel.distributed; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_openmp_cuda_tpu')]; print(bad); sys.exit(bool(bad))"
     )

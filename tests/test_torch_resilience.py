@@ -99,7 +99,7 @@ def test_parse_spec_full_grammar_matches_jax():
     "bad, match",
     [
         ("bogus_site:fail=1", "known sites"),
-        ("broadcast_chunk:fail=1", "known sites"),  # arrives with its plane
+        ("kill:serve-tick:fail=1", "known sites"),  # arrives with its plane
         ("chunk_scoring", "want site:fail=N"),
         ("chunk_scoring:after=1", "needs fail=N"),
         ("chunk_scoring:nope=1", "bad --faults key"),
@@ -121,7 +121,9 @@ def test_batch_sites_are_the_jax_sites():
     assert KNOWN_SITES <= jfaults.KNOWN_SITES
     assert KNOWN_SITES == {
         "chunk_dispatch", "chunk_scoring", "device_transfer", "journal_append",
-        "hang:dispatch", "hang:gather", "kill:journal-append"}
+        "broadcast_problem", "broadcast_chunk", "broadcast_index_set",
+        "broadcast_stream_meta", "hang:dispatch", "hang:gather", "hang:broadcast",
+        "kill:journal-append"}
 
 
 def test_registry_counts_are_deterministic():
