@@ -123,12 +123,34 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    and a parse failure on rank 0 (both 65 within 60 s); then max-size's
    warm wall single-device, over ``[cuda:0] x 4`` and over ``seq:8``
    with each path's summed launch time (CUDA events), and a two-process
-   job's wall.
+   job's wall;
+15. the serve plane (``serve/``, ``load/``): (a) a ``ServeLoop`` in this
+   process on ``cuda:0``, launch counts set to 0 just before it, takes 25
+   requests in one tick (8 of max-size's rows each from 8 requests, 16
+   requests of 64 rows of the 1024-short-row problem, one input3-class
+   request under its own weights): every line == the batch CLI's == the
+   oracle's, every launch == its plain version (a spy on
+   ``dispatch.fused_scorer``/``packed_scorer``), both kernels launched,
+   ``serve_steady_compiles`` 0, fewer superblocks than the same requests
+   take one at a time; then each launch timed and bounded; (b) ``--serve
+   --port 0 --telemetry-port 0 --metrics-out`` in a subprocess: 16
+   concurrent loopback clients of max-size-class requests (lines ==
+   the batch CLI), ``/healthz`` and ``/metrics`` scraped mid-run, fewer
+   dispatches than clients; (c) open-loop load on the same server
+   (``load/``): a burst calibrates the saturation rate, then a poisson
+   schedule at twice it for :data:`SERVE_LOAD_S` seconds; the survival
+   gates pass and the ``serve-load`` record validates, its percentiles
+   printed with the card line; SIGTERM -> 75, the run report flushed and
+   valid; (d) armor through ``io.cli.run``: ``--degrade --retries 3
+   --faults chunk_scoring:fail=3`` opens the breaker (``mm`` pinned),
+   probes and closes it, lines right; ``poison-session`` isolated by
+   bisection, its co-batched requests right.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
-of its path, with the counts set to 0 just before it: the CLI run of
-phase 4 for the two scorers (``ms``, ``plain_ms`` and ``bound_ms`` are
-summed over those same launches, rebuilt in phase 5), the bench run of
+of its path, with the counts set to 0 just before it: for the two scorers
+the CLI run of phase 4 plus the in-process serve run of phase 15 (``ms``,
+``plain_ms`` and ``bound_ms`` are summed over those same launches, the
+CLI's rebuilt in phase 5, the serve run's as the spy saw them), the bench run of
 phase 8 for the probe (its times: one full-wave launch per op at 4096
 steps), and the per-stage table of phase 7 for the ablation kernel (its
 times: ``base`` over the max-size launches).  The bench's own count per
@@ -145,6 +167,7 @@ import json
 import os
 import pstats
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -176,6 +199,16 @@ GATE_CASES = {
 }
 # Max-size at these weights sits between the kernels' window and the gate.
 GATHER_WEIGHTS = [700000, 1, 1, 1]
+# Phase 15's open-loop load: max-size-class requests (Seq1 3000, 4-8 Seq2
+# of 1200-2000, two problem keys); a burst of SERVE_CAL_N requests at
+# once calibrates the saturation rate (its goodput), then a poisson
+# schedule at twice that rate for SERVE_LOAD_S seconds, at most
+# SERVE_LOAD_MAX requests.
+SERVE_LOAD = dict(problem_keys=2, seq1_len=3000, len_mix=((1200, 2000, 1.0),),
+                  pairs_per_request=(4, 8))
+SERVE_CAL_N = 256
+SERVE_LOAD_S = 10.0
+SERVE_LOAD_MAX = 8000
 # Span totals phase 13 prints for the warm max-size CLI run.
 SPAN_PATHS = ("parse", "setup", "score", "score.chunk_dispatch", "score.chunk_gather",
               "print")
@@ -642,6 +675,9 @@ def main() -> int:
     # -- 14. several devices: batch mesh, the Seq1 ring, two processes ------
     mesh_counts = mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best,
                              time_ms, card)
+    # -- 15. the serve plane --------------------------------------------------
+    serve_counts, serve_totals = serve_phase(np, torch, cli, cs, compare, inputs, time_ms,
+                                             card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -651,7 +687,8 @@ def main() -> int:
         bucket_launches(seq1_max, seqs_max, WEIGHTS, dev), card,
     )
     bench_counts = bench_phase(probe)
-    paths = {"cli": counts, "robustness": robust_counts, "gather route": gather_counts,
+    paths = {"cli": counts, "serve": serve_counts, "robustness": robust_counts,
+             "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
              "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
@@ -660,6 +697,10 @@ def main() -> int:
     kernels = []
     for name in names:
         tot = total[name]
+        for key in ("ms", "plain_ms", "bound_ms"):
+            tot[key] += serve_totals[name][key]
+        for key, ms in serve_totals[name]["by"].items():
+            tot["by"][key] += ms
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -669,7 +710,7 @@ def main() -> int:
                 if name == "fused_scorer"
                 else "mpi_openmp_cuda_tpu/ops/pallas_scorer.py:1120"
             ),
-            "launches": counts[name],
+            "launches": counts[name] + serve_counts[name],
             "max_abs_err": max_err[name],
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"],
@@ -1416,6 +1457,347 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
         f"start to exit [{card}]")
     tmp.cleanup()
     return {"batch mesh": batch_counts, "ring": ring_counts, "2-process rank 0": dist_counts}
+
+
+class _Sink:
+    """A serve responder collecting every record it is sent."""
+
+    def __init__(self):
+        self.records = []
+
+    def send(self, obj):
+        self.records.append(obj)
+
+
+def _lines_of(records) -> dict:
+    got: dict = {}
+    for rec in records:
+        if "line" in rec:
+            got.setdefault(rec["id"], []).append(rec["line"])
+    return got
+
+
+def _renumbered(lines, start, count) -> list[str]:
+    """Lines ``start .. start + count`` of a batch stdout, numbered from 0
+    as a request of those rows gets them."""
+    return [f"#{j}:" + line.split(":", 1)[1] for j, line in enumerate(lines[start:start + count])]
+
+
+def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
+    """Phase 15: the serve plane on the card.  Returns ``(counts, totals)``:
+    the in-process run's launch counts (set to 0 just before it) and the
+    kernel, plain and bound ms summed over its launches."""
+    import socket
+    import threading
+    import urllib.request
+
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.io.pipeline import ChunkPipeline
+    from mpi_openmp_cuda_tpu_torch.load import arrival, driver, gates, replay, workload
+    from mpi_openmp_cuda_tpu_torch.load.report import serve_load_record
+    from mpi_openmp_cuda_tpu_torch.obs import arm_observability, disarm_observability
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+    from mpi_openmp_cuda_tpu_torch.ops import _build, dispatch
+    from mpi_openmp_cuda_tpu_torch.ops.costs import bound_ms
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer
+    from mpi_openmp_cuda_tpu_torch.resilience.degrade import BackendDegrader
+    from mpi_openmp_cuda_tpu_torch.resilience.policy import RetryPolicy
+    from mpi_openmp_cuda_tpu_torch.serve.batcher import plan_blocks
+    from mpi_openmp_cuda_tpu_torch.serve.clock import ServeClock
+    from mpi_openmp_cuda_tpu_torch.serve.loop import ServeLoop, warm_kernels
+    from mpi_openmp_cuda_tpu_torch.serve.queue import QueuedRequest
+    from mpi_openmp_cuda_tpu_torch.serve.session import build_session
+
+    t_phase = time.perf_counter()
+    probs, batch_lines = {}, {}
+    for tag in ("max-size", "1024 short rows", "input3-class"):
+        probs[tag] = load_problem(str(inputs[tag]))
+        rc, out, _ = run_cli(cli, ["--input", str(inputs[tag])])
+        gold = inputs[tag].with_suffix(".out").read_text()  # the oracle's (phase 4)
+        if rc != 0 or out.decode() != gold:
+            fail(f"serve: the batch CLI on {tag} differs from the oracle")
+        batch_lines[tag] = out.decode().splitlines()
+
+    def request(rid, tag, start, count):
+        p = probs[tag]
+        return ({"id": rid, "weights": list(p.weights), "seq1": p.seq1,
+                 "seq2": p.seq2[start:start + count]},
+                _renumbered(batch_lines[tag], start, count))
+
+    reqs = [request(f"max{i}", "max-size", 8 * i, 8) for i in range(8)]
+    reqs += [request(f"short{i}", "1024 short rows", 64 * i, 64) for i in range(16)]
+    reqs += [request("foreign", "input3-class", 0, 32)]
+
+    def check_lines(records, want, what):
+        got = _lines_of(records)
+        for rid, lines in want.items():
+            if got.get(rid) != lines:
+                fail(f"serve {what}: request {rid} lines differ from the batch CLI's")
+            if {"id": rid, "done": True, "n": len(lines)} not in records:
+                fail(f"serve {what}: request {rid} has no done record")
+
+    # -- a. ServeLoop in process on cuda:0, every launch held == plain ------
+    seen = []
+    real = {"fused_scorer": cs.fused_scorer, "packed_scorer": cs.packed_scorer}
+
+    def fused(state):
+        raw = real["fused_scorer"](state)
+        compare("fused_scorer", raw, cs.fused_scorer_plain(state))
+        seen.append(("fused_scorer", state, None))
+        return raw
+
+    def packed(state, l2s):
+        raw = real["packed_scorer"](state, l2s)
+        compare("packed_scorer", raw, cs.packed_scorer_plain(state, l2s))
+        seen.append(("packed_scorer", state, l2s))
+        return raw
+
+    policy = RetryPolicy()
+    deg = BackendDegrader(AlignmentScorer("cuda", device="cuda"),
+                          lambda b: AlignmentScorer(b, device="cuda"))
+    warm_kernels(deg)
+    loop = ServeLoop(ChunkPipeline(policy, deg), policy)
+    sink = _Sink()
+    registry, _ = arm_observability()
+    dispatch.fused_scorer, dispatch.packed_scorer = fused, packed
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        for raw, _ in reqs:
+            loop.ingest(json.dumps(raw), sink)
+        while loop.tick():
+            pass
+        wall = time.perf_counter() - t0
+        counts = dict(cs.launch_counts)
+        loop.record_steady_gauge()
+        snap = registry.snapshot()
+    finally:
+        dispatch.fused_scorer, dispatch.packed_scorer = real["fused_scorer"], real["packed_scorer"]
+        disarm_observability()
+    check_lines(sink.records, {raw["id"]: want for raw, want in reqs}, "in process")
+    blocks = snap["counters"].get("serve_batches", 0)
+    steady = snap["gauges"].get("serve_steady_compiles")
+    log(f"serve in process: {len(reqs)} requests (3 problem keys) in {blocks} superblocks, "
+        f"{len(seen)} launches {counts}, every line == the batch CLI == the oracle, "
+        f"serve_steady_compiles {steady}, wall {wall * 1e3:.3f} ms [{card}]")
+    for name in counts:
+        if counts[name] < 1:
+            fail(f"serve: the superblocks never launched {name}")
+        if counts[name] != sum(1 for n, _, _ in seen if n == name):
+            fail(f"serve: {name} launch count {counts[name]} != the spied launches")
+    if steady != 0:
+        fail(f"serve: serve_steady_compiles {steady} != 0")
+    # Coalescing: the tick's blocks against the blocks the same requests
+    # take one at a time, and the max-size key's blocks against its
+    # requests.  (Not all blocks against all requests: the foreign
+    # request alone spans 9 length buckets, and each full short request
+    # is a block of its own.)
+    def n_blocks(raws):
+        items = [QueuedRequest(raw, None, 0.0, i + 1) for i, raw in enumerate(raws)]
+        return len(plan_blocks([build_session(it, ServeClock()) for it in items],
+                               loop.rows_per_block))
+
+    alone = sum(n_blocks([raw]) for raw, _ in reqs)
+    max_blocks = n_blocks([raw for raw, _ in reqs if raw["id"].startswith("max")])
+    log(f"serve coalescing: {blocks} superblocks for {len(reqs)} requests; one request "
+        f"at a time they take {alone}; the 8 max-size requests share {max_blocks}")
+    if not (blocks == n_blocks([raw for raw, _ in reqs]) and blocks < alone
+            and max_blocks < 8):
+        fail(f"serve: {blocks} superblocks, {alone} one request at a time, "
+             f"{max_blocks} for the 8 max-size requests (no coalescing)")
+    if _build.build_count() != loop._steady_base:
+        fail("serve: a build, load or setup happened after the first block")
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "by": {"bytes": 0.0, "operations": 0.0}} for name in counts}
+    for name, state, l2s in seen:
+        kern = ((lambda st=state: real["fused_scorer"](st)) if l2s is None
+                else (lambda st=state, c=l2s: real["packed_scorer"](st, c)))
+        plain = ((lambda st=state: cs.fused_scorer_plain(st)) if l2s is None
+                 else (lambda st=state, c=l2s: cs.packed_scorer_plain(st, c)))
+        b_ms, b_by, _ = bound_ms(state)
+        tot = totals[name]
+        tot["ms"] += time_ms(kern, reps=50)
+        tot["plain_ms"] += time_ms(plain, reps=3)
+        tot["bound_ms"] += b_ms
+        tot["by"][b_by] += b_ms
+    shapes = sorted({(n, tuple(st.rows.shape), c) for n, st, c in seen})
+    log(f"serve launch shapes (kernel, rows x L2P, class): {shapes}")
+    for name, tot in totals.items():
+        log(f"serve launches {name}: {counts[name]}, sum kernel {tot['ms']:.6f} ms, "
+            f"plain {tot['plain_ms']:.6f} ms, bound {tot['bound_ms']:.6f} ms [{card}]")
+
+    # -- b. a --serve subprocess: sockets, telemetry, SIGTERM -> 75 ---------
+    tmp = tempfile.TemporaryDirectory()
+    report = Path(tmp.name) / "serve.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", PKG, "--serve", "--port", "0", "--telemetry-port", "0",
+         "--metrics-out", str(report)],
+        cwd=REPO, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+    )
+    err_lines, ports, ready = [], {}, threading.Event()
+
+    def read_err():
+        for line in proc.stderr:
+            err_lines.append(line)
+            found = re.search(r"(serving|telemetry) on 127\.0\.0\.1:(\d+)", line)
+            if found:
+                ports[found.group(1)] = int(found.group(2))
+                if len(ports) == 2:
+                    ready.set()
+
+    reader = threading.Thread(target=read_err, daemon=True)
+    reader.start()
+    try:
+        t0 = time.perf_counter()
+        if not ready.wait(120):
+            fail("serve subprocess never announced its ports: " + "".join(err_lines[-20:]))
+        log(f"serve subprocess up in {time.perf_counter() - t0:.1f} s: ports {ports}")
+        base = f"http://127.0.0.1:{ports['telemetry']}"
+        socket_reqs = [request(f"c{i}", "max-size", 4 * i, 4) for i in range(16)]
+        results, failures = {}, []
+        gate = threading.Barrier(len(socket_reqs) + 1)
+
+        def client(raw):
+            try:
+                with socket.create_connection(("127.0.0.1", ports["serving"]), timeout=60) as c:
+                    gate.wait(30)
+                    c.sendall((json.dumps(raw) + "\n").encode())
+                    buf = b""
+                    while b'"done"' not in buf:
+                        chunk = c.recv(1 << 16)
+                        if not chunk:
+                            break
+                        buf += chunk
+                results[raw["id"]] = [json.loads(x) for x in buf.decode().splitlines() if x]
+            except BaseException as e:  # reported on the main thread
+                failures.append(e)
+
+        threads = [threading.Thread(target=client, args=(raw,), daemon=True)
+                   for raw, _ in socket_reqs]
+        for t in threads:
+            t.start()
+        gate.wait(30)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as resp:
+            mid = resp.read().decode()
+        for t in threads:
+            t.join(120)
+        wall = time.perf_counter() - t0
+        if failures or len(results) != len(socket_reqs):
+            fail(f"serve sockets: {len(results)} of {len(socket_reqs)} clients answered "
+                 f"({failures[:2]})")
+        check_lines([r for recs in results.values() for r in recs],
+                    {raw["id"]: want for raw, want in socket_reqs}, "over sockets")
+        if not health.get("status", {}).get("ok") or "# TYPE seqalign_" not in mid:
+            fail(f"serve telemetry mid-run: healthz {health}, /metrics {mid[:200]!r}")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as resp:
+            after = resp.read().decode()
+
+        def prom(text, name):
+            found = re.search(rf"^seqalign_{name}_total (\S+)$", text, re.M)
+            return float(found.group(1)) if found else 0.0
+
+        dispatched = prom(after, "chunks_dispatched")
+        log(f"serve sockets: {len(socket_reqs)} concurrent clients of max-size-class "
+            f"requests, every line == the batch CLI, wall {wall * 1e3:.3f} ms; mid-run "
+            f"healthz {health['status']}; chunks_dispatched {dispatched:g}, "
+            f"serve_requests {prom(after, 'serve_requests'):g} [{card}]")
+        if not 0 < dispatched < len(socket_reqs):
+            fail(f"serve sockets: {dispatched:g} dispatches for {len(socket_reqs)} requests")
+
+        # -- c. open-loop load against the same server ----------------------
+        cal = driver.drive("127.0.0.1", ports["serving"], replay.build_schedule(
+            arrival.arrival_times("burst", SERVE_CAL_N, 4000.0, seed=7),
+            workload.synth_requests(SERVE_CAL_N, seed=8, id_prefix="cal", **SERVE_LOAD)),
+            clients=16, grace_s=60.0)
+        problems = gates.survival_problems(cal, phase="calibrate")
+        sat = max(1.0, cal.goodput_rps)
+        rate = 2.0 * sat
+        n = int(min(SERVE_LOAD_MAX, max(64, rate * SERVE_LOAD_S)))
+        sched = replay.build_schedule(
+            arrival.arrival_times("poisson", n, rate, seed=7),
+            workload.synth_requests(n, seed=9, id_prefix="q", **SERVE_LOAD))
+        t0 = time.perf_counter()
+        over = driver.drive("127.0.0.1", ports["serving"], sched, clients=16, grace_s=120.0)
+        log(f"serve load: calibration {cal.counts()} goodput {sat:.3f} req/s; poisson "
+            f"{n} requests at {rate:.3f} req/s over {sched[-1][0]:.3f} s: {over.counts()}, "
+            f"drive wall {time.perf_counter() - t0:.3f} s")
+        problems += gates.survival_problems(over, phase="2x")
+        if problems:
+            fail(f"serve load survival gates: {problems[:4]}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(30)
+        reader.join(30)
+    if rc != 75:
+        fail(f"serve subprocess: SIGTERM -> {rc}, want 75: " + "".join(err_lines[-20:]))
+    rep = json.loads(report.read_text())
+    validate_report(rep)
+    if rep.get("exit_code") != 75 or rep["gauges"].get("serve_steady_compiles") != 0:
+        fail(f"serve report: exit_code {rep.get('exit_code')}, "
+             f"serve_steady_compiles {rep['gauges'].get('serve_steady_compiles')}")
+    record = serve_load_record(over, rep, process="poisson", rate_rps=rate, seed=7,
+                               clients=16, plateau_rps=sat)
+    validate_report(record)
+    log(f"serve subprocess: SIGTERM -> 75, report valid; its launches "
+        f"{ {k: v for k, v in rep['counters'].items() if k.endswith('_launches')} }")
+    log(f"serve-load record: {json.dumps(record, sort_keys=True)}")
+    lat, wait = record["latency_s"], record["queue_wait_s"]
+    log(f"serve-load: goodput {record['goodput_rps']} req/s at {record['offered_rps']} "
+        f"offered; latency p50 {lat['p50']} s p99 {lat['p99']} s; queue wait p50 "
+        f"{wait['p50']} s p99 {wait['p99']} s [{card}]")
+
+    # -- d. armor on the card: the breaker, then a poison session ----------
+    armor = [request(f"a{i}", "input3-class", 8 * i, 8) for i in range(4)]
+    reqfile = Path(tmp.name) / "armor.ndjson"
+    reqfile.write_text("".join(json.dumps(raw) + "\n" for raw, _ in armor))
+    os.environ.update(SEQALIGN_SERVE_MAX_POP="1", SEQALIGN_BREAKER_COOLDOWN="1",
+                      SEQALIGN_BACKOFF_BASE="0")
+    try:
+        areport = Path(tmp.name) / "armor.json"
+        before = dict(cs.launch_counts)
+        err = []
+        rc, out, _ = run_cli(cli, ["--serve", "--input", str(reqfile), "--degrade",
+                                   "--retries", "3", "--faults", "chunk_scoring:fail=3",
+                                   "--metrics-out", str(areport)], err)
+        records = [json.loads(x) for x in out.decode().splitlines() if x]
+        if rc != 0:
+            fail(f"serve breaker run: rc {rc}: {err[0][-2000:]}")
+        check_lines(records, {raw["id"]: want for raw, want in armor}, "breaker")
+        c = json.loads(areport.read_text())["counters"]
+        fused_delta = cs.launch_counts["fused_scorer"] - before["fused_scorer"]
+        log(f"serve breaker: chunk_scoring:fail=3 -> breaker opens {c.get('breaker_opens')}, "
+            f"half-opens {c.get('breaker_half_opens')}, closes {c.get('breaker_closes')}; "
+            f"lines == the batch CLI; fused launches {fused_delta}")
+        if not (c.get("breaker_opens") == 1 and "pinned" in err[0] and "'mm'" in err[0]
+                and c.get("breaker_closes") == 1 and fused_delta > 0):
+            fail(f"serve breaker: counters {c}; stderr {err[0][-1500:]}")
+        os.environ["SEQALIGN_SERVE_MAX_POP"] = "0"
+        err = []
+        rc, out, _ = run_cli(cli, ["--serve", "--input", str(reqfile), "--faults",
+                                   "poison-session:fail=1,after=1"], err)
+        records = [json.loads(x) for x in out.decode().splitlines() if x]
+        poisoned = [r for r in records if "poison" in str(r.get("error", ""))]
+        if rc != 0 or [r["id"] for r in poisoned] != ["a1"]:
+            fail(f"serve poison: rc {rc}, poisoned {poisoned}")
+        check_lines(records, {raw["id"]: want for raw, want in armor if raw["id"] != "a1"},
+                    "poison")
+        log("serve poison: a1 isolated by bisection with a typed error, a0/a2/a3 == "
+            "the batch CLI")
+    finally:
+        for var in ("SEQALIGN_SERVE_MAX_POP", "SEQALIGN_BREAKER_COOLDOWN"):
+            os.environ.pop(var, None)
+    tmp.cleanup()
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts, totals
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

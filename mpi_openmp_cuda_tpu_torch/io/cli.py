@@ -3,7 +3,9 @@
 Parse stdin (or ``--input``), score every Seq2 with ``AlignmentScorer``
 on the chosen device, and print ``#i: score: S, n: N, k: K`` per Seq2 on
 stdout.  Diagnostics go to stderr; on any failure nothing reaches stdout.
-The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s batch path:
+The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s batch path and its
+single-process serve plane (``--serve``, ``--port``, ``--telemetry-port``:
+``serve/loop.py``):
 ``--stream`` (chunked, pipelined), ``--journal``/``--resume``,
 ``--retries``, ``--faults``, ``--degrade``, ``--deadline``,
 ``--selfcheck``, the drain on SIGTERM/SIGINT (or ``SEQALIGN_DRAIN=1``),
@@ -198,6 +200,36 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "stderr from the watchdog monitor thread after every S quiet seconds "
         "(SEQALIGN_HEARTBEAT_S; implies --metrics and composes with "
         "--deadline on the same monitor thread)",
+    )
+    p.add_argument(
+        "--serve", action="store_true",
+        help="persistent serving mode: hold the scorer (its kernels built and "
+        "loaded) in a long-lived loop, read newline-delimited JSON alignment "
+        "requests, coalesce concurrent requests' Seq2s into shared fixed-shape "
+        "superblocks (bucketed continuous batching) and stream per-sequence "
+        "result records back; requests arrive on a loopback socket (--port) "
+        "or the --input pipe/stdin; SIGTERM drains: in-flight superblocks "
+        "finish, queued requests are journaled (--journal) and the run exits "
+        "75 for a --resume rerun",
+    )
+    p.add_argument(
+        "--port", type=_typed(int, lambda v: v >= 0, ">= 0"), default=None,
+        metavar="PORT",
+        help="with --serve: listen for request connections on 127.0.0.1:PORT "
+        "(0 = OS-assigned; the bound port is announced on stderr); "
+        "SEQALIGN_SERVE_PORT supplies the value when this flag is absent; "
+        "without a port the server reads requests from --input/stdin and "
+        "exits when the pipe drains",
+    )
+    p.add_argument(
+        "--telemetry-port", type=_typed(int, lambda v: v >= 0, ">= 0"),
+        default=None, metavar="PORT",
+        help="with --serve: also serve a read-only plain-HTTP telemetry "
+        "endpoint on 127.0.0.1:PORT (0 = OS-assigned; announced on stderr): "
+        "GET /metrics is a live Prometheus scrape of the armed registry, "
+        "/healthz and /trace answer JSON; the same data rides the serve "
+        'socket itself as {"cmd": "metrics"|"healthz"|"trace"} verbs '
+        "(SEQALIGN_TELEMETRY_PORT)",
     )
     return p
 
@@ -572,6 +604,21 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
     timer.report()
 
 
+def _run_serve(args, policy, out, timer) -> None:
+    """The ``--serve`` path: one scorer (``--mesh`` shards it) whose
+    kernels are built and loaded before the first request, then
+    ``serve.loop.run_serve`` until the input drains or a drain signal."""
+    from ..serve import loop as serve_loop
+
+    if args.journal:
+        _check_resume(args)
+    with timer.phase("setup"):
+        deg = _make_degrader(args, _make_scorer(args, False))
+        serve_loop.warm_kernels(deg)
+    obs_gauge("backend", deg.scorer.backend)
+    serve_loop.run_serve(args, timer, policy, deg, out_stream=out)
+
+
 def run(argv: list[str] | None = None) -> int:
     try:
         args = build_arg_parser().parse_args(argv)
@@ -590,6 +637,28 @@ def run(argv: list[str] | None = None) -> int:
               "degrading its backend desynchronises the collective schedules)",
               file=sys.stderr)
         return EX_USAGE
+    if args.serve:
+        for flag, bad, why in (
+            ("--stream", args.stream is not None, "the serve loop IS the streaming "
+             "pipeline; chunking is driven by the request queue, not a flag"),
+            ("--selfcheck", args.selfcheck, "selfcheck re-verifies a "
+             "fully-materialised batch; a server has no final batch"),
+            ("--distributed", args.distributed, "the serving plane is "
+             "single-process; shard the scorer with --mesh instead"),
+        ):
+            if bad:
+                print(f"{PROG}: error: {flag} cannot be combined with --serve ({why})",
+                      file=sys.stderr)
+                return EX_USAGE
+    if args.port is not None and not args.serve:
+        print(f"{PROG}: error: --port requires --serve (the port is where the "
+              "serving loop listens)", file=sys.stderr)
+        return EX_USAGE
+    if args.telemetry_port is not None and not args.serve:
+        print(f"{PROG}: error: --telemetry-port requires --serve (live telemetry "
+              "scrapes a running serve loop; a batch run's report is --metrics-out)",
+              file=sys.stderr)
+        return EX_USAGE
     if args.resume and not args.journal:
         print(f"{PROG}: error: --resume requires --journal PATH (the journal "
               "is what a resume resumes from)", file=sys.stderr)
@@ -604,6 +673,9 @@ def run(argv: list[str] | None = None) -> int:
         if deadline is None:
             deadline = env_float("SEQALIGN_DEADLINE_S")
         obs_on, metrics_out, heartbeat_s, trace_out = _build_obs(args)
+        # --serve arms the plane and the flight recorder unconditionally:
+        # the recorder must be taping before the first request.
+        obs_on = obs_on or args.serve
         frec_depth = env_int("SEQALIGN_FLIGHTREC_DEPTH") if obs_on else 0
     except ValueError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
@@ -645,7 +717,9 @@ def run(argv: list[str] | None = None) -> int:
 
                 with timer.phase("distributed_init"):
                     dist.initialize_distributed(args.device)
-            if args.stream:
+            if args.serve:
+                _run_serve(args, policy, out, timer)
+            elif args.stream:
                 _run_streaming(args, policy, out, timer, dist)
             else:
                 _run_batch(args, policy, out, timer, dist)

@@ -1,12 +1,13 @@
-"""The chunk submit/finish machinery of the ``--stream`` CLI (the port of
-``mpi_openmp_cuda_tpu/io/pipeline.py``; the serve plane will drive the
-same classes):
+"""The chunk submit/finish machinery of the ``--stream`` CLI and the serve
+loop (the port of ``mpi_openmp_cuda_tpu/io/pipeline.py``):
 
 * :class:`ChunkPipeline` — dispatch and materialise one chunk under a
   retry budget shared by both stages, with the ``--degrade`` chain at
   both and the oracle check of the first degraded result.  All scoring
   goes through ``degrader.scorer`` at call time, so a degradation holds
-  for every later chunk.
+  for every later chunk.  Under ``--serve --degrade`` a circuit breaker
+  (``resilience/breaker.py``) watches the primary attempts and, while it
+  is open, dispatch goes straight to the pinned degraded backend.
 * :class:`PendingWindow` — the bounded in-flight window: each pushed
   promise's device-to-host copy starts at dispatch (``prefetch``), the
   oldest entry is finished once the window overflows, ``flush()`` drains
@@ -25,14 +26,40 @@ from __future__ import annotations
 import collections
 
 from ..resilience.degrade import MaterialisedRows, run_degrading, verify_rows_against_oracle
+from ..resilience.policy import FATAL_ERROR_TYPES
 
 
 class ChunkPipeline:
-    """One run's dispatch/materialise pair over a policy and a degrader."""
+    """One run's dispatch/materialise pair over a policy and a degrader,
+    and optionally a circuit ``breaker`` fed by every primary attempt."""
 
-    def __init__(self, policy, degrader):
+    def __init__(self, policy, degrader, breaker=None):
         self.policy = policy
         self.degrader = degrader
+        self.breaker = breaker
+
+    def _guard(self, fn):
+        """``fn`` reporting to the breaker: a transient failure counts
+        toward opening it, a success closes a half-open probe; fatal
+        errors (bad input, an oracle mismatch, a kernel that cannot run)
+        pass unrecorded."""
+        if self.breaker is None:
+            return fn
+
+        def guarded():
+            try:
+                result = fn()
+            except FATAL_ERROR_TYPES:
+                raise
+            except Exception:
+                # A BaseException (the drain, an interrupt) passes
+                # unrecorded: process lifecycle, not backend health.
+                self.breaker.record_failure()
+                raise
+            self.breaker.record_success()
+            return result
+
+        return guarded
 
     def _verify(self, seq1_codes, codes, weights):
         """The oracle check of the first degraded chunk (None without
@@ -41,21 +68,34 @@ class ChunkPipeline:
             return None
         return lambda rows: verify_rows_against_oracle(seq1_codes, codes, weights, rows)
 
-    def dispatch(self, seq1_codes, codes, weights, budget, staged=None):
+    def dispatch(self, seq1_codes, codes, weights, budget, staged=None, links=()):
         """Dispatch a chunk under the shared budget; past exhaustion with
         ``--degrade``, rescore it synchronously down the chain (wrapped in
         :class:`MaterialisedRows`, which keeps the promise contract).
-        ``staged`` feeds only the first attempt on the primary path."""
+        ``staged`` feeds only the first attempt on the primary path;
+        ``links`` (the serve plane's request ids) go on the chunk's trace
+        launch rows.  While the breaker is open the pinned degraded
+        scorer scores the chunk synchronously, oracle-checked once a run."""
         deg = self.degrader
+        if self.breaker is not None and self.breaker.bypass_primary():
+            rows = self.policy.run(
+                lambda: deg.scorer.score_codes(seq1_codes, codes, weights, links=links),
+                "chunk dispatch [breaker-open]", budget=budget,
+            )
+            if deg.enabled and not deg.verified:
+                verify_rows_against_oracle(seq1_codes, codes, weights, rows)
+                deg.verified = True
+            return MaterialisedRows(rows)
         feed = [staged]
 
         def attempt():
-            return deg.scorer.score_codes_async(seq1_codes, codes, weights, staged=feed.pop()
-                                                if feed else None)
+            return deg.scorer.score_codes_async(
+                seq1_codes, codes, weights, staged=feed.pop() if feed else None,
+                links=links)
 
         return run_degrading(
-            self.policy, deg, attempt,
-            lambda sc: sc.score_codes(seq1_codes, codes, weights),
+            self.policy, deg, self._guard(attempt),
+            lambda sc: sc.score_codes(seq1_codes, codes, weights, links=links),
             "chunk dispatch", budget=budget,
             verify=self._verify(seq1_codes, codes, weights), wrap=MaterialisedRows,
         )
@@ -73,7 +113,7 @@ class ChunkPipeline:
             return deg.scorer.score_codes(seq1_codes, codes, weights)
 
         return run_degrading(
-            self.policy, deg, attempt,
+            self.policy, deg, self._guard(attempt),
             lambda sc: sc.score_codes(seq1_codes, codes, weights),
             "chunk scoring", budget=budget,
             verify=self._verify(seq1_codes, codes, weights),

@@ -18,7 +18,10 @@ source, all at once, and returns each compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills); ``build_variants()`` does the same
 for the sweep scripts' builds of one source under other ``-D`` settings.
 Each successful nvcc build publishes one ``recompile`` event on the obs
-bus (the run report's ``recompiles`` counter).
+bus (the run report's ``recompiles`` counter).  :func:`build_count` counts
+every build, every library load and every lazy per-width setup
+(:func:`note_setup`) of this process: the serve loop's
+``serve_steady_compiles`` gauge is its delta after the first block.
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -47,6 +50,19 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count = 0  # builds + library loads + per-width setups (build_count)
+
+
+def build_count() -> int:
+    """The nvcc builds, library loads and lazy per-width setups this
+    process has made so far (each one a cold start of a launch shape)."""
+    return _count
+
+
+def note_setup() -> None:
+    """Count one lazy per-width setup (e.g. a shared-memory opt-in)."""
+    global _count
+    _count += 1
 
 
 def _nvcc() -> str:
@@ -97,6 +113,7 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            note_setup()
             publish("recompile", kernel=tag)
     if failed:
         raise KernelUnavailableError("kernel build failed: " + "\n".join(failed))
@@ -158,4 +175,5 @@ def load(name: str) -> ctypes.CDLL:
             except OSError as e:
                 raise KernelUnavailableError(f"cannot load the {name} kernel: {e}") from e
             _libs[name] = lib
+            note_setup()
         return lib

@@ -373,10 +373,18 @@ def _smem_limit(device: torch.device) -> int:
     return int(limit)
 
 
+# A launch's dynamic shared memory without opting in (kDefaultSmem in
+# csrc/fused_kernels.cuh); the widths past it that opted in so far.
+DEFAULT_SMEM = 48 * 1024
+_opted_in: set[int] = set()
+
+
 def check_smem(state: ScorerState) -> int:
     """The tile kernel's dynamic shared memory at the state's L2P, in
     bytes, or ``KernelUnavailableError`` when the state's card cannot give
-    a block that much (on the H100, L2P past 84,224)."""
+    a block that much (on the H100, L2P past 84,224).  The first launch
+    of a width past :data:`DEFAULT_SMEM` opts the kernel in to more, a
+    setup ``_build.build_count`` counts."""
     l2p = state.rows.shape[1]
     need = _smem_need(l2p)
     limit = _smem_limit(state.rows.device)
@@ -385,7 +393,19 @@ def check_smem(state: ScorerState) -> int:
             f"fused_scorer: a Seq2 bucket of width L2P {l2p} needs {need} bytes of "
             f"shared memory a block, more than the {limit} this card allows"
         )
+    if need > DEFAULT_SMEM and l2p not in _opted_in:
+        _opted_in.add(l2p)
+        _build.note_setup()
     return need
+
+
+def load_kernels() -> None:
+    """Build (if missing) and load both scorer kernels and their shared
+    memory queries now, so no later launch pays a build or a load (the
+    serve loop calls it before its first tick)."""
+    for name in launch_counts:
+        _entry(name)
+    _smem_entries()
 
 
 def fused_scorer(state: ScorerState) -> torch.Tensor:

@@ -535,17 +535,21 @@ class AlignmentScorer:
         self.sharding = sharding
         self._side = None  # the staging stream (CUDA, made at first use)
 
-    def score_codes(self, seq1_codes, seq2_codes, weights, *, staged=None) -> np.ndarray:
+    def score_codes(self, seq1_codes, seq2_codes, weights, *, staged=None,
+                    links=()) -> np.ndarray:
         """[B, 3] int32 array of (score, n, k) rows, input order."""
-        return self.score_codes_async(seq1_codes, seq2_codes, weights, staged=staged).result()
+        return self.score_codes_async(seq1_codes, seq2_codes, weights, staged=staged,
+                                      links=links).result()
 
     def score_codes_async(
         self, seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, *,
-        staged: StagedFeed | None = None,
+        staged: StagedFeed | None = None, links=(),
     ) -> PendingResult | BucketedPending:
         """``score_codes`` without waiting for the device-to-host copy.
         ``staged`` is an optional :class:`StagedFeed` from
-        :meth:`prestage_codes` (single-use)."""
+        :meth:`prestage_codes` (single-use); ``links`` are the request ids
+        riding this dispatch (the serve plane's), recorded on each of its
+        trace launch rows."""
         with watchdog.guard("chunk dispatch"):
             _fault("chunk_dispatch")
         _obs_inc("chunks_dispatched")
@@ -572,7 +576,7 @@ class AlignmentScorer:
             # result that closes it.
             pending.trace_keys = [(id(pending), i) for i in range(len(launches))]
             for key, b in zip(pending.trace_keys, launches):
-                trace_launch_begin(key, len1=b.state.len1,
+                trace_launch_begin(key, links=links, len1=b.state.len1,
                                    lens=[seq2_codes[j].size for j in b.idx])
         return pending
 

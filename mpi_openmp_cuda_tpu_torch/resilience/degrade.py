@@ -9,7 +9,11 @@ down the chain
     cuda -> mm -> gather
 
 rescoring the chunk (and every later one) on the next backend with a
-warning on stderr.  ``mm`` is the one-hot fp32 matmul formulation
+warning on stderr.  Under ``--serve`` the circuit breaker
+(``resilience/breaker.py``) drives the same chain:
+:meth:`BackendDegrader.pin` while it is open,
+:meth:`BackendDegrader.reset` for its half-open probe.  ``mm`` is the
+one-hot fp32 matmul formulation
 (``ops/matmul_scorer.py``, which itself routes a bucket to the gather
 formulation when the fp32 window does not hold), ``gather`` the int32
 gather formulation (``ops/gather_scorer.py``), exact for every weight
@@ -55,6 +59,7 @@ class BackendDegrader:
 
     def __init__(self, scorer, make_scorer, *, enabled: bool = False, log=None):
         self.scorer = scorer
+        self._original = scorer  # the primary: the breaker's reset target
         self._make = make_scorer
         self.enabled = enabled
         self.verified = False  # first degraded result oracle-checked yet?
@@ -78,6 +83,25 @@ class BackendDegrader:
             scorer = self._built[nxt] = self._make(nxt)
         self.scorer = scorer
         return nxt
+
+    def can_degrade(self) -> bool:
+        """True when the chain has somewhere to fall from the primary
+        backend (the circuit breaker's precondition for opening)."""
+        return DEGRADE_CHAIN.get(self._original.backend) is not None
+
+    def pin(self) -> str | None:
+        """Circuit breaker open: make the live scorer a degraded backend
+        and return its name.  A chain that already fell stays where it
+        is; from the primary this is one :meth:`step` down."""
+        if self.scorer.backend != self._original.backend:
+            return self.scorer.backend
+        return self.step("is failing repeatedly (circuit breaker open)")
+
+    def reset(self) -> None:
+        """Circuit breaker half-open: restore the primary scorer for the
+        probe.  ``verified`` survives (the oracle check is once a run) and
+        the degraded scorers stay built for the next open."""
+        self.scorer = self._original
 
 
 def verify_rows_against_oracle(seq1_codes, seq2_codes, weights, rows) -> None:

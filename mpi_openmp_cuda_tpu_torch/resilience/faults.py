@@ -1,5 +1,6 @@
 """Deterministic fault injection (the port of ``mpi_openmp_cuda_tpu/
-resilience/faults.py``, with the sites of the single-process batch path).
+resilience/faults.py``, with the sites of the batch path and the serve
+plane).
 
 An instrumented code path calls :func:`fire` with a stable site name; an
 armed registry decides from a counted schedule whether that invocation
@@ -37,12 +38,35 @@ Sites:
                           over all four
 ``kill:journal-append``   SIGKILL this process at the scheduled
                           ``journal_append``
+``kill:serve-tick``       SIGKILL at the scheduled serve-loop tick boundary
+                          (the ``serve_tick`` fire point): the live serve
+                          journal must make ``--resume`` lose and double
+                          nothing
 ========================  ====================================================
 
 A hang site needs an armed watchdog (``--deadline``); without one it is
 the fatal ``HangWithoutDeadlineError``.  ``kind=`` is rejected for hang
-and kill sites.  The serve and fleet marker sites arrive with their
-planes.
+and kill sites.
+
+The serve plane's sites are markers: they are consulted with the
+non-raising :func:`scheduled` probe and the serve plane shapes the
+failure itself, so ``kind=`` is rejected for them too:
+
+==========================  ==================================================
+``slow-client``             this ``Responder.send`` behaves like a client
+                            whose socket buffer never drains: the record is
+                            dropped and the responder marked dead
+``dead-socket-midstream``   the client vanished between records
+``poison-session``          the session built from this request is poisoned:
+                            every superblock holding it fails fatally until
+                            the quarantine bisection isolates it
+``overload-burst``          this request arrives in a modelled burst that
+                            exhausts the admission bucket on its own
+``burst:overload``          this request is priced at 5x its modelled wall
+                            (sustained open-loop overload)
+==========================  ==================================================
+
+The fleet's sites arrive with the fleet.
 """
 
 from __future__ import annotations
@@ -51,7 +75,16 @@ from dataclasses import dataclass
 
 from ..obs.events import publish
 
-KNOWN_SITES = frozenset({
+# Serve-plane marker sites: consulted with scheduled(), never fire().
+SERVE_SITES = frozenset({
+    "slow-client",
+    "dead-socket-midstream",
+    "poison-session",
+    "overload-burst",
+    "burst:overload",
+})
+
+KNOWN_SITES = SERVE_SITES | frozenset({
     "chunk_dispatch",
     "chunk_scoring",
     "device_transfer",
@@ -64,6 +97,7 @@ KNOWN_SITES = frozenset({
     "hang:gather",
     "hang:broadcast",
     "kill:journal-append",
+    "kill:serve-tick",
 })
 
 # Which fire point each hang/kill site rides; the alias keeps its own
@@ -77,7 +111,7 @@ _HANG_SITES = {
     "broadcast_index_set": "hang:broadcast",
     "broadcast_stream_meta": "hang:broadcast",
 }
-_KILL_SITES = {"journal_append": "kill:journal-append"}
+_KILL_SITES = {"journal_append": "kill:journal-append", "serve_tick": "kill:serve-tick"}
 
 
 class InjectedFaultError(RuntimeError):
@@ -107,7 +141,7 @@ def parse_spec(spec: str) -> dict[str, SiteFaults]:
             continue
         site, sep, body = entry.partition(":")
         site = site.strip()
-        if site in ("hang", "kill"):
+        if site in ("hang", "kill", "burst"):
             # These site names carry a colon: the first body segment joins.
             sub, sep2, rest = body.partition(":")
             site, sep, body = f"{site}:{sub.strip()}", sep2, rest
@@ -144,7 +178,8 @@ def parse_spec(spec: str) -> dict[str, SiteFaults]:
             kv[key] = n
         if "fail" not in kv:
             raise ValueError(f"--faults entry for {site!r} needs fail=N")
-        if "kind" in kv and site.partition(":")[0] in ("hang", "kill"):
+        if "kind" in kv and (site.partition(":")[0] in ("hang", "kill")
+                             or site in SERVE_SITES):
             raise ValueError(
                 f"--faults site {site!r} does not take kind= (the failure "
                 "shape is the site's own, not a raised error class)"
@@ -169,6 +204,15 @@ class FaultRegistry:
         self.counts[site] = n + 1
         sf = self.sites.get(site)
         return sf is not None and sf.after <= n < sf.after + sf.fail
+
+    def scheduled(self, site: str) -> bool:
+        """Marker-site probe: bump the counter and report (never raise)
+        whether this invocation is scheduled."""
+        if self._scheduled(site):
+            self.injected += 1
+            publish("fault.injected", site=site, kind="marker")
+            return True
+        return False
 
     def fire(self, site: str) -> None:
         n = self.counts.get(site, 0)
@@ -216,3 +260,9 @@ def fire(site: str) -> None:
     """Raise per the armed schedule, else no-op."""
     if _active is not None:
         _active.fire(site)
+
+
+def scheduled(site: str) -> bool:
+    """Non-raising marker probe (the serve sites): True when the armed
+    schedule marks this invocation."""
+    return _active is not None and _active.scheduled(site)

@@ -1,7 +1,8 @@
 """The environment knobs the port reads, and their typed accessors.
 
 A copy of the registry pattern of ``mpi_openmp_cuda_tpu/utils/
-platform.py``, holding only the variables the port reads so far, under
+platform.py``, holding only the variables the port reads so far (the
+serve, telemetry and breaker knobs of ``--serve`` among them), under
 the same names as the JAX package, so one shell drives both CLIs, plus
 the rendezvous variables of a ``--distributed`` job under torchrun's
 names (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
@@ -71,6 +72,60 @@ ENV_VARS: tuple[EnvVar, ...] = (
            "mesh devices the host counts as under --device cpu, each naming "
            "the one CPU device (the port's counterpart of XLA's "
            "--xla_force_host_platform_device_count)"),
+    # The serve plane (--serve): its socket, queue, batching, SLO armor
+    # and live telemetry.
+    EnvVar("SEQALIGN_SERVE_PORT", "int", None,
+           "loopback port for the --serve request socket (same as --port; "
+           "0 = OS-assigned, announced on stderr)"),
+    EnvVar("SEQALIGN_SERVE_MAX_QUEUE", "int", 256,
+           "serve admission cap: requests queued past this depth are "
+           "rejected with a 'queue full' error record"),
+    EnvVar("SEQALIGN_SERVE_WINDOW_S", "float", 0.05,
+           "serve gather window (seconds): after the first queued request "
+           "the loop lingers this long so a concurrent burst coalesces "
+           "into shared superblocks"),
+    EnvVar("SEQALIGN_SERVE_BLOCK_ROWS", "int", 64,
+           "rows per serve superblock; every dispatch has exactly this row "
+           "count (padded), so the launch shapes stay few"),
+    EnvVar("SEQALIGN_SERVE_MAX_POP", "int", 0,
+           "max requests popped per serve tick (0 = unlimited); bounds one "
+           "tick's latency under backlog"),
+    EnvVar("SEQALIGN_SERVE_DEADLINE_S", "float", None,
+           "default per-request deadline (seconds) for serve requests that "
+           "carry no 'deadline_s' field; past-deadline requests are "
+           "answered with a typed 'deadline' error instead of occupying "
+           "superblock rows"),
+    EnvVar("SEQALIGN_SERVE_COST_BUDGET_S", "float", 4.0,
+           "admission token bucket: max modelled superblock-wall seconds "
+           "(the Hopper launch model of ops/schedule.py) of "
+           "admitted-but-unfinished serve work; over-budget requests get a "
+           "typed 'overloaded' rejection with retry_after_s"),
+    EnvVar("SEQALIGN_SERVE_COST_SCALE", "float", 1.0,
+           "admission cost-model refit multiplier: request prices are the "
+           "modelled wall x this scale, so a measured-load refit "
+           "(load/refit.py) can calibrate the bucket to observed walls "
+           "while the launch model stays the prior; 1.0 = trust the prior"),
+    EnvVar("SEQALIGN_SERVE_SHED_WAIT_S", "float", 30.0,
+           "load-shedding threshold: when the p90 of recent queue waits "
+           "reaches this many seconds the serve loop escalates "
+           "accept -> shed-new -> drain-only (de-escalates below half)"),
+    EnvVar("SEQALIGN_SERVE_WRITE_TIMEOUT_S", "float", 5.0,
+           "per-connection socket send timeout (seconds): a client whose "
+           "socket buffer stays full this long is classified dead and its "
+           "sessions abandoned (0 disables)"),
+    EnvVar("SEQALIGN_TELEMETRY_PORT", "int", None,
+           "loopback port for the --serve plain-HTTP telemetry endpoint "
+           "(same as --telemetry-port; 0 = OS-assigned, announced on "
+           "stderr): GET /metrics | /healthz | /trace"),
+    EnvVar("SEQALIGN_BREAKER_THRESHOLD", "int", 3,
+           "circuit breaker: transient primary-dispatch failures within "
+           "the window that open the breaker (pinning the degraded "
+           "backend; requires --degrade)"),
+    EnvVar("SEQALIGN_BREAKER_WINDOW", "int", 16,
+           "circuit breaker failure-memory window, in serve-loop ticks"),
+    EnvVar("SEQALIGN_BREAKER_COOLDOWN", "int", 8,
+           "serve-loop ticks an open breaker waits before probing the "
+           "primary backend half-open"),
     # The rendezvous of a --distributed job, under torchrun's names.
     EnvVar("MASTER_ADDR", "str", None,
            "--distributed: the coordinator's (rank 0's) host"),

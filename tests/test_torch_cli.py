@@ -170,7 +170,12 @@ def test_port_import_loads_no_jax():
         "mpi_openmp_cuda_tpu_torch.parallel.specs, mpi_openmp_cuda_tpu_torch.parallel.mesh, "
         "mpi_openmp_cuda_tpu_torch.parallel.comm, mpi_openmp_cuda_tpu_torch.parallel.sharding, "
         "mpi_openmp_cuda_tpu_torch.parallel.ring, "
-        "mpi_openmp_cuda_tpu_torch.parallel.distributed; "
+        "mpi_openmp_cuda_tpu_torch.parallel.distributed, "
+        "mpi_openmp_cuda_tpu_torch.serve.loop, mpi_openmp_cuda_tpu_torch.serve.slo, "
+        "mpi_openmp_cuda_tpu_torch.resilience.breaker, "
+        "mpi_openmp_cuda_tpu_torch.obs.telemetry, mpi_openmp_cuda_tpu_torch.load.driver, "
+        "mpi_openmp_cuda_tpu_torch.load.gates, mpi_openmp_cuda_tpu_torch.load.refit, "
+        "mpi_openmp_cuda_tpu_torch.load.report; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_openmp_cuda_tpu')]; print(bad); sys.exit(bool(bad))"
     )

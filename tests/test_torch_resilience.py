@@ -99,7 +99,7 @@ def test_parse_spec_full_grammar_matches_jax():
     "bad, match",
     [
         ("bogus_site:fail=1", "known sites"),
-        ("kill:serve-tick:fail=1", "known sites"),  # arrives with its plane
+        ("kill:fleet-worker:fail=1", "known sites"),  # arrives with the fleet
         ("chunk_scoring", "want site:fail=N"),
         ("chunk_scoring:after=1", "needs fail=N"),
         ("chunk_scoring:nope=1", "bad --faults key"),
@@ -123,7 +123,8 @@ def test_batch_sites_are_the_jax_sites():
         "chunk_dispatch", "chunk_scoring", "device_transfer", "journal_append",
         "broadcast_problem", "broadcast_chunk", "broadcast_index_set",
         "broadcast_stream_meta", "hang:dispatch", "hang:gather", "hang:broadcast",
-        "kill:journal-append"}
+        "kill:journal-append", "kill:serve-tick", "slow-client",
+        "dead-socket-midstream", "poison-session", "overload-burst", "burst:overload"}
 
 
 def test_registry_counts_are_deterministic():

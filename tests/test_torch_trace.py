@@ -261,3 +261,137 @@ def test_cli_trace_dir_profiles_the_score_phase(tmp_path, quiet_env, capfd):
     (path,) = (tmp_path / "prof").glob("trace-*.json")
     names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
     assert any("aten::" in n for n in names)
+
+
+# -- live telemetry and the serve trace ----------------------------------------
+
+import math  # noqa: E402
+import urllib.error  # noqa: E402
+import urllib.request  # noqa: E402
+
+from mpi_openmp_cuda_tpu.obs import telemetry as jtelemetry  # noqa: E402
+from mpi_openmp_cuda_tpu_torch.obs import arm_observability, disarm_observability  # noqa: E402
+from mpi_openmp_cuda_tpu_torch.obs import events as tevents  # noqa: E402
+from mpi_openmp_cuda_tpu_torch.obs.telemetry import TelemetryServer, answer_cmd  # noqa: E402
+from mpi_openmp_cuda_tpu_torch.serve.loop import ServeLoop  # noqa: E402
+
+GOLDEN_TRACE = REPO / "tests" / "golden" / "serve_trace.json"
+SERVE_WEIGHTS = [1, -3, -5, -2]
+
+
+class _Sink:
+    def __init__(self):
+        self.records = []
+
+    def send(self, obj):
+        self.records.append(obj)
+
+
+def _serve_request(rid, seq1="ACGTACGT", seq2=("ACGT", "TTTT")):
+    return {"id": rid, "weights": SERVE_WEIGHTS, "seq1": seq1, "seq2": list(seq2)}
+
+
+@pytest.fixture
+def disarmed():
+    yield
+    disarm_observability()
+
+
+def test_answer_cmd_disarmed_planes_equal_the_jax_answers(disarmed):
+    for cmd in ("metrics", "healthz", "trace", "bogus"):
+        assert answer_cmd(cmd) == jtelemetry.answer_cmd(cmd)
+    status = {"ok": True, "queue_depth": 3}
+    assert answer_cmd("healthz", status=status) == {"telemetry": "healthz", "status": status}
+    assert "unknown telemetry cmd" in answer_cmd("bogus")["error"]
+
+
+def test_answer_cmd_trace_armed(disarmed):
+    arm_observability(with_trace=True)
+    tevents.publish("serve.request.admitted", id="a", trace="t1")
+    rec = answer_cmd("trace")
+    jmetrics.validate_report(rec["trace"])
+    assert "serve.request.admitted" in [e.get("name") for e in rec["trace"]["traceEvents"]]
+
+
+def test_serve_ingest_telemetry_verb_not_queued():
+    loop = ServeLoop(None, None)
+    sink = _Sink()
+    loop.ingest('{"cmd": "healthz"}\n', sink)
+    assert loop.queue.depth() == 0  # never admitted, never priced
+    assert sink.records == [{"telemetry": "healthz", "status": {
+        "ok": True, "queue_depth": 0, "shed_state": "accept", "breaker_state": None}}]
+    loop.ingest('{"cmd": "nonsense"}\n', sink)
+    assert "unknown telemetry cmd" in sink.records[-1]["error"]
+
+
+def test_telemetry_http_endpoints(disarmed):
+    reg, _ = arm_observability(with_trace=True)
+    reg.inc("retry_attempts")
+    srv = TelemetryServer(0, status=lambda: {"ok": True, "queue_depth": 0})
+    base = f"http://127.0.0.1:{srv.start()}"
+    try:
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as resp:
+            assert resp.headers["Content-Type"].startswith("text/plain")
+            body = resp.read().decode("utf-8")
+        assert "# HELP seqalign_retry_attempts_total Total retry attempts" in body
+        assert "seqalign_retry_attempts_total 1" in body
+        with urllib.request.urlopen(f"{base}/healthz", timeout=10) as resp:
+            assert json.loads(resp.read()) == {
+                "telemetry": "healthz", "status": {"ok": True, "queue_depth": 0}}
+        with urllib.request.urlopen(f"{base}/trace", timeout=10) as resp:
+            tr = json.loads(resp.read())
+        assert tr["telemetry"] == "trace"
+        jmetrics.validate_report(tr["trace"])
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(f"{base}/nope", timeout=10)
+        assert exc.value.code == 404
+    finally:
+        srv.close()
+        srv.close()  # idempotent
+
+
+_KEEP_ARGS = ("id", "trace", "outcome", "links", "request_ids", "rows", "len1")
+
+
+def _project(rec: dict) -> list[dict]:
+    """tests/test_trace.py's projection: tracks, names and request/launch
+    linkage, no times."""
+    kept = []
+    for ev in rec["traceEvents"]:
+        if ev.get("ph") == "M":
+            kept.append(ev)
+            continue
+        cat, name = ev.get("cat"), ev.get("name", "")
+        if not (cat in ("request", "launch", "model")
+                or (cat in ("bus", "span") and name.startswith("serve."))):
+            continue
+        args = ev.get("args", {})
+        kept.append({"ph": ev["ph"], "pid": ev["pid"], "tid": ev["tid"], "cat": cat,
+                     "name": name, "args": {k: args[k] for k in _KEEP_ARGS if k in args}})
+    return kept
+
+
+def test_serve_trace_equals_the_jax_golden(tmp_path, quiet_env, capfd):
+    """The canonical coalescing scenario (two requests sharing a problem
+    key: one superblock, one launch of 64 rows) projects onto the JAX
+    package's golden trace."""
+    reqfile = tmp_path / "requests.ndjson"
+    reqfile.write_text(json.dumps(_serve_request("a")) + "\n"
+                       + json.dumps(_serve_request("b", seq2=["GGGG"])) + "\n")
+    trace_out, report = tmp_path / "trace.json", tmp_path / "run.json"
+    rc = tcli.run(["--serve", "--device", "cpu", "--input", str(reqfile),
+                   "--metrics-out", str(report), "--trace-out", str(trace_out)])
+    capfd.readouterr()
+    assert rc == 0
+    rec = json.loads(trace_out.read_text())
+    jmetrics.validate_report(rec)
+    ga = rec["gap_attribution"]
+    assert ga["launch_count"] == 1 and ga["unfinished_launches"] == 0
+    (row,) = ga["launches"]
+    assert sorted(row["request_ids"]) == ["a", "b"] and row["rows"] == 64
+    want_us = schedule.launch_us(8, [4, 4, 4] + [128] * 61, 128)
+    assert row["modelled_s"] == round(want_us * 1e-6, 9)
+    for field in ("measured_s", "modelled_s", "gap_s"):
+        assert math.isfinite(row[field])
+    assert json.loads(report.read_text())["gap_attribution"]["launches"] == ga["launches"]
+    assert _project(rec) == json.loads(GOLDEN_TRACE.read_text())
