@@ -144,13 +144,42 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    valid; (d) armor through ``io.cli.run``: ``--degrade --retries 3
    --faults chunk_scoring:fail=3`` opens the breaker (``mm`` pinned),
    probes and closes it, lines right; ``poison-session`` isolated by
-   bisection, its co-batched requests right.
+   bisection, its co-batched requests right;
+16. the fleet and the rescue tier (``serve/fleet.py``,
+   ``resilience/{membership,rescue}.py``): (a) phase 15a's 25 requests
+   through a ``ServeLoop`` coordinator on ``cuda:0`` with two
+   ``FleetWorker`` threads over a ``FileBoard``, launch counts set to 0
+   just before: every superblock scored by a worker (none on the
+   coordinator), every line == the batch CLI == the oracle, every worker
+   launch == its plain version (a spy), both kernels launched,
+   ``serve_steady_compiles`` 0, and after ``gc_final`` the board holds
+   only the registry, the shutdown key and the generation record; each
+   launch timed and bounded; (b) processes on the card, four scenarios at
+   once, each on its own board, over max-size-class ``load.workload``
+   requests: clean (``--serve --port 0 --telemetry-port 0 --fleet-board``
+   with two ``--fleet-worker``; four requests of 64 short rows too, over
+   sockets; SIGTERM -> 75), kill-worker (``kill:fleet-worker``; the death
+   verdict re-dispatches at a bumped epoch to the survivor), zombie-fence
+   (``zombie:fleet-worker``; its stale post fenced, never demuxed) and
+   coordinator-kill (``kill:fleet-coordinator``; a ``--fleet-standby``
+   takes over and replays the checkpoint): every request answered once,
+   its records == a fleetless ``--serve`` run's, each worker's report
+   with fused launches (packed ones for the short rows), the
+   coordinator's report valid, no Traceback; (c) beside (b), two-process
+   ``--distributed --mesh 2`` jobs with ``SEQALIGN_BEACON_S`` (mixedcase,
+   stress_small, max-size: rank 0 == golden, rank 1 silent, and rank 0's
+   report holding rank 1's snapshot with its kernel launches, which only
+   the beacon tier's store board carries between the ranks), then
+   ``scatter_gather_rescue`` in this process with ``num_processes=2``
+   where rank 1 never posts: its max-size rows rescored on ``cuda:0`` ==
+   the oracle.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
-the CLI run of phase 4 plus the in-process serve run of phase 15 (``ms``,
-``plain_ms`` and ``bound_ms`` are summed over those same launches, the
-CLI's rebuilt in phase 5, the serve run's as the spy saw them), the bench run of
+the CLI run of phase 4 plus the in-process serve run of phase 15 plus the
+in-process fleet of phase 16a (``ms``, ``plain_ms`` and ``bound_ms`` are
+summed over those same launches, the CLI's rebuilt in phase 5, the serve
+and fleet runs' as their spies saw them), the bench run of
 phase 8 for the probe (its times: one full-wave launch per op at 4096
 steps), and the per-stage table of phase 7 for the ablation kernel (its
 times: ``base`` over the max-size launches).  The bench's own count per
@@ -676,8 +705,11 @@ def main() -> int:
     mesh_counts = mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best,
                              time_ms, card)
     # -- 15. the serve plane --------------------------------------------------
-    serve_counts, serve_totals = serve_phase(np, torch, cli, cs, compare, inputs, time_ms,
-                                             card)
+    serve_counts, serve_totals, serve_reqs = serve_phase(np, torch, cli, cs, compare, inputs,
+                                                         time_ms, card)
+    # -- 16. the fleet and the rescue tier ------------------------------------
+    fleet_counts, fleet_totals, rescue_counts = fleet_phase(
+        np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, time_ms, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -687,7 +719,8 @@ def main() -> int:
         bucket_launches(seq1_max, seqs_max, WEIGHTS, dev), card,
     )
     bench_counts = bench_phase(probe)
-    paths = {"cli": counts, "serve": serve_counts, "robustness": robust_counts,
+    paths = {"cli": counts, "serve": serve_counts, "fleet": fleet_counts,
+             "rescue": rescue_counts, "robustness": robust_counts,
              "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
              "bench": bench_counts, "ablation": abl_counts}
@@ -697,10 +730,11 @@ def main() -> int:
     kernels = []
     for name in names:
         tot = total[name]
-        for key in ("ms", "plain_ms", "bound_ms"):
-            tot[key] += serve_totals[name][key]
-        for key, ms in serve_totals[name]["by"].items():
-            tot["by"][key] += ms
+        for extra in (serve_totals, fleet_totals):
+            for key in ("ms", "plain_ms", "bound_ms"):
+                tot[key] += extra[name][key]
+            for key, ms in extra[name]["by"].items():
+                tot["by"][key] += ms
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -710,7 +744,7 @@ def main() -> int:
                 if name == "fused_scorer"
                 else "mpi_openmp_cuda_tpu/ops/pallas_scorer.py:1120"
             ),
-            "launches": counts[name] + serve_counts[name],
+            "launches": counts[name] + serve_counts[name] + fleet_counts[name],
             "max_abs_err": max_err[name],
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"],
@@ -1210,10 +1244,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_job(argv, stdin_path, nproc=2, timeout=120) -> list:
+def launch_job(argv, stdin_path, nproc=2, rank_argv=None) -> list:
     """One ``--distributed`` job of ``nproc`` processes of the CLI on this
     host (torchrun's variables set by hand), rank 0 reading
-    ``stdin_path``; returns the started processes."""
+    ``stdin_path``, each rank given ``rank_argv(rank)`` after ``argv``
+    when that is set; returns the started processes."""
     port = free_port()
     procs = []
     for rank in range(nproc):
@@ -1222,7 +1257,8 @@ def launch_job(argv, stdin_path, nproc=2, timeout=120) -> list:
                "LOCAL_WORLD_SIZE": str(nproc)}
         with open(stdin_path if rank == 0 else os.devnull, "rb") as stdin:
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", PKG, "--distributed", *argv], stdin=stdin,
+                [sys.executable, "-m", PKG, "--distributed", *argv,
+                 *(rank_argv(rank) if rank_argv else ())], stdin=stdin,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=REPO))
     return procs
 
@@ -1484,10 +1520,11 @@ def _renumbered(lines, start, count) -> list[str]:
 
 
 def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
-    """Phase 15: the serve plane on the card.  Returns ``(counts, totals)``:
-    the in-process run's launch counts (set to 0 just before it) and the
-    kernel, plain and bound ms summed over its launches."""
-    import socket
+    """Phase 15: the serve plane on the card.  Returns ``(counts, totals,
+    reqs)``: the in-process run's launch counts (set to 0 just before it),
+    the kernel, plain and bound ms summed over its launches, and its 25
+    requests with the batch CLI's lines of each (phase 16 serves them
+    again)."""
     import threading
     import urllib.request
 
@@ -1630,29 +1667,16 @@ def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
     # -- b. a --serve subprocess: sockets, telemetry, SIGTERM -> 75 ---------
     tmp = tempfile.TemporaryDirectory()
     report = Path(tmp.name) / "serve.json"
-    proc = subprocess.Popen(
-        [sys.executable, "-m", PKG, "--serve", "--port", "0", "--telemetry-port", "0",
-         "--metrics-out", str(report)],
-        cwd=REPO, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True,
-    )
-    err_lines, ports, ready = [], {}, threading.Event()
-
-    def read_err():
-        for line in proc.stderr:
-            err_lines.append(line)
-            found = re.search(r"(serving|telemetry) on 127\.0\.0\.1:(\d+)", line)
-            if found:
-                ports[found.group(1)] = int(found.group(2))
-                if len(ports) == 2:
-                    ready.set()
-
-    reader = threading.Thread(target=read_err, daemon=True)
-    reader.start()
+    proc = _Proc("serve", ["--serve", "--port", "0", "--telemetry-port", "0",
+                           "--metrics-out", str(report)], tmp.name)
     try:
         t0 = time.perf_counter()
-        if not ready.wait(120):
-            fail("serve subprocess never announced its ports: " + "".join(err_lines[-20:]))
+        ports = {}
+        for what in ("serving", "telemetry"):
+            hit = proc.wait_for(rf"{what} on 127\.0\.0\.1:(\d+)", 120)
+            if hit is None:
+                fail("serve subprocess never announced its ports: " + proc.stderr()[-3000:])
+            ports[what] = int(hit[1].group(1))
         log(f"serve subprocess up in {time.perf_counter() - t0:.1f} s: ports {ports}")
         base = f"http://127.0.0.1:{ports['telemetry']}"
         socket_reqs = [request(f"c{i}", "max-size", 4 * i, 4) for i in range(16)]
@@ -1661,15 +1685,7 @@ def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
 
         def client(raw):
             try:
-                with socket.create_connection(("127.0.0.1", ports["serving"]), timeout=60) as c:
-                    gate.wait(30)
-                    c.sendall((json.dumps(raw) + "\n").encode())
-                    buf = b""
-                    while b'"done"' not in buf:
-                        chunk = c.recv(1 << 16)
-                        if not chunk:
-                            break
-                        buf += chunk
+                buf = ask(ports["serving"], raw, timeout=60, gate=gate)
                 results[raw["id"]] = [json.loads(x) for x in buf.decode().splitlines() if x]
             except BaseException as e:  # reported on the main thread
                 failures.append(e)
@@ -1730,15 +1746,10 @@ def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
         if problems:
             fail(f"serve load survival gates: {problems[:4]}")
     finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(120)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            rc = proc.wait(30)
-        reader.join(30)
+        proc.proc.send_signal(signal.SIGTERM)
+        rc = proc.finish(120)
     if rc != 75:
-        fail(f"serve subprocess: SIGTERM -> {rc}, want 75: " + "".join(err_lines[-20:]))
+        fail(f"serve subprocess: SIGTERM -> {rc}, want 75: " + proc.stderr()[-3000:])
     rep = json.loads(report.read_text())
     validate_report(rep)
     if rep.get("exit_code") != 75 or rep["gauges"].get("serve_steady_compiles") != 0:
@@ -1797,7 +1808,598 @@ def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
             os.environ.pop(var, None)
     tmp.cleanup()
     log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
-    return counts, totals
+    return counts, totals, reqs
+
+
+def ask(port, raw, timeout=120.0, gate=None) -> bytes:
+    """One serve client: connect to ``port``, wait on ``gate`` (a barrier)
+    when given, send the request ``raw`` and read its records until its
+    ``done`` or ``error`` record or the server's close."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as conn:
+        if gate is not None:
+            gate.wait(30)
+        conn.sendall((json.dumps(raw) + "\n").encode())
+        buf = b""
+        while b'"done"' not in buf and b'"error"' not in buf:
+            chunk = conn.recv(1 << 16)
+            if not chunk:
+                break
+            buf += chunk
+    return buf
+
+
+class _Proc:
+    """One CLI subprocess of the port, its stderr lines stamped with
+    ``time.perf_counter()`` as they arrive (and kept for the logs), its
+    stdout in a file."""
+
+    def __init__(self, tag, argv, tmpdir, env=None):
+        import threading
+
+        self.tag = tag
+        self.out_path = Path(tmpdir) / f"{tag}.out"
+        self._out = open(self.out_path, "w+b")
+        self.lines: list[tuple[float, str]] = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", PKG, *argv], cwd=REPO, stdin=subprocess.DEVNULL,
+            stdout=self._out, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, **(env or {})})
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stderr:
+            self.lines.append((time.perf_counter(), line))
+
+    def first(self, pattern):
+        """``(time, match)`` of the first stderr line matching, else None."""
+        for t, line in list(self.lines):
+            found = re.search(pattern, line)
+            if found:
+                return t, found
+        return None
+
+    def wait_for(self, pattern, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            hit = self.first(pattern)
+            if hit is not None:
+                return hit
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.02)
+        return self.first(pattern)
+
+    def finish(self, timeout=60.0) -> int:
+        """Wait the process out (killing it past ``timeout``); its exit code."""
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(30)
+        self._reader.join(10)
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+    def stdout(self) -> str:
+        self._out.flush()
+        self._out.seek(0)
+        return self._out.read().decode(errors="replace")
+
+    def stderr(self) -> str:
+        return "".join(line for _, line in self.lines)
+
+
+def _records_by_id(text, tolerant=False) -> dict:
+    """ndjson records -> per-id transcripts, each record serialised with
+    sorted keys (the exactly-once and byte-identical comparison unit);
+    ``tolerant`` skips a torn line (a SIGKILLed coordinator's last)."""
+    out: dict = {}
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            if tolerant:
+                continue
+            raise
+        out.setdefault(rec.get("id"), []).append(json.dumps(rec, sort_keys=True))
+    return out
+
+
+def _board_left(board_dir) -> list[str]:
+    """What a completed fleet left on its board, beside the worker
+    registry, the shutdown beacon and the generation record."""
+    root = Path(board_dir) / "seqalign" / "fleet"
+    keep = ("worker", "hb", "leader", "leaderhb", "shutdown")
+    left = []
+    for path in root.rglob("*"):
+        if path.is_file():
+            rel = path.relative_to(root)
+            if path.name.startswith(".tmp.") or rel.parts[0] not in keep:
+                left.append(str(rel))
+    return sorted(left)
+
+
+def fleet_phase(np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, time_ms,
+                card):
+    """Phase 16: the fleet and the rescue tier on the card.  Returns
+    ``(counts, totals, rescue_counts)``: the in-process fleet's launch
+    counts (set to 0 just before it), the kernel, plain and bound ms summed
+    over those launches, and the in-process rescue's launch counts."""
+    import threading
+
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.io.pipeline import ChunkPipeline
+    from mpi_openmp_cuda_tpu_torch.load import workload
+    from mpi_openmp_cuda_tpu_torch.obs import arm_observability, disarm_observability
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+    from mpi_openmp_cuda_tpu_torch.ops import _build, dispatch
+    from mpi_openmp_cuda_tpu_torch.ops.costs import bound_ms
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer
+    from mpi_openmp_cuda_tpu_torch.parallel.distributed import scatter_gather_rescue
+    from mpi_openmp_cuda_tpu_torch.resilience.degrade import BackendDegrader
+    from mpi_openmp_cuda_tpu_torch.resilience.membership import LeaderLease
+    from mpi_openmp_cuda_tpu_torch.resilience.policy import RetryPolicy
+    from mpi_openmp_cuda_tpu_torch.resilience.rescue import FileBoard, MemoryBoard
+    from mpi_openmp_cuda_tpu_torch.serve.fleet import (
+        FleetCoordinator, FleetWorker, lease_ticks_for)
+    from mpi_openmp_cuda_tpu_torch.serve.loop import ServeLoop, warm_kernels
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    policy = RetryPolicy()
+
+    def degrader():
+        return BackendDegrader(AlignmentScorer("cuda", device="cuda"),
+                               lambda b: AlignmentScorer(b, device="cuda"))
+
+    # -- a. an in-process fleet: a ServeLoop coordinator, two worker threads --
+    seen = []  # (kernel, state, class, raw rows), appended from the workers
+    real = {"fused_scorer": cs.fused_scorer, "packed_scorer": cs.packed_scorer}
+
+    def fused(state):
+        raw = real["fused_scorer"](state)
+        seen.append(("fused_scorer", state, None, raw))
+        return raw
+
+    def packed(state, l2s):
+        raw = real["packed_scorer"](state, l2s)
+        seen.append(("packed_scorer", state, l2s, raw))
+        return raw
+
+    board_dir = Path(tmp.name) / "board-a"
+    board = FileBoard(str(board_dir))
+    deg = degrader()
+    warm_kernels(deg)
+    loop = ServeLoop(ChunkPipeline(policy, deg), policy)
+    fallback = []
+
+    def local_score(block):
+        fallback.append(block)
+        loop._fleet_fallback(block)
+
+    leader = LeaderLease(board, "c-smoke", lease_ticks_for())
+    leader.acquire()
+    loop.fleet = FleetCoordinator(board, local_score=local_score, demux=loop._demux,
+                                  clock=loop.clock, leader=leader)
+    workers = []
+    for wid in ("wa", "wb"):
+        worker = FleetWorker(board, ChunkPipeline(policy, degrader()), policy)
+        worker.wid = wid
+        workers.append(worker)
+    sink = _Sink()
+    registry, _ = arm_observability()
+    dispatch.fused_scorer, dispatch.packed_scorer = fused, packed
+    threads = [threading.Thread(target=w.run, daemon=True) for w in workers]
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 60
+        while loop.fleet.membership.live_count() < 2:
+            if time.perf_counter() > deadline:
+                fail("fleet in process: the two worker threads never joined")
+            loop.fleet.pump(idle=True)
+        t0 = time.perf_counter()
+        for raw, _ in serve_reqs:
+            loop.ingest(json.dumps(raw), sink)
+        while loop.tick():
+            if time.perf_counter() - t0 > 120:
+                fail("fleet in process: the superblocks were not answered in 120 s")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = dict(cs.launch_counts)
+        loop.record_steady_gauge()
+        snap = registry.snapshot()
+        loop.fleet.gc_final()
+        loop.fleet.shutdown()
+        for t in threads:
+            t.join(30)
+    finally:
+        dispatch.fused_scorer, dispatch.packed_scorer = real["fused_scorer"], real["packed_scorer"]
+        disarm_observability()
+    if any(t.is_alive() for t in threads):
+        fail("fleet in process: a worker thread did not exit on the shutdown key")
+    got = _lines_of(sink.records)
+    for raw, want in serve_reqs:
+        if got.get(raw["id"]) != want:
+            fail(f"fleet in process: request {raw['id']} lines differ from the batch CLI's")
+        if {"id": raw["id"], "done": True, "n": len(want)} not in sink.records:
+            fail(f"fleet in process: request {raw['id']} has no done record")
+    c = snap["counters"]
+    blocks = c.get("serve_batches", 0)
+    steady = snap["gauges"].get("serve_steady_compiles")
+    for name, state, l2s, raw in seen:  # each worker launch == its plain version
+        compare(name, raw, cs.fused_scorer_plain(state) if l2s is None
+                else cs.packed_scorer_plain(state, l2s))
+    log(f"fleet in process: {len(serve_reqs)} requests in {blocks} superblocks over 2 "
+        f"worker threads on a FileBoard, {c.get('fleet_scores_started', 0)} scored by the "
+        f"workers, {len(fallback)} on the coordinator; {len(seen)} launches {counts} each "
+        f"== plain; every line == the batch CLI == the oracle; serve_steady_compiles "
+        f"{steady}; wall {wall * 1e3:.3f} ms [{card}]")
+    if fallback or c.get("fleet_scores_started", 0) < blocks or blocks < 1:
+        fail(f"fleet in process: {len(fallback)} superblocks scored on the coordinator, "
+             f"{c.get('fleet_scores_started', 0)} by workers, of {blocks}")
+    for name in counts:
+        if counts[name] < 1:
+            fail(f"fleet in process: the workers never launched {name}")
+        if counts[name] != sum(1 for n, *_ in seen if n == name):
+            fail(f"fleet in process: {name} count {counts[name]} != the spied launches")
+    if steady != 0 or _build.build_count() != loop._steady_base:
+        fail(f"fleet in process: serve_steady_compiles {steady}, or a build, load or "
+             "setup after the first block")
+    left = _board_left(board_dir)
+    if left:
+        fail(f"fleet in process: the board kept {left} after gc_final")
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "by": {"bytes": 0.0, "operations": 0.0}} for name in counts}
+    per_launch = []
+    for name, state, l2s, _ in seen:
+        kern = ((lambda st=state: real["fused_scorer"](st)) if l2s is None
+                else (lambda st=state, k=l2s: real["packed_scorer"](st, k)))
+        plain = ((lambda st=state: cs.fused_scorer_plain(st)) if l2s is None
+                 else (lambda st=state, k=l2s: cs.packed_scorer_plain(st, k)))
+        b_ms, b_by, _ = bound_ms(state)
+        ms = time_ms(kern, reps=50)
+        per_launch.append(ms)
+        tot = totals[name]
+        tot["ms"] += ms
+        tot["plain_ms"] += time_ms(plain, reps=3)
+        tot["bound_ms"] += b_ms
+        tot["by"][b_by] += b_ms
+    for name, tot in totals.items():
+        log(f"fleet worker launches {name}: {counts[name]}, sum kernel {tot['ms']:.6f} ms, "
+            f"plain {tot['plain_ms']:.6f} ms, bound {tot['bound_ms']:.6f} ms [{card}]")
+    log(f"fleet worker launch times: min {min(per_launch):.6f} ms, max "
+        f"{max(per_launch):.6f} ms over {len(per_launch)} launches [{card}]")
+
+    # -- b. processes on the card: the clean fleet and three chaos scenarios --
+    # -- c. the rescue tier: two-process beacon jobs over gloo ---------------
+    short = [raw for raw, _ in serve_reqs if raw["id"].startswith("short")][:4]
+    chaos = workload.synth_requests(6, seed=16, id_prefix="f", **SERVE_LOAD)
+    reqfile = Path(tmp.name) / "fleet.ndjson"
+    reqfile.write_text("".join(json.dumps(r) + "\n" for r in chaos))
+    clean_reqs = chaos + short
+    cleanfile = Path(tmp.name) / "clean.ndjson"
+    cleanfile.write_text("".join(json.dumps(r) + "\n" for r in clean_reqs))
+    base = {}
+    for tag, path in (("chaos", reqfile), ("clean", cleanfile)):
+        rc, out, _ = run_cli(cli, ["--serve", "--input", str(path)])
+        if rc != 0:
+            fail(f"fleet: the fleetless --serve baseline of {tag} exited {rc}")
+        base[tag] = _records_by_id(out.decode())
+    problems: list[str] = []
+    walls: dict[str, float] = {}
+    procs: list[_Proc] = []
+    env0 = {"SEQALIGN_BACKOFF_BASE": "0.01", "SEQALIGN_CACHE_DIR": str(Path(tmp.name) / "cache")}
+
+    def spawn(tag, *argv, env=None):
+        p = _Proc(tag, argv, tmp.name, env={**env0, **(env or {})})
+        procs.append(p)
+        return p
+
+    def wait_registered(board_dir, n, timeout=90.0):
+        wdir = Path(board_dir) / "seqalign" / "fleet" / "worker"
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if wdir.is_dir() and len([f for f in os.listdir(wdir)
+                                      if not f.startswith(".tmp.")]) >= n:
+                return True
+            time.sleep(0.05)
+        return False
+
+    def report_of(path):
+        try:
+            rep = json.loads(Path(path).read_text())
+            validate_report(rep)
+            return rep
+        except (OSError, ValueError) as e:
+            problems.append(f"report {path}: {e}")
+            return {"counters": {}, "gauges": {}}
+
+    def worker_gate(tag, rep, want_packed=False):
+        c = rep["counters"]
+        if c.get("fused_scorer_launches", 0) < 1 or c.get("fleet_scores_started", 0) < 1:
+            problems.append(f"{tag}: worker report shows no fused launch or no score: {c}")
+        if want_packed and c.get("packed_scorer_launches", 0) < 1:
+            problems.append(f"{tag}: worker report shows no packed launch: {c}")
+        if c.get("fleet_score_failures"):
+            problems.append(f"{tag}: {c['fleet_score_failures']} superblocks failed to score")
+
+    def coordinator_gates(tag, proc, rc, records, want, report, want_rc=0):
+        if rc != want_rc:
+            problems.append(f"{tag}: coordinator exit {rc}, want {want_rc}: "
+                            f"{proc.stderr()[-1500:]}")
+        if records != want:
+            problems.append(f"{tag}: records are not the fleetless run's, each once")
+        rep = report_of(report)
+        if rep["gauges"].get("shed_state") != "accept":
+            problems.append(f"{tag}: shed_state {rep['gauges'].get('shed_state')!r}")
+        return rep
+
+    def pipe_coordinator(tag, board_dir, faults=None, env=None):
+        argv = ["--serve", "--input", str(reqfile), "--fleet-board", str(board_dir),
+                "--metrics-out", str(Path(tmp.name) / f"{tag}.coord.json")]
+        if faults:
+            argv += ["--faults", faults]
+        return spawn(f"{tag}.coord", *argv, env=env)
+
+    def scenario_clean():
+        tag = "clean"
+        bdir = Path(tmp.name) / f"{tag}.board"
+        reps = [Path(tmp.name) / f"{tag}.w{i}.json" for i in range(2)]
+        ws = [spawn(f"{tag}.w{i}", "--fleet-worker", "--fleet-board", str(bdir),
+                    "--metrics-out", str(reps[i])) for i in range(2)]
+        crep = Path(tmp.name) / f"{tag}.coord.json"
+        coord = spawn(f"{tag}.coord", "--serve", "--port", "0", "--telemetry-port", "0",
+                      "--fleet-board", str(bdir), "--metrics-out", str(crep))
+        hit = coord.wait_for(r"serving on 127\.0\.0\.1:(\d+)", 120)
+        if hit is None or not coord.wait_for(r"telemetry on", 10):
+            problems.append(f"{tag}: coordinator never announced its ports")
+            return
+        port = int(hit[1].group(1))
+        deadline = time.perf_counter() + 120
+        while len(re.findall(r"fleet: worker \S+ joined", coord.stderr())) < 2:
+            if time.perf_counter() > deadline:
+                problems.append(f"{tag}: the workers never joined")
+                return
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        answers: dict = {}
+
+        def client(raw):
+            answers[raw["id"]] = ask(port, raw).decode()
+
+        clients = [threading.Thread(target=client, args=(raw,), daemon=True)
+                   for raw in clean_reqs]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(120)
+        walls[tag] = time.perf_counter() - t0
+        coord.proc.send_signal(signal.SIGTERM)
+        rc = coord.finish(120)
+        wrcs = [w.finish(60) for w in ws]
+        records = _records_by_id("".join(answers.values()))
+        # A persistent server stops on SIGTERM: the drain's 75.
+        coordinator_gates(tag, coord, rc, records, base["clean"], crep, want_rc=75)
+        if wrcs != [0, 0]:
+            problems.append(f"{tag}: worker exits {wrcs}")
+        wr = [report_of(r) for r in reps]
+        for i, rep in enumerate(wr):
+            worker_gate(f"{tag}.w{i}", rep)
+        if sum(r["counters"].get("packed_scorer_launches", 0) for r in wr) < 1:
+            problems.append(f"{tag}: no worker launched the packed kernel for the short rows")
+        log(f"fleet clean: {len(clean_reqs)} requests over sockets to --serve --port 0 "
+            f"--telemetry-port 0 --fleet-board with 2 --fleet-worker processes, each record "
+            f"== the fleetless run's, once; wall {walls[tag] * 1e3:.3f} ms; SIGTERM -> {rc}; "
+            f"worker launches {[{k: v for k, v in r['counters'].items() if k.endswith('_launches')} for r in wr]} "
+            f"[{card}]")
+
+    def scenario_kill_worker():
+        tag = "kill-worker"
+        bdir = Path(tmp.name) / f"{tag}.board"
+        doomed = spawn(f"{tag}.doomed", "--fleet-worker", "--fleet-board", str(bdir),
+                       "--faults", "kill:fleet-worker:fail=1")
+        srep = Path(tmp.name) / f"{tag}.survivor.json"
+        # The survivor scans the board every 0.25 s, the doomed worker every
+        # 0.02 s: the doomed one claims a superblock (and dies inside it).
+        survivor = spawn(f"{tag}.survivor", "--fleet-worker", "--fleet-board", str(bdir),
+                         "--metrics-out", str(srep),
+                         env={"SEQALIGN_WORKER_HEARTBEAT_S": "0.25"})
+        if not wait_registered(bdir, 2):
+            problems.append(f"{tag}: the workers never registered")
+            return
+        t_kill = []
+        threading.Thread(target=lambda: (doomed.proc.wait(), t_kill.append(
+            time.perf_counter())), daemon=True).start()
+        t0 = time.perf_counter()
+        coord = pipe_coordinator(tag, bdir, env={"SEQALIGN_LEASE_S": "2"})
+        rc = coord.finish(180)
+        walls[tag] = time.perf_counter() - t0
+        drc, src = doomed.finish(30), survivor.finish(60)
+        rep = coordinator_gates(tag, coord, rc, _records_by_id(coord.stdout()), base["chaos"],
+                                Path(tmp.name) / f"{tag}.coord.json")
+        c = rep["counters"]
+        if drc != -signal.SIGKILL or src != 0:
+            problems.append(f"{tag}: doomed exit {drc} (want SIGKILL), survivor exit {src}")
+        if c.get("fleet_deaths", 0) < 1 or c.get("fleet_redispatches", 0) < 1:
+            problems.append(f"{tag}: deaths {c.get('fleet_deaths')}, re-dispatches "
+                            f"{c.get('fleet_redispatches')}")
+        worker_gate(f"{tag}.survivor", report_of(srep))
+        died = coord.first(r"missed its heartbeat deadline")
+        redispatch = (died[0] - t_kill[0]) if died and t_kill else float("nan")
+        log(f"fleet kill-worker: kill:fleet-worker SIGKILLed the claiming worker; death "
+            f"verdict and re-dispatch {redispatch:.3f} s after its death (lease 2 s), "
+            f"deaths {c.get('fleet_deaths')}, re-dispatches {c.get('fleet_redispatches')}; "
+            f"records == fleetless, once; wall {walls[tag] * 1e3:.3f} ms [{card}]")
+
+    def scenario_zombie():
+        tag = "zombie-fence"
+        bdir = Path(tmp.name) / f"{tag}.board"
+        zrep = Path(tmp.name) / f"{tag}.zombie.json"
+        zombie = spawn(f"{tag}.zombie", "--fleet-worker", "--fleet-board", str(bdir),
+                       "--faults", "zombie:fleet-worker:fail=1", "--metrics-out", str(zrep))
+        if not wait_registered(bdir, 1):
+            problems.append(f"{tag}: the zombie never registered")
+            return
+        t0 = time.perf_counter()
+        coord = pipe_coordinator(tag, bdir, env={"SEQALIGN_LEASE_S": "1",
+                                                 "SEQALIGN_FLEET_WORKERS": "1"})
+        rc = coord.finish(180)
+        walls[tag] = time.perf_counter() - t0
+        zrc = zombie.finish(60)
+        rep = coordinator_gates(tag, coord, rc, _records_by_id(coord.stdout()), base["chaos"],
+                                Path(tmp.name) / f"{tag}.coord.json")
+        c = rep["counters"]
+        stale = bdir / "seqalign" / "fleet" / "result" / "g0b1" / "e0"
+        if zrc != 0 or c.get("fleet_deaths", 0) < 1 or c.get("fleet_redispatches", 0) < 1:
+            problems.append(f"{tag}: zombie exit {zrc}, deaths {c.get('fleet_deaths')}, "
+                            f"re-dispatches {c.get('fleet_redispatches')}")
+        if c.get("fleet_fenced_posts", 0) < 1 and not stale.exists():
+            problems.append(f"{tag}: the zombie's stale post was neither fenced nor left")
+        worker_gate(f"{tag}.zombie", report_of(zrep))
+        log(f"fleet zombie-fence: the zombie's stale epoch-0 post fenced "
+            f"{c.get('fleet_fenced_posts', 0)} time(s) (or left on the board: "
+            f"{stale.exists()}), never demuxed; records == fleetless, once; wall "
+            f"{walls[tag] * 1e3:.3f} ms [{card}]")
+
+    def scenario_coordinator_kill():
+        tag = "coordinator-kill"
+        bdir = Path(tmp.name) / f"{tag}.board"
+        env = {"SEQALIGN_LEASE_S": "2", "SEQALIGN_FLEET_WORKERS": "1"}
+        wrep = Path(tmp.name) / f"{tag}.w.json"
+        worker = spawn(f"{tag}.w", "--fleet-worker", "--fleet-board", str(bdir),
+                       "--metrics-out", str(wrep), env=env)
+        srep = Path(tmp.name) / f"{tag}.standby.json"
+        standby = spawn(f"{tag}.standby", "--fleet-standby", "--fleet-board", str(bdir),
+                        "--metrics-out", str(srep), env=env)
+        if not wait_registered(bdir, 1) or not standby.wait_for(r"standby watching", 90):
+            problems.append(f"{tag}: the worker or the standby never came up")
+            return
+        t0 = time.perf_counter()
+        coord = pipe_coordinator(tag, bdir, faults="kill:fleet-coordinator:fail=1,after=1",
+                                 env=env)
+        crc = coord.finish(120)
+        t_dead = time.perf_counter()
+        src = standby.finish(180)
+        walls[tag] = time.perf_counter() - t0
+        wrc = worker.finish(60)
+        got = _records_by_id(coord.stdout(), tolerant=True)
+        for rid, recs in _records_by_id(standby.stdout()).items():
+            got.setdefault(rid, []).extend(recs)
+        if crc != -signal.SIGKILL or src != 0 or wrc != 0:
+            problems.append(f"{tag}: coordinator exit {crc} (want SIGKILL), standby {src}, "
+                            f"worker {wrc}: {standby.stderr()[-1500:]}")
+        if got != base["chaos"]:
+            problems.append(f"{tag}: coordinator + standby records are not the fleetless "
+                            "run's, each once")
+        rep = report_of(srep)
+        if rep["gauges"].get("fleet_leader_epoch") != 1 or rep["counters"].get(
+                "fleet_takeovers", 0) != 1:
+            problems.append(f"{tag}: standby report {rep['gauges'].get('fleet_leader_epoch')}"
+                            f" {rep['counters'].get('fleet_takeovers')}")
+        worker_gate(f"{tag}.w", report_of(wrep))
+        took = standby.first(r"took over as leader gen 1")
+        takeover = (took[0] - t_dead) if took else float("nan")
+        left = _board_left(bdir)
+        if left:
+            problems.append(f"{tag}: the board kept {left} after the standby's gc_final")
+        log(f"fleet coordinator-kill: the coordinator SIGKILLed at its second board poll; "
+            f"the standby took over {takeover:.3f} s after its death (lease 2 s), replayed "
+            f"the checkpoint, every record == fleetless, once; board swept; wall "
+            f"{walls[tag] * 1e3:.3f} ms [{card}]")
+
+    os.environ["SEQALIGN_BEACON_S"] = "60"
+    try:
+        # Each rank writes a report: rank 0's `hosts` section holds rank
+        # 1's snapshot, which only the beacon tier's store board carries.
+        jobs = {tag: launch_job(["--mesh", "2"], inputs[tag], rank_argv=lambda rank, tag=tag: [
+                    "--metrics-out", str(Path(tmp.name) / f"beacon-{tag}-{rank}.json")])
+                for tag in ("mixedcase.txt", "stress_small.txt", "max-size")}
+    finally:
+        os.environ.pop("SEQALIGN_BEACON_S")
+    scenarios = (scenario_clean, scenario_kill_worker, scenario_zombie,
+                 scenario_coordinator_kill)
+
+    def guarded(fn):
+        try:
+            fn()
+        except Exception as e:  # reported on the main thread, which fails
+            problems.append(f"{fn.__name__}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    runs = [threading.Thread(target=guarded, args=(fn,), daemon=True) for fn in scenarios]
+    try:
+        for t in runs:
+            t.start()
+        for t in runs:
+            t.join(300)
+        job_outs = {tag: finish_job(procs_, timeout=120) for tag, procs_ in jobs.items()}
+    finally:
+        for p in procs:
+            p.kill()
+    if any(t.is_alive() for t in runs):
+        problems.append("a fleet scenario did not finish in 300 s")
+    for p in procs:
+        if "Traceback" in p.stderr():
+            problems.append(f"{p.tag}: Traceback on stderr: {p.stderr()[-1500:]}")
+    if problems:
+        fail("fleet processes: " + "; ".join(problems[:6]))
+    log(f"fleet processes: 4 scenarios in parallel, {len(procs)} processes on the card, "
+        f"{time.perf_counter() - t0:.1f} s; walls {({k: round(v, 3) for k, v in walls.items()})} s")
+    for tag, outs in job_outs.items():
+        want = inputs[tag].with_suffix(".out").read_bytes()
+        (rc0, out0, err0), (rc1, out1, err1) = outs
+        if (rc0, rc1) != (0, 0) or out0 != want or out1 != b"" or b"missed" in err0:
+            fail(f"beacon job {tag}: exits {(rc0, rc1)}, stdout == golden {out0 == want}: "
+                 f"{err0.decode(errors='replace')[-800:]}{err1.decode(errors='replace')[-800:]}")
+        reports = [json.loads((Path(tmp.name) / f"beacon-{tag}-{rank}.json").read_text())
+                   for rank in range(2)]
+        hosts = reports[0].get("hosts", {})
+        rank1 = hosts.get("1", {}).get("counters", {})
+        launched = {k: rank1.get(f"{k}_launches", 0) for k in ("fused_scorer", "packed_scorer")}
+        if (sorted(hosts) != ["0", "1"] or rank1 != reports[1]["counters"]
+                or not sum(launched.values())):
+            fail(f"beacon job {tag}: rank 0's report does not hold rank 1's snapshot with "
+                 f"its kernel launches (hosts {sorted(hosts)}, rank 1 counters {rank1})")
+        log(f"beacon job {tag}: rank 0 == golden, rank 1 silent; rank 1's snapshot in rank "
+            f"0's report over the store board, its launches {launched}")
+
+    # -- c. a lost rank's shard rescored on cuda:0 ---------------------------
+    prob = load_problem(str(inputs["max-size"]))
+    want = np.array([prefix_best(prob.seq1_codes, q, prob.weights) for q in prob.seq2_codes],
+                    dtype=np.int32)
+    warnings: list[str] = []
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = scatter_gather_rescue(
+        prob.seq1_codes, prob.seq2_codes, prob.weights, policy=policy, beacon_s=0.1,
+        backend="cuda", device="cuda", board=MemoryBoard(), process_id=0, num_processes=2,
+        log=warnings.append)
+    rescue_wall = time.perf_counter() - t0
+    rescue_counts = dict(cs.launch_counts)
+    if not np.array_equal(rows, want) or not any("worker(s) [1]" in w for w in warnings):
+        fail(f"rescue in process: rows == oracle {np.array_equal(rows, want)}; {warnings}")
+    if rescue_counts["fused_scorer"] < 2:
+        fail(f"rescue in process: launches {rescue_counts} (own shard and the orphans "
+             "on the fused kernel)")
+    log(f"rescue in process: rank 1 never posted; its {len(prob.seq2_codes) // 2} orphaned "
+        f"max-size rows rescored on cuda:0 == the oracle; launches {rescue_counts}; wall "
+        f"{rescue_wall * 1e3:.3f} ms [{card}]")
+    tmp.cleanup()
+    log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts, totals, rescue_counts
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

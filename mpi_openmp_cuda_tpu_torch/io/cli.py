@@ -3,9 +3,10 @@
 Parse stdin (or ``--input``), score every Seq2 with ``AlignmentScorer``
 on the chosen device, and print ``#i: score: S, n: N, k: K`` per Seq2 on
 stdout.  Diagnostics go to stderr; on any failure nothing reaches stdout.
-The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s batch path and its
-single-process serve plane (``--serve``, ``--port``, ``--telemetry-port``:
-``serve/loop.py``):
+The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s batch path, its serve
+plane (``--serve``, ``--port``, ``--telemetry-port``: ``serve/loop.py``)
+and its elastic serve fleet (``--fleet-board``, ``--fleet-worker``,
+``--fleet-standby``: ``serve/fleet.py``):
 ``--stream`` (chunked, pipelined), ``--journal``/``--resume``,
 ``--retries``, ``--faults``, ``--degrade``, ``--deadline``,
 ``--selfcheck``, the drain on SIGTERM/SIGINT (or ``SEQALIGN_DRAIN=1``),
@@ -14,7 +15,9 @@ the obs plane (``--metrics``, ``--metrics-out``, ``--heartbeat``,
 ``--mesh`` (batch sharding, the Seq1 ring, both) and ``--distributed``
 (one process a device, torchrun's environment; only rank 0 reads the
 input and prints, the other ranks feed from its broadcasts and print
-nothing).
+nothing; with ``SEQALIGN_BEACON_S`` set and no ``--journal``, the
+lost-shard rescue tier instead: a dead rank's shard is rescored on rank
+0).
 
 Exit codes: 0 ok; 2 a usage error argparse rejects (an unknown flag, a
 bad value; the usage text goes to stderr, as in the JAX CLI); 64 a
@@ -231,6 +234,38 @@ def build_arg_parser() -> argparse.ArgumentParser:
         'socket itself as {"cmd": "metrics"|"healthz"|"trace"} verbs '
         "(SEQALIGN_TELEMETRY_PORT)",
     )
+    p.add_argument(
+        "--fleet-board", default=None, metavar="DIR",
+        help="directory for the fleet coordination board (atomic file-backed "
+        "key-value posts; no torch.distributed needed). With --serve this loop "
+        "becomes the fleet COORDINATOR: planned superblocks are offered on the "
+        "board under expiring leases (SEQALIGN_LEASE_S), scored by "
+        "--fleet-worker processes, and results are fenced by lease epoch so a "
+        "dead or zombie worker can never lose or double-answer a request; with "
+        "no live workers every block scores locally. With --fleet-worker it "
+        "names the board to claim work from.",
+    )
+    p.add_argument(
+        "--fleet-worker", action="store_true",
+        help="run as an elastic-fleet scoring worker: build and load the "
+        "kernels, register on the --fleet-board, heartbeat "
+        "(SEQALIGN_WORKER_HEARTBEAT_S), claim offered superblocks under lease "
+        "epochs, score them through the shared chunk pipeline (same "
+        "retry/degrade ladder as --serve), and post epoch-stamped results; "
+        "joins mid-serve and exits when the coordinator posts shutdown",
+    )
+    p.add_argument(
+        "--fleet-standby", action="store_true",
+        help="run as a STANDBY fleet coordinator: watch the active leader's "
+        "beat on the --fleet-board, and when it goes silent for a full lease "
+        "window (SEQALIGN_LEASE_S), claim the next leader generation, replay "
+        "the dead leader's board checkpoint (unanswered requests + answered "
+        "reply ids), fence its late posts by generation, and resume serving "
+        "with zero duplicate and zero dropped replies; exits 0 when the fleet "
+        "shuts down cleanly instead (--port/--telemetry-port open "
+        "immediately, so clients can reconnect-and-redrive before the "
+        "takeover lands)",
+    )
     return p
 
 
@@ -368,11 +403,25 @@ def _run_batch(args, policy, out, timer, dist=None) -> None:
         verify_rows_against_oracle(
             problem.seq1_codes, problem.seq2_codes, problem.weights, rows)
 
+    beacon_s = env_float("SEQALIGN_BEACON_S")
     with timer.phase("score"), device_trace(args.trace):
-        results = run_degrading(
-            policy, deg, lambda: score_once(deg.scorer), score_once, "scoring",
-            verify=verify if deg.enabled else None,
-        )
+        if dist is not None and beacon_s and not args.journal:
+            # The lost-shard rescue tier: each rank scores its own shard
+            # and posts it to the job's store, no collective; a rank that
+            # misses the beacon deadline has its shard rescored here.
+            # --journal takes precedence (its resume schedule is the
+            # collective schedule); the other ranks get None and print
+            # nothing.
+            results = dist.scatter_gather_rescue(
+                problem.seq1_codes, problem.seq2_codes, problem.weights,
+                policy=policy, beacon_s=beacon_s, backend=args.backend,
+                device=args.device,
+            )
+        else:
+            results = run_degrading(
+                policy, deg, lambda: score_once(deg.scorer), score_once, "scoring",
+                verify=verify if deg.enabled else None,
+            )
     if args.selfcheck and coordinator:
         from ..utils.selfcheck import verify_results
 
@@ -604,10 +653,27 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
     timer.report()
 
 
+def _run_fleet_worker(args, policy, timer) -> int:
+    """The ``--fleet-worker`` path: one scorer whose kernels are built and
+    loaded before the worker registers (a first claim pays no build inside
+    its lease; a kernel that cannot be built is the CLI's 65 without
+    ``--degrade``), then ``serve.fleet.run_fleet_worker`` until the
+    coordinator posts shutdown or a drain signal; the worker's exit code."""
+    from ..serve import fleet as serve_fleet
+    from ..serve import loop as serve_loop
+
+    with timer.phase("setup"):
+        deg = _make_degrader(args, _make_scorer(args, False))
+        serve_loop.warm_kernels(deg)
+    obs_gauge("backend", deg.scorer.backend)
+    return serve_fleet.run_fleet_worker(args, timer, policy, deg)
+
+
 def _run_serve(args, policy, out, timer) -> None:
-    """The ``--serve`` path: one scorer (``--mesh`` shards it) whose
-    kernels are built and loaded before the first request, then
-    ``serve.loop.run_serve`` until the input drains or a drain signal."""
+    """The ``--serve`` and ``--fleet-standby`` path: one scorer (``--mesh``
+    shards it) whose kernels are built and loaded before the first
+    request, then ``serve.loop.run_serve`` until the input drains or a
+    drain signal."""
     from ..serve import loop as serve_loop
 
     if args.journal:
@@ -617,6 +683,48 @@ def _run_serve(args, policy, out, timer) -> None:
         serve_loop.warm_kernels(deg)
     obs_gauge("backend", deg.scorer.backend)
     serve_loop.run_serve(args, timer, policy, deg, out_stream=out)
+
+
+def _reject_fleet_combos(args) -> str | None:
+    """The fleet flags' combination rules, in the JAX CLI's order and
+    words: the message of the first rejected combination, else None."""
+    rules = []
+    if args.fleet_worker:
+        rules += [(f"{flag} cannot be combined with --fleet-worker ({why})", bad)
+                  for flag, bad, why in (
+            ("--serve", args.serve, "a process is the fleet coordinator OR a "
+             "scoring worker, never both"),
+            ("--stream", args.stream is not None, "workers score fleet "
+             "superblocks claimed off the board, not streamed chunks"),
+            ("--distributed", args.distributed, "the fleet is its own "
+             "multi-process layer on the coordination board"),
+            ("--port", args.port is not None, "workers take work from the "
+             "board, not a socket"),
+        )]
+        rules.append(("--fleet-worker requires --fleet-board DIR (the board is "
+                      "where work is claimed)", not args.fleet_board))
+    if args.fleet_standby:
+        rules += [(f"{flag} cannot be combined with --fleet-standby ({why})", bad)
+                  for flag, bad, why in (
+            ("--serve", args.serve, "a standby IS a serve loop in waiting; it "
+             "becomes the coordinator only by winning the takeover"),
+            ("--fleet-worker", args.fleet_worker, "a process is a standby "
+             "coordinator OR a scoring worker, never both"),
+            ("--stream", args.stream is not None, "the standby serves fleet "
+             "requests after takeover, not streamed chunks"),
+            ("--distributed", args.distributed, "the fleet is its own "
+             "multi-process layer on the coordination board"),
+            ("--input", args.input is not None, "a standby's requests come "
+             "from the dead leader's checkpoint and reconnecting clients, not "
+             "a pipe"),
+        )]
+        rules.append(("--fleet-standby requires --fleet-board DIR (the board is "
+                      "where the leader lease lives)", not args.fleet_board))
+    rules.append(("--fleet-board requires --serve (coordinator), --fleet-worker "
+                  "(scoring worker), or --fleet-standby (failover coordinator)",
+                  bool(args.fleet_board) and not (
+                      args.serve or args.fleet_worker or args.fleet_standby)))
+    return next((msg for msg, bad in rules if bad), None)
 
 
 def run(argv: list[str] | None = None) -> int:
@@ -650,11 +758,15 @@ def run(argv: list[str] | None = None) -> int:
                 print(f"{PROG}: error: {flag} cannot be combined with --serve ({why})",
                       file=sys.stderr)
                 return EX_USAGE
-    if args.port is not None and not args.serve:
+    rejected = _reject_fleet_combos(args)
+    if rejected:
+        print(f"{PROG}: error: {rejected}", file=sys.stderr)
+        return EX_USAGE
+    if args.port is not None and not (args.serve or args.fleet_standby):
         print(f"{PROG}: error: --port requires --serve (the port is where the "
               "serving loop listens)", file=sys.stderr)
         return EX_USAGE
-    if args.telemetry_port is not None and not args.serve:
+    if args.telemetry_port is not None and not (args.serve or args.fleet_standby):
         print(f"{PROG}: error: --telemetry-port requires --serve (live telemetry "
               "scrapes a running serve loop; a batch run's report is --metrics-out)",
               file=sys.stderr)
@@ -673,9 +785,11 @@ def run(argv: list[str] | None = None) -> int:
         if deadline is None:
             deadline = env_float("SEQALIGN_DEADLINE_S")
         obs_on, metrics_out, heartbeat_s, trace_out = _build_obs(args)
-        # --serve arms the plane and the flight recorder unconditionally:
-        # the recorder must be taping before the first request.
-        obs_on = obs_on or args.serve
+        # --serve, a standby and a worker arm the plane and the flight
+        # recorder unconditionally: the recorder must be taping before the
+        # first request, and a worker's board snapshots (metrics, recent
+        # trace events, the tape collected when it dies) need the planes.
+        obs_on = obs_on or args.serve or args.fleet_standby or args.fleet_worker
         frec_depth = env_int("SEQALIGN_FLIGHTREC_DEPTH") if obs_on else 0
     except ValueError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
@@ -689,7 +803,8 @@ def run(argv: list[str] | None = None) -> int:
         # report and the trace on every exit path, 65 and 75 included.
         if obs_on:
             registry, recorder = arm_observability(
-                with_trace=bool(trace_out), flightrec_depth=frec_depth)
+                with_trace=bool(trace_out) or args.fleet_worker,
+                flightrec_depth=frec_depth)
             try:
                 prev_usr2 = signal.signal(signal.SIGUSR2, _sigusr2_dump)
             except (ValueError, AttributeError, OSError):
@@ -717,13 +832,15 @@ def run(argv: list[str] | None = None) -> int:
 
                 with timer.phase("distributed_init"):
                     dist.initialize_distributed(args.device)
-            if args.serve:
+            if args.fleet_worker:
+                worker_rc = _run_fleet_worker(args, policy, timer)
+            elif args.serve or args.fleet_standby:
                 _run_serve(args, policy, out, timer)
             elif args.stream:
                 _run_streaming(args, policy, out, timer, dist)
             else:
                 _run_batch(args, policy, out, timer, dist)
-        rc = EX_OK
+        rc = worker_rc if args.fleet_worker else EX_OK
     except DrainInterrupt as e:
         # A requested preemption: nothing printed, the journal flushed.
         print(f"{PROG}: drained: {e}", file=sys.stderr)

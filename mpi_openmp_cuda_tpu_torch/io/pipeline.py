@@ -68,18 +68,23 @@ class ChunkPipeline:
             return None
         return lambda rows: verify_rows_against_oracle(seq1_codes, codes, weights, rows)
 
-    def dispatch(self, seq1_codes, codes, weights, budget, staged=None, links=()):
+    def dispatch(self, seq1_codes, codes, weights, budget, staged=None, links=(),
+                 trace_ctx=None):
         """Dispatch a chunk under the shared budget; past exhaustion with
         ``--degrade``, rescore it synchronously down the chain (wrapped in
         :class:`MaterialisedRows`, which keeps the promise contract).
         ``staged`` feeds only the first attempt on the primary path;
         ``links`` (the serve plane's request ids) go on the chunk's trace
-        launch rows.  While the breaker is open the pinned degraded
-        scorer scores the chunk synchronously, oracle-checked once a run."""
+        launch rows, and so does ``trace_ctx``, the fleet stamp a
+        ``--fleet-worker`` threads in (the originating trace ids, its
+        worker id, the lease epoch; None everywhere else).  While the
+        breaker is open the pinned degraded scorer scores the chunk
+        synchronously, oracle-checked once a run."""
         deg = self.degrader
+        tags = {"links": links, "trace_ctx": trace_ctx}
         if self.breaker is not None and self.breaker.bypass_primary():
             rows = self.policy.run(
-                lambda: deg.scorer.score_codes(seq1_codes, codes, weights, links=links),
+                lambda: deg.scorer.score_codes(seq1_codes, codes, weights, **tags),
                 "chunk dispatch [breaker-open]", budget=budget,
             )
             if deg.enabled and not deg.verified:
@@ -90,12 +95,11 @@ class ChunkPipeline:
 
         def attempt():
             return deg.scorer.score_codes_async(
-                seq1_codes, codes, weights, staged=feed.pop() if feed else None,
-                links=links)
+                seq1_codes, codes, weights, staged=feed.pop() if feed else None, **tags)
 
         return run_degrading(
             self.policy, deg, self._guard(attempt),
-            lambda sc: sc.score_codes(seq1_codes, codes, weights, links=links),
+            lambda sc: sc.score_codes(seq1_codes, codes, weights, **tags),
             "chunk dispatch", budget=budget,
             verify=self._verify(seq1_codes, codes, weights), wrap=MaterialisedRows,
         )

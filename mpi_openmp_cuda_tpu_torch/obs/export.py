@@ -1,6 +1,5 @@
-"""Report writing and the heartbeat line (the port of the batch half of
-``mpi_openmp_cuda_tpu/obs/export.py``; its fleet snapshot functions
-arrive with the serve plane).
+"""Report writing, the heartbeat line and the fleet's snapshot plane (the
+port of ``mpi_openmp_cuda_tpu/obs/export.py``).
 
 * :func:`flush_run_report` — the CLI's exit hook: writes the JSON run
   report at ``--metrics-out`` plus a Prometheus text sidecar at
@@ -10,6 +9,14 @@ arrive with the serve plane).
 * :func:`heartbeat_callback` — the periodic ``[obs] ...`` stderr line
   the watchdog monitor thread emits between operations
   (``--heartbeat`` / ``SEQALIGN_HEARTBEAT_S``).
+* :func:`post_host_snapshot` / :func:`gather_fleet` — under
+  ``--distributed`` with the rescue tier, per-host snapshots ride the
+  rescue board (:mod:`..resilience.rescue`): each rank posts its snapshot
+  next to its rows and the coordinator folds them into the ``hosts``
+  section of its report.  A rank that died has no snapshot key.
+* :func:`post_worker_snapshot` / :func:`collect_worker_snapshot` — the
+  serve fleet's per-worker snapshot (metrics, recent trace events, the
+  flight-recorder tape) on the fleet board.
 """
 
 from __future__ import annotations
@@ -114,3 +121,88 @@ def heartbeat_callback(log=None):
             emit(heartbeat_line(reg.snapshot()))
 
     return beat
+
+
+# -- the multi-host metrics plane ------------------------------------------
+
+
+def _metrics_key(run_tag: str, pid: int) -> str:
+    return f"seqalign/{run_tag}/metrics/{int(pid)}"
+
+
+def post_host_snapshot(board, run_tag: str, pid: int) -> None:
+    """Rank side: post this host's registry snapshot to the board (no-op
+    with the obs plane off)."""
+    reg = _metrics.active_metrics()
+    if reg is None:
+        return
+    board.post(_metrics_key(run_tag, pid), json.dumps(reg.snapshot()))
+
+
+def gather_fleet(board, run_tag: str, num_processes: int, *, skip=(),
+                 timeout_s: float | None = None) -> None:
+    """Coordinator side: fold every posted host snapshot into the armed
+    registry's fleet section.  ``skip`` lists ranks already known lost (no
+    point waiting out their timeout twice); a missing or torn snapshot is
+    left out, as :func:`..resilience.rescue.fetch_shard` leaves out a
+    missing shard."""
+    reg = _metrics.active_metrics()
+    if reg is None:
+        return
+    for w in range(int(num_processes)):
+        if w in skip:
+            continue
+        raw = board.get(_metrics_key(run_tag, w), timeout_s)
+        if raw is None:
+            continue
+        try:
+            snap = json.loads(raw)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(snap, dict):
+            reg.record_fleet(w, snap)
+
+
+# -- the fleet observability plane (serve/fleet.py) ------------------------
+
+
+def post_worker_snapshot(board, wid: str, t_board: float, *, beat: int = 0,
+                         trace_limit: int = 2000) -> None:
+    """Fleet-worker side: post one bounded observability snapshot to
+    ``obs_snapshot_key(wid)``, overwritten in place each cadence.  It
+    bundles the registry snapshot (metrics federation), the newest trace
+    events (timeline merge), the flight-recorder tape (collected when the
+    worker is declared dead) and the clock-bridge pair: ``t_board`` (the
+    worker's serve-clock reading, sampled by the caller just before) next
+    to ``t_trace_us`` (its trace clock, sampled here), which the
+    coordinator subtracts to map trace timestamps onto board time.  Planes
+    that are not armed leave their key out."""
+    from ..resilience.membership import obs_snapshot_key
+    from .flightrec import active_flightrec
+    from .trace import active_trace
+
+    snap: dict = {
+        "wid": str(wid),
+        "pid": os.getpid(),
+        "beat": int(beat),
+        "t_board": float(t_board),
+    }
+    reg = _metrics.active_metrics()
+    if reg is not None:
+        snap["metrics"] = reg.snapshot()
+    tracer = active_trace()
+    if tracer is not None:
+        snap["t_trace_us"] = tracer.now_us()
+        snap["trace"] = {"events": tracer.snapshot_events(trace_limit)}
+    rec = active_flightrec()
+    if rec is not None:
+        snap["tape"] = rec.snapshot_tape()
+    board.post(obs_snapshot_key(str(wid)), json.dumps(snap))
+
+
+def collect_worker_snapshot(board, wid: str) -> dict | None:
+    """Coordinator side: the newest snapshot a worker posted, or None when
+    it is missing, torn or alien."""
+    from ..resilience.membership import read_obs_snapshot
+
+    return read_obs_snapshot(board, str(wid))

@@ -253,6 +253,8 @@ class MetricsRegistry:
             self.inc("fleet_gc_swept", int(fields.get("count", 0)))
         elif event == "fleet.score.start":
             self.inc("fleet_scores_started")
+        elif event == "fleet.score.failed":
+            self.inc("fleet_score_failures")
         elif event == "fleet.tape.collected":
             self.inc("fleet_tapes_collected")
         elif event == "serve.request.duplicate":

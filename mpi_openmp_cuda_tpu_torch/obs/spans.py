@@ -26,24 +26,34 @@ from __future__ import annotations
 
 import contextlib
 import sys
+import threading
 import time
 
 
 class SpanRecorder:
     """Records ``(dotted.path, seconds)`` spans in completion order.
 
-    Single-threaded by construction (the main thread owns dispatch,
-    gather and all CLI phases), so one stack suffices.
+    The main thread owns dispatch, gather and every CLI phase; the nesting
+    stack is still kept per thread, so the scoring threads of an
+    in-process fleet (``serve/fleet.py``'s workers beside the serve loop)
+    each nest under their own spans.
     """
 
     def __init__(self, clock=time.perf_counter):
         self._clock = clock
         self.spans: list[tuple[str, float]] = []
-        self._stack: list[str] = []
+        self._local = threading.local()
         # Close listeners: ``fn(path, start, dur)`` per finished span, in
         # the recorder's own clock domain (the trace and the flight
         # recorder subscribe here).
         self.listeners: list = []
+
+    @property
+    def _stack(self) -> list[str]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     @contextlib.contextmanager
     def span(self, name: str):

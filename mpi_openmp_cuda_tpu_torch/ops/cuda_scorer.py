@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,6 +49,7 @@ from . import _build
 
 # Kernel launches per wrapper: incremented only where a kernel is launched.
 launch_counts = {"fused_scorer": 0, "packed_scorer": 0}
+_count_lock = threading.Lock()
 # Their counters in the run report, when the obs plane is armed.
 _REPORT_COUNTERS = {name: f"{name}_launches" for name in launch_counts}
 
@@ -345,7 +347,8 @@ def call_entry(fn, state: ScorerState, *extra: int) -> torch.Tensor:
 def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on the state's CUDA device and count it."""
     out = call_entry(_entry(name), state, *extra)
-    launch_counts[name] += 1
+    with _count_lock:  # an in-process fleet launches from several threads
+        launch_counts[name] += 1
     _obs_inc(_REPORT_COUNTERS[name])
     return out
 

@@ -536,20 +536,21 @@ class AlignmentScorer:
         self._side = None  # the staging stream (CUDA, made at first use)
 
     def score_codes(self, seq1_codes, seq2_codes, weights, *, staged=None,
-                    links=()) -> np.ndarray:
+                    links=(), trace_ctx=None) -> np.ndarray:
         """[B, 3] int32 array of (score, n, k) rows, input order."""
         return self.score_codes_async(seq1_codes, seq2_codes, weights, staged=staged,
-                                      links=links).result()
+                                      links=links, trace_ctx=trace_ctx).result()
 
     def score_codes_async(
         self, seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, *,
-        staged: StagedFeed | None = None, links=(),
+        staged: StagedFeed | None = None, links=(), trace_ctx=None,
     ) -> PendingResult | BucketedPending:
         """``score_codes`` without waiting for the device-to-host copy.
         ``staged`` is an optional :class:`StagedFeed` from
         :meth:`prestage_codes` (single-use); ``links`` are the request ids
-        riding this dispatch (the serve plane's), recorded on each of its
-        trace launch rows."""
+        riding this dispatch (the serve plane's) and ``trace_ctx`` a fleet
+        worker's stamp (trace ids, worker, lease epoch), both recorded on
+        each of its trace launch rows."""
         with watchdog.guard("chunk dispatch"):
             _fault("chunk_dispatch")
         _obs_inc("chunks_dispatched")
@@ -577,7 +578,8 @@ class AlignmentScorer:
             pending.trace_keys = [(id(pending), i) for i in range(len(launches))]
             for key, b in zip(pending.trace_keys, launches):
                 trace_launch_begin(key, links=links, len1=b.state.len1,
-                                   lens=[seq2_codes[j].size for j in b.idx])
+                                   lens=[seq2_codes[j].size for j in b.idx],
+                                   ctx=trace_ctx)
         return pending
 
     def _dispatch_sharded(self, seq1_codes, seq2_codes, weights):

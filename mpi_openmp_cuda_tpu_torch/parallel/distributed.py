@@ -24,9 +24,12 @@ The broadcasts are two-phase, as in the JAX package: a fixed-shape header
 (sizes, or an abort flag) first, then the payload, so a coordinator that
 fails before or while parsing releases its workers with an abort header
 instead of leaving them blocked in a collective.  Each is a fault site
-(``--faults``) and runs under the run's watchdog guard.  The lost-shard
-rescue tier (``scatter_gather_rescue`` in the JAX package) is not ported
-yet.
+(``--faults``) and runs under the run's watchdog guard.
+
+The lost-shard rescue tier (:func:`scatter_gather_rescue`, under
+``--distributed`` with ``SEQALIGN_BEACON_S`` set) trades the collective
+gather for per-rank shards posted to the job's key-value store, so a dead
+rank's shard is rescored on rank 0 instead of hanging the gather.
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ from ..utils.env import env_int, env_str
 # Seconds a collective may wait for a peer before the job fails (a peer
 # that died closes its sockets and fails it at once).
 TIMEOUT_S = 300
+
+# The job's TCP store (its server runs in rank 0), kept for the rescue
+# board; None outside a job.
+_STORE = None
 
 
 def _guarded(describe: str):
@@ -119,13 +126,21 @@ def initialize_distributed(device="cuda") -> None:
     backend = transport(kind)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    global _STORE
     try:
+        # The store is made here, not by init_method="tcp://...", so the
+        # rescue tier can post to it through public API: the same
+        # TCPStore (server in rank 0) that tcp:// rendezvous would make,
+        # handed to the group under the "default_pg" prefix it would use.
+        store = dist.TCPStore(addr, port, world, rank == 0, timeout=timeout)
         dist.init_process_group(
-            backend, init_method=f"tcp://{addr}:{port}", world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+            backend, store=dist.PrefixStore("default_pg", store), world_size=world,
+            rank=rank, timeout=timeout,
         )
     except (RuntimeError, ValueError) as e:
         raise RuntimeError(f"multi-process initialization failed: {e}") from e
+    _STORE = store
     if rank == 0:
         why = ("ranks share a card" if backend == "gloo" and kind == "cuda"
                else "a card a rank" if backend == "nccl" else "host tensors")
@@ -139,8 +154,21 @@ def shutdown_distributed() -> None:
     """Leave the job (no-op outside one)."""
     import torch.distributed as dist
 
+    global _STORE
     if _joined():
         dist.destroy_process_group()
+    _STORE = None
+
+
+def job_store():
+    """The key-value store of the job this process joined (the board of
+    the rescue tier)."""
+    if _STORE is None:
+        raise RuntimeError(
+            "no torch.distributed job: the beacon board needs --distributed "
+            "(or a MemoryBoard in one process)"
+        )
+    return _STORE
 
 
 def _joined() -> bool:
@@ -335,3 +363,101 @@ def broadcast_chunk(codes=None, *, end: bool = False, failed: bool = False):
         lens[i] = c.size
     rows, lens = (_bcast(a) for a in (rows, lens))
     return [rows[i, : int(lens[i])] for i in range(n)]
+
+
+def scatter_gather_rescue(
+    seq1_codes,
+    seq2_codes,
+    weights,
+    *,
+    policy,
+    beacon_s: float,
+    backend: str = "cuda",
+    device="cuda",
+    board=None,
+    process_id: int | None = None,
+    num_processes: int | None = None,
+    run_tag: str = "batch0",
+    log=None,
+):
+    """Scatter/gather scoring with lost-shard rescue (the
+    ``SEQALIGN_BEACON_S`` tier of ``--distributed`` batch runs).
+
+    The collective gather hangs every peer when one rank dies, the
+    reference's MPI_Gatherv failure mode (main.c:190-197).  This tier keeps
+    the reference's scatter shape and makes it survivable:
+
+    1. every process derives the same contiguous index ledger
+       (:func:`..resilience.rescue.shard_index_sets`, MPI_Scatter parity)
+       and scores its own shard on its own device (``device``'s kind:
+       ``cuda:(LOCAL_RANK mod count)``, or the CPU), with no collective, so
+       a dead rank hangs no one;
+    2. each posts a liveness beacon and its rows to the job's store
+       (:class:`..resilience.rescue.StoreBoard`; its server is rank 0's,
+       which outlives dead ranks);
+    3. rank 0 fetches each shard under the beacon deadline
+       (watchdog-guarded); a miss names exactly the index-set that rank
+       owned;
+    4. the orphaned indices are rescored on rank 0 on its kernels
+       (:func:`..resilience.rescue.rescue_orphans`; a kernel that fails
+       raises), so the output is byte-identical, minus the dead rank's
+       speedup.
+
+    Returns the [N, 3] int32 rows on rank 0 and None on the other ranks
+    (they print nothing, main.c:199-211).  ``board``, ``process_id`` and
+    ``num_processes`` are injectable, so the lost-rank protocol runs in one
+    process (a rank that never posted to a MemoryBoard IS a lost rank).
+    """
+    from ..obs import export as obs_export
+    from ..ops.dispatch import AlignmentScorer
+    from ..resilience import rescue
+
+    pid = process_index() if process_id is None else int(process_id)
+    nprocs = process_count() if num_processes is None else int(num_processes)
+    log = log or log_line
+    if board is None:
+        board = (rescue.MemoryBoard() if nprocs == 1
+                 else rescue.StoreBoard(job_store(), beacon_s))
+    dev = None if backend == "oracle" else local_device(torch.device(device).type)
+    ledger = rescue.shard_index_sets(len(seq2_codes), nprocs)
+    mine = ledger[pid]
+    my_rows = (
+        AlignmentScorer(backend, device=dev).score_codes(
+            seq1_codes, [seq2_codes[i] for i in mine], weights)
+        if mine else np.zeros((0, 3), dtype=np.int32)
+    )
+    rescue.post_shard(board, run_tag, pid, my_rows)
+    # Each host's metrics snapshot rides the same board (a no-op with the
+    # obs plane off): rank 0's report gets a merged `hosts` section.
+    obs_export.post_host_snapshot(board, run_tag, pid)
+    if pid != 0:
+        return None
+
+    out = np.zeros((len(seq2_codes), 3), dtype=np.int32)
+    if mine:
+        out[mine] = my_rows
+    lost = []
+    for w in range(1, nprocs):
+        idx = ledger[w]
+        if not idx:
+            continue
+        with _deadline_guard(f"shard gather (worker {w})"):
+            rows = rescue.fetch_shard(board, run_tag, w, len(idx), timeout_s=beacon_s)
+        if rows is None:
+            lost.append(w)
+            continue
+        out[idx] = rows
+    # Ranks already known lost are skipped, not waited for twice.
+    obs_export.gather_fleet(board, run_tag, nprocs, skip=lost, timeout_s=beacon_s)
+    if lost:
+        orphans = [i for w in lost for i in ledger[w]]
+        log(
+            f"mpi_openmp_cuda_tpu_torch: warning: worker(s) {lost} missed the "
+            f"{beacon_s:g}s beacon deadline; rescuing {len(orphans)} orphaned "
+            "sequence(s) on the coordinator's local backend"
+        )
+        out[orphans] = rescue.rescue_orphans(
+            seq1_codes, [seq2_codes[i] for i in orphans], weights,
+            policy=policy, backend=backend, device=dev,
+        )
+    return out

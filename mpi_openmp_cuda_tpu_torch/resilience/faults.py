@@ -1,6 +1,6 @@
 """Deterministic fault injection (the port of ``mpi_openmp_cuda_tpu/
-resilience/faults.py``, with the sites of the batch path and the serve
-plane).
+resilience/faults.py``, with the sites of the batch path, the serve
+plane and the fleet).
 
 An instrumented code path calls :func:`fire` with a stable site name; an
 armed registry decides from a counted schedule whether that invocation
@@ -42,6 +42,14 @@ Sites:
                           (the ``serve_tick`` fire point): the live serve
                           journal must make ``--resume`` lose and double
                           nothing
+``kill:fleet-worker``     SIGKILL a fleet scoring worker at its scheduled
+                          ``fleet_score`` fire point: after the lease claim,
+                          before any result lands
+``kill:fleet-coordinator``  SIGKILL the fleet coordinator at its scheduled
+                          ``fleet_pump`` fire point (the pump-tick boundary,
+                          after the previous tick's board checkpoint): a
+                          ``--fleet-standby`` must take over and answer
+                          every unanswered request exactly once
 ========================  ====================================================
 
 A hang site needs an armed watchdog (``--deadline``); without one it is
@@ -66,7 +74,27 @@ failure itself, so ``kind=`` is rejected for them too:
                             (sustained open-loop overload)
 ==========================  ==================================================
 
-The fleet's sites arrive with the fleet.
+The fleet's marker sites (``serve/fleet.py``) shape worker- and
+leader-side failures the same way:
+
+==========================  ==================================================
+``zombie:fleet-worker``     after scoring, this worker freezes its heartbeat
+                            until it is declared dead and its lease epoch
+                            fenced, then posts the stale result, which must
+                            be counted as fenced, never demuxed
+``board:torn-post``         this result post lands half-written; readers
+                            treat it as missing, the lease expires and the
+                            superblock is re-dispatched
+``lease:stall``             this worker claims the offer and never scores it
+                            (the pure lease-expiry path)
+``zombie:fleet-leader``     the coordinator freezes its leader beat at this
+                            pump tick while it goes on serving: a standby
+                            deposes it and its late posts are fenced by
+                            generation
+``board:enospc``            this board post's staging write fails mid-write
+                            (disk full): the key reads as missing and no
+                            ``.tmp.`` file is left behind
+==========================  ==================================================
 """
 
 from __future__ import annotations
@@ -84,7 +112,17 @@ SERVE_SITES = frozenset({
     "burst:overload",
 })
 
-KNOWN_SITES = SERVE_SITES | frozenset({
+# Fleet marker sites (serve/fleet.py, resilience/rescue.py): the same
+# scheduled() contract.
+FLEET_SITES = frozenset({
+    "zombie:fleet-worker",
+    "zombie:fleet-leader",
+    "board:torn-post",
+    "board:enospc",
+    "lease:stall",
+})
+
+KNOWN_SITES = SERVE_SITES | FLEET_SITES | frozenset({
     "chunk_dispatch",
     "chunk_scoring",
     "device_transfer",
@@ -98,6 +136,8 @@ KNOWN_SITES = SERVE_SITES | frozenset({
     "hang:broadcast",
     "kill:journal-append",
     "kill:serve-tick",
+    "kill:fleet-worker",
+    "kill:fleet-coordinator",
 })
 
 # Which fire point each hang/kill site rides; the alias keeps its own
@@ -111,7 +151,12 @@ _HANG_SITES = {
     "broadcast_index_set": "hang:broadcast",
     "broadcast_stream_meta": "hang:broadcast",
 }
-_KILL_SITES = {"journal_append": "kill:journal-append", "serve_tick": "kill:serve-tick"}
+_KILL_SITES = {
+    "journal_append": "kill:journal-append",
+    "serve_tick": "kill:serve-tick",
+    "fleet_score": "kill:fleet-worker",
+    "fleet_pump": "kill:fleet-coordinator",
+}
 
 
 class InjectedFaultError(RuntimeError):
@@ -141,7 +186,7 @@ def parse_spec(spec: str) -> dict[str, SiteFaults]:
             continue
         site, sep, body = entry.partition(":")
         site = site.strip()
-        if site in ("hang", "kill", "burst"):
+        if site in ("hang", "kill", "zombie", "board", "lease", "burst"):
             # These site names carry a colon: the first body segment joins.
             sub, sep2, rest = body.partition(":")
             site, sep, body = f"{site}:{sub.strip()}", sep2, rest
@@ -179,7 +224,7 @@ def parse_spec(spec: str) -> dict[str, SiteFaults]:
         if "fail" not in kv:
             raise ValueError(f"--faults entry for {site!r} needs fail=N")
         if "kind" in kv and (site.partition(":")[0] in ("hang", "kill")
-                             or site in SERVE_SITES):
+                             or site in SERVE_SITES or site in FLEET_SITES):
             raise ValueError(
                 f"--faults site {site!r} does not take kind= (the failure "
                 "shape is the site's own, not a raised error class)"

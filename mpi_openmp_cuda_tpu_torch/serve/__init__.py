@@ -14,7 +14,31 @@ batch CLI.
   bucket and the load-shedding machine;
 * :mod:`.loop` — the serve loop: dispatch through the shared
   ``io/pipeline.py``, the circuit breaker, poison quarantine, the live
-  journal, drain -> journal -> exit 75.
+  journal, drain -> journal -> exit 75, the fleet coordinator's and the
+  standby's branches;
+* :mod:`.fleet` — the elastic serve fleet: superblocks offered on a
+  ``FileBoard`` under epoch-fenced leases to ``--fleet-worker`` processes
+  (each scoring on its own card's kernels), leader leases and the
+  ``--fleet-standby`` takeover.
 
-The CLI imports it only under ``--serve``.
+The CLI imports it only under ``--serve``, ``--fleet-worker`` and
+``--fleet-standby``.
 """
+
+from .fleet import (
+    FleetCoordinator,
+    FleetWorker,
+    LeadershipLostError,
+    lease_ticks_for,
+    run_fleet_worker,
+    standby_wait,
+)
+
+__all__ = [
+    "FleetCoordinator",
+    "FleetWorker",
+    "LeadershipLostError",
+    "lease_ticks_for",
+    "run_fleet_worker",
+    "standby_wait",
+]

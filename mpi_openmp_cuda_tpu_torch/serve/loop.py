@@ -1,5 +1,5 @@
 """The serve loop: warm kernels, continuous batching, drain -> 75 (the port
-of ``mpi_openmp_cuda_tpu/serve/loop.py``, single process).
+of ``mpi_openmp_cuda_tpu/serve/loop.py``).
 
 One :class:`ServeLoop` owns the run: the admission queue, the pending
 window and the scorer, whose kernels stay built and loaded for as long as
@@ -53,14 +53,22 @@ and in flight, rewritten (whole-file atomic) at tick boundaries whenever
 that set changes, so a SIGKILL loses nothing and ``--resume`` answers
 nothing twice.
 
-The fleet (JAX ``serve/fleet.py``) is not ported yet: ``self.fleet``
-stays None and its hooks below are inert.
+**Fleet** (:mod:`.fleet`): with ``--fleet-board`` the loop is the fleet
+coordinator.  Planning, admission, SLO armor and demux are unchanged, but
+while a worker is live each planned superblock is offered to the
+``--fleet-worker`` processes on the board under an expiring lease, and the
+tick pumps membership, lease expiry and result collection; with no live
+worker every block scores here, as without a fleet.  The coordinator holds
+a leader lease and checkpoints its unanswered requests to the board; a
+``--fleet-standby`` (:func:`_standby_phase`) takes over when its beat goes
+silent and replays them.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import os
 import socket as socketlib
 import struct
 import sys
@@ -146,7 +154,7 @@ class ServeLoop:
         # loop ticks it, so its transitions count ticks, not seconds.
         self.breaker = getattr(pipeline, "breaker", None)
         self._steady_base: int | None = None
-        # The fleet coordinator's seam (the fleet is not ported yet).
+        # The fleet coordinator (run_serve attaches one under --fleet-board).
         self.fleet = None
         # Live-journal state: (session, raw) for every in-flight request,
         # plus the last journal body written (no-op rewrites skipped).
@@ -235,7 +243,35 @@ class ServeLoop:
         ``staged`` is this block's prestaged feed (or None) and ``nxt``
         the tick's next block: once this dispatch is out, ``nxt``'s
         host-to-device copies are staged to overlap its compute, and the
-        handle is returned for the next call."""
+        handle is returned for the next call.
+
+        With a fleet accepting (a live worker on the board) the block is
+        offered instead, under a fresh lease; the pump collects its
+        epoch-fenced result.  The poison check stays here either way (the
+        bisection needs the session tags, which never cross the board).
+        An offer the board cannot take (a failed post) scores the block
+        here instead: nothing was leased, so nothing answers it twice."""
+        if self.fleet is not None and self.fleet.accepting():
+            try:
+                self._check_poison(block)
+            except Exception as e:
+                self._block_failed(block, e)
+                return None
+            try:
+                self.fleet.offer(block)
+            except OSError as e:
+                log_line(f"{PROG}: serve: fleet offer failed to post ({e}); "
+                         "scoring the superblock on the coordinator")
+                self._fleet_fallback(block)
+                return None
+            publish(
+                "serve.batch.dispatch",
+                rows=block.real_rows,
+                fill=round(block.fill_ratio, 4),
+                depth=self.queue.depth(),
+                links=block.link_ids(),
+            )
+            return None  # no local compute to overlap with
         budget = self.policy.new_budget()
         links = block.link_ids()
         try:
@@ -324,6 +360,15 @@ class ServeLoop:
             promise, block.seq1_codes, block.codes, block.weights, budget
         )
         self._demux(rows, block)
+
+    def _fleet_fallback(self, block) -> None:
+        """Score a fleet superblock on the coordinator (no live worker, a
+        dead-lettered offer, a drain): the same sync score -> retry ->
+        bisection quarantine ladder as any failed local block."""
+        try:
+            self._score_block_sync(block)
+        except Exception as e:
+            self._block_failed(block, e)
 
     def _bisect(self, block, err) -> None:
         """Quarantine stage 2: split the failed block's sessions in half
@@ -610,6 +655,62 @@ def _accept_loop(loop: ServeLoop, sock) -> None:
         threading.Thread(target=_serve_connection, args=(loop, conn), daemon=True).start()
 
 
+def _standby_phase(loop: ServeLoop, board, leader, out_responder) -> bool:
+    """The ``--fleet-standby`` phase: watch the leader's beat until a
+    verdict.  True once this process holds the leadership (the caller then
+    runs the tick loop as the successor coordinator), False on a clean
+    exit (the fleet shut down, or this standby was drained while empty).
+
+    Takeover, all before the first tick: the next generation is claimed
+    (inside ``standby_wait``), the successor coordinator built, the
+    answered-id set seeded from the dead leader's checkpoint and its
+    unanswered requests re-ingested through the normal admission path.
+    The answered set makes the replay, and any client redriving its own
+    requests afterwards, idempotent."""
+    from ..resilience.membership import read_checkpoint
+    from .fleet import FleetCoordinator, standby_wait
+
+    verdict, watched = standby_wait(board, leader, loop.clock)
+    if verdict != "takeover":
+        log_line(f"{PROG}: serve: standby exiting ({verdict}): nothing to take over")
+        if verdict == "drain" and loop.queue.depth() > 0:
+            loop._drain(())  # raises DrainInterrupt: the CLI's 75
+        return False
+    publish("leader.takeover", gen=leader.gen, prev=watched, leader=leader.lid)
+    obs_gauge("fleet_leader_epoch", leader.gen)
+    log_line(f"{PROG}: serve: standby took over as leader gen {leader.gen} "
+             f"(gen {watched} went silent)")
+    loop.fleet = FleetCoordinator(board, local_score=loop._fleet_fallback,
+                                  demux=loop._demux, clock=loop.clock, leader=leader)
+    obs_gauge("fleet_workers", 0)
+    ckpt = read_checkpoint(board, watched)
+    if ckpt is None:
+        log_line(f"{PROG}: serve: no readable checkpoint from gen {watched}; "
+                 "serving fresh traffic only")
+        return True
+    for rid in ckpt["answered"]:
+        loop._note_answered(str(rid))
+    replayed = 0
+    loop.queue.open_source()
+    try:
+        for raw in ckpt["requests"]:
+            if not isinstance(raw, dict):
+                continue
+            rid = raw.get("id")
+            if rid is not None and str(rid) in loop._answered_set:
+                continue  # the dead leader answered it
+            loop.ingest(json.dumps(raw), out_responder)
+            replayed += 1
+    finally:
+        loop.queue.close_source()
+    log_line(f"{PROG}: serve: replayed {replayed} unanswered request(s) from gen "
+             f"{watched}'s checkpoint ({len(ckpt['answered'])} already answered)")
+    # Re-checkpoint under this generation before the first tick: a kill
+    # during the takeover must not lose what was just admitted.
+    loop._journal_live()
+    return True
+
+
 def warm_kernels(deg) -> None:
     """Build and load both scorer kernels before the first tick when the
     primary backend is ``cuda`` on a card, so no block pays a build or a
@@ -631,15 +732,22 @@ def warm_kernels(deg) -> None:
 
 
 def run_serve(args, timer, policy, deg, out_stream=None) -> int:
-    """CLI entry for ``--serve`` (called with the obs plane, faults, the
-    watchdog and the drain guard already armed, and the kernels warmed,
-    by ``io.cli.run``).
+    """CLI entry for ``--serve`` and ``--fleet-standby`` (called with the
+    obs plane, faults, the watchdog and the drain guard already armed, and
+    the kernels warmed, by ``io.cli.run``).
 
     Sources: ``--port`` opens a loopback ndjson socket (port 0: the OS
     assigns; the bound port is announced on stderr).  Without a port, or
     with an explicit ``--input``, requests are read line by line from the
     file or stdin on the main thread and the loop runs until the queue
-    drains, which makes pipe mode deterministic for tests.
+    drains, which makes pipe mode deterministic for tests.  A standby reads
+    no pipe: its requests are the dead leader's checkpoint and whatever
+    clients connect to its port.
+
+    With ``--fleet-board`` the loop coordinates the fleet as leader of a
+    fresh generation (the coordinator) or waits to take one over (the
+    standby); a clean completion sweeps the board (``gc_final``) and every
+    exit posts the shutdown key that releases the workers.
     """
     from ..io.parse import open_input
     from ..io.pipeline import ChunkPipeline
@@ -657,6 +765,30 @@ def run_serve(args, timer, policy, deg, out_stream=None) -> int:
         obs_gauge("breaker_state", STATE_CLOSED)
     loop = ServeLoop(ChunkPipeline(policy, deg, breaker=breaker), policy,
                      journal_path=args.journal)
+    standby = bool(getattr(args, "fleet_standby", False))
+    board = leader = None
+    if getattr(args, "fleet_board", None):
+        from ..resilience.membership import LeaderLease, shutdown_key
+        from ..resilience.rescue import FileBoard
+        from .fleet import FleetCoordinator, lease_ticks_for
+
+        board = FileBoard(args.fleet_board)
+        leader = LeaderLease(board, f"c{os.getpid()}", lease_ticks_for())
+        if standby:
+            log_line(f"{PROG}: serve: standby watching board {args.fleet_board!r} "
+                     f"(leader deadline {leader.deadline_ticks} ticks)")
+        else:
+            # A reused board may hold a finished run's shutdown key, which
+            # would retire this run's workers and standbys on sight.
+            board.delete(shutdown_key())
+            gen = leader.acquire()
+            obs_gauge("fleet_leader_epoch", gen)
+            loop.fleet = FleetCoordinator(board, local_score=loop._fleet_fallback,
+                                          demux=loop._demux, clock=loop.clock,
+                                          leader=leader)
+            obs_gauge("fleet_workers", 0)
+            log_line(f"{PROG}: serve: fleet coordinator on board {args.fleet_board!r} "
+                     f"as leader gen {gen} (lease {loop.fleet.lease_ticks} ticks)")
     out_responder = Responder(out_stream or sys.stdout)
     if args.journal:
         resumed = load_drained(args.journal)
@@ -687,30 +819,43 @@ def run_serve(args, timer, policy, deg, out_stream=None) -> int:
             log_line(f"{PROG}: serving on 127.0.0.1:{bound}")
             loop.queue.open_source()
             threading.Thread(target=_accept_loop, args=(loop, sock), daemon=True).start()
+        serving = True
         with timer.phase("serve"):
-            if not persistent or args.input is not None:
-                loop.queue.open_source()
-                try:
-                    with open_input(args.input) as stream:
-                        for line in stream:
-                            loop.ingest(line, out_responder)
-                            if drain_requested():
-                                break
-                finally:
-                    loop.queue.close_source()
-                # Journal the freshly queued raws before the first tick.
-                loop._journal_live()
-            while True:
-                alive = loop.tick()
-                if not persistent and not alive:
-                    break
-        if args.journal:
+            if standby:
+                serving = _standby_phase(loop, board, leader, out_responder)
+            if serving:
+                if (not persistent or args.input is not None) and not standby:
+                    loop.queue.open_source()
+                    try:
+                        with open_input(args.input) as stream:
+                            for line in stream:
+                                loop.ingest(line, out_responder)
+                                if drain_requested():
+                                    break
+                    finally:
+                        loop.queue.close_source()
+                    # Journal (and, as fleet leader, checkpoint) the freshly
+                    # queued raws before the first tick: a leader killed at
+                    # its first pump already has them on the board.
+                    loop._journal_live()
+                while True:
+                    alive = loop.tick()
+                    if not persistent and not alive:
+                        break
+        if serving and args.journal:
             # Clean completion: nothing pending, so a later --resume
             # re-admits nothing.
             journal_drained(args.journal, [])
+        if serving and loop.fleet is not None:
+            # A completed run leaves no offer, claim, result or checkpoint
+            # on the board: only the worker registry and the generation
+            # record.
+            loop.fleet.gc_final()
         timer.report()
         return 0
     finally:
+        if loop.fleet is not None:
+            loop.fleet.shutdown()
         loop.record_steady_gauge()
         if telem is not None:
             telem.close()

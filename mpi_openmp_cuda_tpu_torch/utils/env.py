@@ -2,7 +2,8 @@
 
 A copy of the registry pattern of ``mpi_openmp_cuda_tpu/utils/
 platform.py``, holding only the variables the port reads so far (the
-serve, telemetry and breaker knobs of ``--serve`` among them), under
+serve, telemetry and breaker knobs of ``--serve``, the fleet's and the
+rescue tier's ``SEQALIGN_BEACON_S`` among them), under
 the same names as the JAX package, so one shell drives both CLIs, plus
 the rendezvous variables of a ``--distributed`` job under torchrun's
 names (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
@@ -126,6 +127,29 @@ ENV_VARS: tuple[EnvVar, ...] = (
     EnvVar("SEQALIGN_BREAKER_COOLDOWN", "int", 8,
            "serve-loop ticks an open breaker waits before probing the "
            "primary backend half-open"),
+    EnvVar("SEQALIGN_BEACON_S", "float", None,
+           "liveness-beacon / shard-gather deadline (seconds) enabling the "
+           "lost-shard rescue tier under --distributed batch runs"),
+    EnvVar("SEQALIGN_FLEET_WORKERS", "int", 0,
+           "expected scoring-worker count of the serve fleet "
+           "(--fleet-board): a hint only, the coordinator logs when the "
+           "fleet first reaches this size"),
+    EnvVar("SEQALIGN_LEASE_S", "float", 2.0,
+           "fleet superblock lease: nominal seconds an offer may sit "
+           "without a result before the coordinator fences its epoch and "
+           "re-dispatches (counted in board-poll ticks)"),
+    EnvVar("SEQALIGN_WORKER_HEARTBEAT_S", "float", 0.02,
+           "fleet worker heartbeat and board-poll cadence in seconds"),
+    EnvVar("SEQALIGN_FLEET_MAX_REDISPATCH", "int", 5,
+           "re-dispatches one fleet superblock may take before the "
+           "coordinator dead-letters it to the local quarantine ladder"),
+    EnvVar("SEQALIGN_FLEET_GC_TICKS", "int", 0,
+           "board-poll ticks before the fleet's board GC sweeps a key "
+           "classified as debris; 0 means two lease windows"),
+    EnvVar("SEQALIGN_FLEET_OBSSNAP_S", "float", 0.25,
+           "fleet worker observability-snapshot cadence in seconds (its "
+           "metrics, recent trace events and flight-recorder tape, posted "
+           "to the board in place)"),
     # The rendezvous of a --distributed job, under torchrun's names.
     EnvVar("MASTER_ADDR", "str", None,
            "--distributed: the coordinator's (rank 0's) host"),

@@ -172,6 +172,9 @@ def test_port_import_loads_no_jax():
         "mpi_openmp_cuda_tpu_torch.parallel.ring, "
         "mpi_openmp_cuda_tpu_torch.parallel.distributed, "
         "mpi_openmp_cuda_tpu_torch.serve.loop, mpi_openmp_cuda_tpu_torch.serve.slo, "
+        "mpi_openmp_cuda_tpu_torch.serve.fleet, "
+        "mpi_openmp_cuda_tpu_torch.resilience.membership, "
+        "mpi_openmp_cuda_tpu_torch.resilience.rescue, "
         "mpi_openmp_cuda_tpu_torch.resilience.breaker, "
         "mpi_openmp_cuda_tpu_torch.obs.telemetry, mpi_openmp_cuda_tpu_torch.load.driver, "
         "mpi_openmp_cuda_tpu_torch.load.gates, mpi_openmp_cuda_tpu_torch.load.refit, "

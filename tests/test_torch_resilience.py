@@ -99,7 +99,7 @@ def test_parse_spec_full_grammar_matches_jax():
     "bad, match",
     [
         ("bogus_site:fail=1", "known sites"),
-        ("kill:fleet-worker:fail=1", "known sites"),  # arrives with the fleet
+        ("kill:fleet-workr:fail=1", "known sites"),  # a misspelt fleet site
         ("chunk_scoring", "want site:fail=N"),
         ("chunk_scoring:after=1", "needs fail=N"),
         ("chunk_scoring:nope=1", "bad --faults key"),
@@ -118,13 +118,15 @@ def test_parse_spec_rejects_malformed(bad, match):
 def test_batch_sites_are_the_jax_sites():
     from mpi_openmp_cuda_tpu_torch.resilience.faults import KNOWN_SITES
 
-    assert KNOWN_SITES <= jfaults.KNOWN_SITES
+    assert KNOWN_SITES == jfaults.KNOWN_SITES
     assert KNOWN_SITES == {
         "chunk_dispatch", "chunk_scoring", "device_transfer", "journal_append",
         "broadcast_problem", "broadcast_chunk", "broadcast_index_set",
         "broadcast_stream_meta", "hang:dispatch", "hang:gather", "hang:broadcast",
         "kill:journal-append", "kill:serve-tick", "slow-client",
-        "dead-socket-midstream", "poison-session", "overload-burst", "burst:overload"}
+        "dead-socket-midstream", "poison-session", "overload-burst", "burst:overload",
+        "kill:fleet-worker", "kill:fleet-coordinator", "zombie:fleet-worker",
+        "zombie:fleet-leader", "board:torn-post", "board:enospc", "lease:stall"}
 
 
 def test_registry_counts_are_deterministic():

@@ -806,6 +806,10 @@ class TestServeUsageAgainstJax:
             ("--serve", "--distributed"),
             ("--port", "0"),
             ("--telemetry-port", "0"),
+            ("--fleet-worker",),
+            ("--fleet-worker", "--serve", "--fleet-board", "board"),
+            ("--fleet-standby", "--fleet-worker", "--fleet-board", "board"),
+            ("--fleet-board", "board"),
         ],
     )
     def test_rejections_carry_the_jax_cli_code_and_message(self, argv, capfd):
