@@ -27,6 +27,17 @@ final: native/main.cpp native/tpu_backend.cpp native/tpu_proto.h
 	    native/main.cpp native/tpu_backend.cpp -o $@ \
 	    $(PY_CFLAGS) $(PY_LDFLAGS) -lpthread
 
+# The port's native driver: the same driver and ABI over the PyTorch +
+# CUDA package (mpi_openmp_cuda_tpu_torch/native/torch_backend.cpp); env
+# knobs TPU_SEQALIGN_BACKEND (auto|cuda|mm|gather|oracle), TPU_SEQALIGN_MESH,
+# TPU_SEQALIGN_DEVICE (cuda|cpu) and TPU_SEQALIGN_PYROOT.
+TORCH_BACKEND := mpi_openmp_cuda_tpu_torch/native/torch_backend.cpp
+
+final_torch: native/main.cpp $(TORCH_BACKEND) native/tpu_proto.h
+	$(CXX) $(CXXFLAGS) -DTPU_SEQALIGN_REPO_ROOT='"$(CURDIR)"' -I native \
+	    native/main.cpp $(TORCH_BACKEND) -o $@ \
+	    $(PY_CFLAGS) $(PY_LDFLAGS) -lpthread
+
 # Single host; all local devices. The reference's `run` is 2 ranks on one
 # node (makefile:11) — the mesh analogue is run2.
 run: final
@@ -283,4 +294,4 @@ bench-gather:
 	BENCH_BACKEND=pallas BENCH_WEIGHTS=40000,7,1,2 $(PYTHON) bench.py
 
 clean:
-	rm -f final
+	rm -f final final_torch

@@ -172,7 +172,29 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    the beacon tier's store board carries between the ranks), then
    ``scatter_gather_rescue`` in this process with ``num_processes=2``
    where rank 1 never posts: its max-size rows rescored on ``cuda:0`` ==
-   the oracle.
+   the oracle;
+17. the warm plane (``aot/``) and the native driver ``final_torch``:
+   (a) a fresh ``--prewarm`` process on max-size with a throwaway
+   ``SEQALIGN_CACHE_DIR``: rows == the oracle, the manifest valid with
+   entries, none failed, every entry under the card's fingerprint digest,
+   and the run report's fused and packed launch counts == one launch a
+   warm entry of each kernel plus the batch's own launches; (b) a fresh
+   ``--serve --port 0 --prewarm`` process on the same cache answers one
+   request (8 max-size rows and 64 short rows: both kernels): every
+   manifest entry replayed, ``serve_prewarmed`` 1 and
+   ``serve_steady_compiles`` 0 counted from tick 0, its lines == the batch
+   CLI's; the time to the first answer printed beside that of the same
+   server without ``--prewarm``; (c) the manifest's digests rewritten, a
+   ``--prewarm --stream`` run re-warms every entry as ``stale-rewarm``
+   and writes them back under the card's digest; (d) ``make final_torch``,
+   then every fixture, max-size, and the fixtures under
+   ``TPU_SEQALIGN_MESH=4`` and ``seq:8`` (``SEQALIGN_HOST_DEVICES=8``:
+   eight slots of the one card) through the binary on the card, eight at
+   once, byte-identical to their goldens; ``native_bridge.score_strided``
+   in this process on max-size and the 1024-short-row input (counts set to
+   0 just before: both kernels launch), bytes == the oracle's triples; the
+   binary with ``CUDA_VISIBLE_DEVICES=`` exits non-zero with its
+   diagnostic and no stdout.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
@@ -710,6 +732,8 @@ def main() -> int:
     # -- 16. the fleet and the rescue tier ------------------------------------
     fleet_counts, fleet_totals, rescue_counts = fleet_phase(
         np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, time_ms, card)
+    # -- 17. the warm plane and the native driver -----------------------------
+    warm_counts = warm_phase(np, torch, cli, cs, fixtures, inputs, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -723,6 +747,7 @@ def main() -> int:
              "rescue": rescue_counts, "robustness": robust_counts,
              "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
+             **warm_counts,
              "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2400,6 +2425,252 @@ def fleet_phase(np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, ti
     tmp.cleanup()
     log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
     return counts, totals, rescue_counts
+
+
+def _triples(np, out_text) -> bytes:
+    """The ``(score, n, k)`` rows of a CLI stdout as the native ABI's
+    little-endian int32 triples."""
+    rows = re.findall(r"^#\d+: score: (-?\d+), n: (-?\d+), k: (-?\d+)$", out_text, re.M)
+    return np.array(rows, dtype="<i4").tobytes()
+
+
+def _group_matrix(np, groups) -> bytes:
+    """``native/main.cpp::build_group_matrix``: a 729-byte 0/1 blob."""
+    mat = np.zeros((27, 27), dtype=np.int8)
+    for group in groups:
+        for a in group:
+            for b in group:
+                mat[ord(a) - 64, ord(b) - 64] = 1
+    return mat.tobytes()
+
+
+def warm_phase(np, torch, cli, cs, fixtures, inputs, card) -> dict[str, dict[str, int]]:
+    """Phase 17: the warm plane and the native driver on the card.  Returns
+    the launch counts of the prewarm path (its warm entries' launches in
+    the populating run) and of the native path (the in-process bridge
+    calls, counts set to 0 just before them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi_openmp_cuda_tpu_torch import native_bridge
+    from mpi_openmp_cuda_tpu_torch.aot.manifest import load_manifest
+    from mpi_openmp_cuda_tpu_torch.aot.warmset import backend_fingerprint
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.models.groups import (
+        CONSERVATIVE_GROUPS, SEMI_CONSERVATIVE_GROUPS)
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import plan_launches
+    from mpi_openmp_cuda_tpu_torch.utils.env import platform_tag
+
+    t_phase = time.perf_counter()
+    names = ("fused_scorer", "packed_scorer")
+    tmp = tempfile.TemporaryDirectory()
+    cache = Path(tmp.name) / "cache"
+    env = {"SEQALIGN_CACHE_DIR": str(cache)}
+    manifest = cache / "aot" / f"{platform_tag('cuda')}.json"
+    digest = backend_fingerprint("cuda")["digest"]
+    max_in = inputs["max-size"]
+    max_out = max_in.with_suffix(".out").read_text()
+    shape_line = (r"prewarmed (\d+)/(\d+) launch shapes in ([\d.]+)s \(replayed (\d+), "
+                  r"stale (\d+), failed (\d+)")
+
+    # -- a. populate: a fresh process prewarms on max-size ---------------------
+    report_a = Path(tmp.name) / "populate.json"
+    proc = _Proc("populate", ["--prewarm", "--input", str(max_in),
+                              "--metrics-out", str(report_a)], tmp.name, env)
+    rc = proc.finish(300)
+    if rc != 0 or proc.stdout() != max_out:
+        fail(f"prewarm populate: rc {rc}, stdout == oracle {proc.stdout() == max_out}: "
+             + proc.stderr()[-3000:])
+    rep = json.loads(report_a.read_text())
+    validate_report(rep)
+    man = load_manifest(str(manifest))
+    if man is None or not man["entries"]:
+        fail(f"prewarm populate: no valid manifest with entries at {manifest}")
+    entries = man["entries"]
+    n = len(entries)
+    if man["fingerprint"]["digest"] != digest or {e["fingerprint"] for e in entries} != {digest}:
+        fail(f"prewarm populate: manifest digests {man['fingerprint']['digest']} / "
+             f"{ {e['fingerprint'] for e in entries} }, the card's {digest}")
+    c = rep["counters"]
+    hit = re.search(shape_line, proc.stderr())
+    if (c.get("aot.failed", 0) or c.get("aot.compiled") != n or c.get("aot.entries") != n
+            or hit is None or hit.group(1, 2, 6) != (str(n), str(n), "0")):
+        fail(f"prewarm populate: counters {c}, stderr {proc.stderr()[-1500:]}")
+    warm = {"fused_scorer": sum(e["formulation"] == "cuda-fused" for e in entries),
+            "packed_scorer": sum(e["formulation"] == "cuda-packed" for e in entries)}
+    prob = load_problem(str(max_in))
+    batch = dict.fromkeys(names, 0)
+    for plan in plan_launches(prob.seq1_codes, prob.seq2_codes, prob.weights, "cuda")[1]:
+        batch["fused_scorer" if plan.l2s is None else "packed_scorer"] += 1
+    got = {name: c.get(f"{name}_launches", 0) for name in names}
+    if any(got[k] != warm[k] + batch[k] for k in names) or sum(warm.values()) != n:
+        fail(f"prewarm populate: report launches {got}, warm entries {warm} + the batch's "
+             f"launches {batch}")
+    prewarm_wall = rep["gauges"]["prewarm_wall_s"]
+    shapes = sorted((e["formulation"], e["l2p"], e["l2s"], e["rows"]) for e in entries)
+    log(f"prewarm populate: max-size == oracle; {n} entries, failed 0, every entry under "
+        f"the card's digest {digest}; launches {got} = warm {warm} + batch {batch}; "
+        f"prewarm wall {prewarm_wall:.6f} s [{card}]")
+    log(f"prewarm entries (formulation, L2P, l2s, rows): {shapes}")
+
+    # -- b. restart: --serve --prewarm answers from a replayed manifest -------
+    seq1_k = load_problem(str(inputs["1024 short rows"]))
+    raw = {"id": "w", "weights": list(prob.weights), "seq1": prob.seq1,
+           "seq2": prob.seq2[:8] + seq1_k.seq2[:64]}
+    both = Path(tmp.name) / "both.txt"
+    both.write_text(" ".join(map(str, prob.weights)) + f"\n{prob.seq1}\n{len(raw['seq2'])}\n"
+                    + "\n".join(raw["seq2"]) + "\n")
+    rc, out, _ = run_cli(cli, ["--input", str(both)])
+    want = out.decode().splitlines()
+    if rc != 0 or len(want) != 72:
+        fail(f"restart: the batch CLI on the request's rows: rc {rc}")
+
+    def first_answer(tag, argv):
+        report = Path(tmp.name) / f"{tag}.json"
+        t0 = time.perf_counter()
+        p = _Proc(tag, ["--serve", "--port", "0", "--metrics-out", str(report), *argv],
+                  tmp.name, env)
+        try:
+            hit = p.wait_for(r"serving on 127\.0\.0\.1:(\d+)", 180)
+            if hit is None:
+                fail(f"restart {tag}: no port announced: " + p.stderr()[-3000:])
+            t_up = hit[0]
+            t_ask = time.perf_counter()
+            buf = ask(int(hit[1].group(1)), raw, timeout=120)
+            t_answer = time.perf_counter()
+        finally:
+            p.proc.send_signal(signal.SIGTERM)
+            rc = p.finish(120)
+        records = [json.loads(x) for x in buf.decode().splitlines() if x]
+        if rc != 75 or _lines_of(records).get("w") != want or \
+                {"id": "w", "done": True, "n": 72} not in records:
+            fail(f"restart {tag}: rc {rc} (want 75 on SIGTERM), lines == the batch CLI "
+                 f"{_lines_of(records).get('w') == want}: " + p.stderr()[-2000:])
+        rep = json.loads(report.read_text())
+        validate_report(rep)
+        if tag.startswith("restart"):
+            hit = re.search(shape_line, p.stderr())
+            g = rep["gauges"]
+            if hit is None or hit.group(1, 2, 4, 5, 6) != (str(n),) * 3 + ("0", "0") or \
+                    g.get("serve_prewarmed") != 1 or g.get("serve_steady_compiles") != 0:
+                fail(f"{tag}: prewarm line {hit and hit.group(0)}, want replayed {n}; "
+                     f"gauges serve_prewarmed {g.get('serve_prewarmed')}, "
+                     f"serve_steady_compiles {g.get('serve_steady_compiles')}")
+            launched = {k: rep["counters"].get(f"{k}_launches", 0) for k in names}
+            if min(launched.values()) < 1:
+                fail(f"{tag}: the request did not run both kernels: {launched}")
+        wall = rep["gauges"].get("prewarm_wall_s")
+        return (f"{tag}: up {t_up - t0:.6f} s"
+                + (f" (prewarm {wall:.6f} s)" if wall is not None else "")
+                + f", first answer {t_answer - t0:.6f} s after "
+                f"start ({t_answer - t_ask:.6f} s after the request), "
+                f"serve_steady_compiles {rep['gauges'].get('serve_steady_compiles')}, "
+                f"launches { {k: rep['counters'].get(f'{k}_launches', 0) for k in names} }")
+
+    # In turns, so neither side has the host's caches to itself.
+    walls = [first_answer(tag, argv) for tag, argv in (
+        ("cold 1", []), ("restart 1", ["--prewarm"]), ("restart 2", ["--prewarm"]),
+        ("cold 2", []))]
+    log(f"restart --serve --prewarm: replayed {n}/{n}, serve_prewarmed 1 and "
+        f"serve_steady_compiles 0 from tick 0, 72 lines == the batch CLI, both kernels; "
+        f"without --prewarm (cold) beside it, the same build dir: {'; '.join(walls)} "
+        f"[{card}]")
+
+    # -- c. stale: another digest re-warms every entry ------------------------
+    man = json.loads(manifest.read_text())
+    man["fingerprint"]["digest"] = "0" * 16
+    for e in man["entries"]:
+        e["fingerprint"] = "0" * 16
+    manifest.write_text(json.dumps(man))
+    saved = os.environ.get("SEQALIGN_CACHE_DIR")
+    os.environ["SEQALIGN_CACHE_DIR"] = str(cache)
+    try:
+        err = []
+        m = len(man["entries"])
+        rc, out, _ = run_cli(cli, ["--prewarm", "--stream", "64", "--input", str(max_in)],
+                             err)
+    finally:
+        if saved is None:
+            os.environ.pop("SEQALIGN_CACHE_DIR")
+        else:
+            os.environ["SEQALIGN_CACHE_DIR"] = saved
+    hit = re.search(shape_line, err[0])
+    new = load_manifest(str(manifest))
+    if rc != 0 or out.decode() != max_out or hit is None or \
+            hit.group(1, 2, 4, 5, 6) != (str(m), str(m), "0", str(m), "0"):
+        fail(f"stale: rc {rc}, prewarm line {hit and hit.group(0)}: {err[0][-1500:]}")
+    if new is None or len(new["entries"]) != m or len(new["stale"]) != m or \
+            {(e["fingerprint"], e["source"]) for e in new["entries"]} != {(digest, "stale-rewarm")}:
+        fail("stale: the manifest was not written back fresh as stale-rewarm")
+    log(f"stale: digest rewritten -> {m}/{m} entries re-warmed as stale-rewarm and "
+        f"written back under {digest}; --stream 64 max-size == oracle")
+
+    # -- d. the native driver -------------------------------------------------
+    mk = subprocess.run(["make", "final_torch"], cwd=REPO, capture_output=True, text=True,
+                        timeout=300)
+    if mk.returncode != 0:
+        fail(f"make final_torch: {mk.stdout[-2000:]} {mk.stderr[-2000:]}")
+    binary = str(REPO / "final_torch")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TPU_SEQALIGN_")}
+    base["TPU_SEQALIGN_PYROOT"] = str(REPO)
+    jobs = [(f.name, f, f.with_suffix(".out").read_text(), {}) for f in fixtures]
+    jobs.append(("max-size", max_in, max_out, {}))
+    for mesh in ("4", "seq:8"):
+        jobs += [(f"{f.name} mesh {mesh}", f, f.with_suffix(".out").read_text(),
+                  {"TPU_SEQALIGN_MESH": mesh, "SEQALIGN_HOST_DEVICES": "8"})
+                 for f in fixtures]
+
+    def run_native(job):
+        tag, path, golden, extra = job
+        t0 = time.perf_counter()
+        with open(path) as stdin:
+            res = subprocess.run([binary], stdin=stdin, capture_output=True, text=True,
+                                 env={**base, **extra}, timeout=300)
+        return tag, res, golden, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        results = list(pool.map(run_native, jobs))
+    for tag, res, golden, wall in results:
+        if res.returncode != 0 or res.stdout != golden:
+            fail(f"final_torch {tag}: rc {res.returncode}, stdout == golden "
+                 f"{res.stdout == golden}: {res.stderr[-2000:]}")
+    walls = {tag: round(wall, 3) for tag, _, _, wall in results}
+    log(f"final_torch on the card: {len(jobs)} runs byte-identical (7 fixtures, max-size "
+        f"== oracle, the fixtures under TPU_SEQALIGN_MESH=4 and seq:8 on 8 slots of the "
+        f"card); walls (8 at once) {walls} s [{card}]")
+
+    mat1 = _group_matrix(np, CONSERVATIVE_GROUPS)
+    mat2 = _group_matrix(np, SEMI_CONSERVATIVE_GROUPS)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    for tag in ("max-size", "1024 short rows"):
+        p = load_problem(str(inputs[tag]))
+        stride = max(len(s) for s in p.seq2) + 1
+        buf = b"".join(s.upper().encode().ljust(stride, b"\0") for s in p.seq2)
+        t0 = time.perf_counter()
+        got_bytes = native_bridge.score_strided(
+            p.seq1.upper().encode(), buf, stride, len(p.seq2), mat1, mat2,
+            tuple(p.weights), "auto", "", "cuda")
+        wall = time.perf_counter() - t0
+        if got_bytes != _triples(np, inputs[tag].with_suffix(".out").read_text()):
+            fail(f"native bridge {tag}: bytes differ from the oracle's triples")
+        log(f"native bridge {tag}: {len(p.seq2)} rows, one call, bytes == the oracle's "
+            f"triples, wall {wall * 1e3:.3f} ms [{card}]")
+    native = dict(cs.launch_counts)
+    if min(native[k] for k in names) < 1:
+        fail(f"native bridge: launches {native}, both kernels must run")
+    with open(next(f for f in fixtures if f.name == "tiny.txt")) as stdin:
+        res = subprocess.run([binary], stdin=stdin, capture_output=True, text=True,
+                             env={**base, "CUDA_VISIBLE_DEVICES": ""}, timeout=300)
+    if res.returncode == 0 or res.stdout or "torch_backend: error" not in res.stderr \
+            or "no CUDA device" not in res.stderr:
+        fail(f"final_torch without a card: rc {res.returncode}, stdout {res.stdout!r}, "
+             f"stderr {res.stderr[-1000:]}")
+    log(f"native bridge launches {native}; final_torch with CUDA_VISIBLE_DEVICES= and no "
+        f"TPU_SEQALIGN_DEVICE: rc {res.returncode}, no stdout, its diagnostic")
+    tmp.cleanup()
+    log(f"warm and native phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"prewarm": warm, "native": native}
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

@@ -27,6 +27,10 @@ The record, ``wrap_report("bench", ...)``, exactly one stdout line:
   host clock around ``score_codes`` over ``BENCH_REPS`` warm runs (parse
   excluded; host-to-device copies, launches and the copy back included);
   ``cold_start_s``: process start to the first result;
+* ``prewarmed``: whether ``SEQALIGN_PREWARM`` ran the warm plane
+  (``aot/prewarm.py``, with the workload as its problem) before the first
+  run, so that ``e2e_first_run_s`` and ``cold_start_s`` are those of a
+  prewarmed process (its launches are in ``kernel_launches``);
 * ``formulation`` (``cuda``, ``plain`` on the CPU, or ``oracle``),
   ``launches`` (launches per run) and ``kernel_launches`` (launches per
   kernel during this bench, probes included);
@@ -387,6 +391,7 @@ def main(argv=None) -> int:
     from .obs.metrics import wrap_report
     from .ops import cuda_scorer, probe
     from .ops.dispatch import AlignmentScorer, bucket_launches, resolve_device
+    from .utils.env import env_flag
 
     try:
         device = resolve_device(args.device)
@@ -398,6 +403,16 @@ def main(argv=None) -> int:
     scorer = AlignmentScorer(backend, device=device)
     cuda_scorer.reset_launch_counts()
     probe.reset_launch_counts()
+    prewarmed = False
+    if env_flag("SEQALIGN_PREWARM"):
+        try:
+            from .aot.prewarm import prewarm
+
+            prewarm(problem=problem, backend=backend, device=device)
+            prewarmed = True
+        except Exception as e:
+            # advisory: the bench then measures a cold first run.
+            log(f"WARNING: prewarm failed ({e})")
 
     def run():
         return scorer.score_codes(problem.seq1_codes, problem.seq2_codes, problem.weights)
@@ -426,6 +441,7 @@ def main(argv=None) -> int:
         "e2e_first_run_s": first_run_s,
         "e2e_warm_s": statistics.median(walls) if walls else None,
         "cold_start_s": cold_start_s,
+        "prewarmed": prewarmed,
         "formulation": backend if backend == "oracle" or on_card else "plain",
         "launches": len(launches),
         "device": "cpu" if device.type == "cpu" else torch.cuda.get_device_name(device),
@@ -437,7 +453,7 @@ def main(argv=None) -> int:
     print(json.dumps(wrap_report("bench", record)), flush=True)
     log(f"backend={backend} device={record['device']} workload={workload} "
         f"launches={len(launches)} e2e_first_run={first_run_s:.3f}s "
-        f"cold_start={cold_start_s:.3f}s"
+        f"cold_start={cold_start_s:.3f}s{' (prewarmed)' if prewarmed else ''}"
         + (f" device_wall={record['device_wall_us']:.3f}us "
            f"floor={record['floor_us']:.3f}us ({record['floor_by']}) "
            f"bound={record['bound_us']:.3f}us" if on_card else ""))

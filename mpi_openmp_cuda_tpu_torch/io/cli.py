@@ -5,8 +5,9 @@ on the chosen device, and print ``#i: score: S, n: N, k: K`` per Seq2 on
 stdout.  Diagnostics go to stderr; on any failure nothing reaches stdout.
 The port of ``mpi_openmp_cuda_tpu/io/cli.py``'s batch path, its serve
 plane (``--serve``, ``--port``, ``--telemetry-port``: ``serve/loop.py``)
-and its elastic serve fleet (``--fleet-board``, ``--fleet-worker``,
-``--fleet-standby``: ``serve/fleet.py``):
+its elastic serve fleet (``--fleet-board``, ``--fleet-worker``,
+``--fleet-standby``: ``serve/fleet.py``) and its warm plane
+(``--prewarm``: ``aot/``):
 ``--stream`` (chunked, pipelined), ``--journal``/``--resume``,
 ``--retries``, ``--faults``, ``--degrade``, ``--deadline``,
 ``--selfcheck``, the drain on SIGTERM/SIGINT (or ``SEQALIGN_DRAIN=1``),
@@ -266,6 +267,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "immediately, so clients can reconnect-and-redrive before the "
         "takeover lands)",
     )
+    p.add_argument(
+        "--prewarm", action="store_true",
+        help="pay the card's cold costs at process start (the kernels' build "
+        "and load, each width's shared-memory opt-in, one launch a warm "
+        "shape): replay the warm-set manifest of an earlier run and warm the "
+        "problem's launch shapes, then rewrite the manifest, so a restarted "
+        "process (a serve replica, a drain->--resume rerun, a fleet worker) "
+        "answers its first request warm; under --serve the steady-state "
+        "baseline is then pinned at the first tick (SEQALIGN_PREWARM; the "
+        "manifest is <cache home>/aot/<card tag>.json, cache home "
+        "SEQALIGN_CACHE_DIR)",
+    )
     return p
 
 
@@ -346,6 +359,32 @@ def _make_degrader(args, scorer) -> BackendDegrader:
     )
 
 
+def _run_prewarm(args, timer, *, problem=None, backend=None) -> bool:
+    """The warm plane at process start, behind ``--prewarm`` /
+    ``SEQALIGN_PREWARM`` (``aot/prewarm.py``; not for the oracle, which
+    touches no device).  Advisory: a failure is a warning on stderr,
+    never the run's failure, and the run's own launches then meet any
+    fault as they would without a prewarm.  True when the prewarm ran
+    (the serve loop then pins its steady baseline at tick 0)."""
+    if not args.prewarm or args.backend == "oracle":
+        return False
+    try:
+        from ..aot.prewarm import prewarm
+        from ..serve.batcher import DEFAULT_BLOCK_ROWS
+
+        with timer.phase("prewarm"):
+            # A problem-bearing prewarm also warms the serve superblock
+            # shapes of its rows: the manifest it writes is what a later
+            # `--serve --prewarm` restart replays.
+            prewarm(problem=problem, backend=backend, device=args.device,
+                    rows_per_block=env_int("SEQALIGN_SERVE_BLOCK_ROWS", DEFAULT_BLOCK_ROWS))
+        return True
+    except Exception as e:
+        # advisory: warming is an optimization; scoring proceeds cold.
+        print(f"{PROG}: warning: prewarm failed ({e})", file=sys.stderr)
+        return False
+
+
 def _run_batch(args, policy, out, timer, dist=None) -> None:
     """The batch path.  In a multi-process job (``dist``) only rank 0
     parses, and broadcasts the problem (an abort header when its parse
@@ -392,6 +431,10 @@ def _run_batch(args, policy, out, timer, dist=None) -> None:
             staged = FeedStager(deg).stage(
                 problem.seq1_codes, problem.seq2_codes, problem.weights)
     obs_gauge("backend", deg.scorer.backend)
+    if dist is None and deg.scorer.sharding is None:
+        # The warm set mirrors the single-device dispatch: a mesh's or a
+        # job's launches are per shard, and are not warmed here.
+        _run_prewarm(args, timer, problem=problem, backend=deg.scorer.backend)
 
     def score_once(sc):
         if journal is not None:
@@ -502,6 +545,11 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
     with timer.phase("setup"):
         deg = _make_degrader(args, _make_scorer(args, dist is not None))
     obs_gauge("backend", deg.scorer.backend)
+    if dist is None:
+        # Replay only (no problem is in hand before the stream starts): a
+        # drain -> --resume rerun rejoins warm from its predecessor's
+        # manifest.
+        _run_prewarm(args, timer)
     all_results = [] if args.json else None
     lines = io.StringIO()
     try:
@@ -655,10 +703,11 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
 
 def _run_fleet_worker(args, policy, timer) -> int:
     """The ``--fleet-worker`` path: one scorer whose kernels are built and
-    loaded before the worker registers (a first claim pays no build inside
-    its lease; a kernel that cannot be built is the CLI's 65 without
-    ``--degrade``), then ``serve.fleet.run_fleet_worker`` until the
-    coordinator posts shutdown or a drain signal; the worker's exit code."""
+    loaded (and, with ``--prewarm``, the manifest's shapes warmed) before
+    the worker registers (a first claim pays no build inside its lease; a
+    kernel that cannot be built is the CLI's 65 without ``--degrade``),
+    then ``serve.fleet.run_fleet_worker`` until the coordinator posts
+    shutdown or a drain signal; the worker's exit code."""
     from ..serve import fleet as serve_fleet
     from ..serve import loop as serve_loop
 
@@ -666,14 +715,16 @@ def _run_fleet_worker(args, policy, timer) -> int:
         deg = _make_degrader(args, _make_scorer(args, False))
         serve_loop.warm_kernels(deg)
     obs_gauge("backend", deg.scorer.backend)
+    _run_prewarm(args, timer, backend=deg.scorer.backend)
     return serve_fleet.run_fleet_worker(args, timer, policy, deg)
 
 
 def _run_serve(args, policy, out, timer) -> None:
     """The ``--serve`` and ``--fleet-standby`` path: one scorer (``--mesh``
     shards it) whose kernels are built and loaded before the first
-    request, then ``serve.loop.run_serve`` until the input drains or a
-    drain signal."""
+    request, with ``--prewarm`` the manifest's launch shapes replayed (the
+    loop then pins its steady baseline at tick 0), then
+    ``serve.loop.run_serve`` until the input drains or a drain signal."""
     from ..serve import loop as serve_loop
 
     if args.journal:
@@ -682,7 +733,8 @@ def _run_serve(args, policy, out, timer) -> None:
         deg = _make_degrader(args, _make_scorer(args, False))
         serve_loop.warm_kernels(deg)
     obs_gauge("backend", deg.scorer.backend)
-    serve_loop.run_serve(args, timer, policy, deg, out_stream=out)
+    prewarmed = _run_prewarm(args, timer, backend=deg.scorer.backend)
+    serve_loop.run_serve(args, timer, policy, deg, out_stream=out, prewarmed=prewarmed)
 
 
 def _reject_fleet_combos(args) -> str | None:
@@ -779,6 +831,7 @@ def run(argv: list[str] | None = None) -> int:
     # runtime try below would make it a 65.
     try:
         policy, fault_spec = _build_policy(args)
+        args.prewarm = args.prewarm or env_flag("SEQALIGN_PREWARM")
         if fault_spec:
             parse_spec(fault_spec)
         deadline = args.deadline

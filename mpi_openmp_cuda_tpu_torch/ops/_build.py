@@ -81,11 +81,17 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """sha256 hex of the flags and sources a build of ``csrc/<name>.cu``
+    depends on (the ``.cu`` file and the shared ``.cuh`` headers)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_digest(name)[:16]}.so"
 
 
 def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, str]:

@@ -228,8 +228,8 @@ class PlannedLaunch:
     l2s: int | None
 
 
-def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
-                  fuse: bool = True):
+def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
+                 fuse: bool = True):
     """``(val_flat, [PlannedLaunch])`` of one batch: caps and the int32
     admission gate checked on the whole batch, over its scored rows (an
     error names the caller's input index before anything is launched),
@@ -238,7 +238,8 @@ def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
     one launch a bucket, the schedule the groups are held against), each
     group padded by :func:`pad_problem` and its kernel chosen by
-    :func:`choose_rowpack`."""
+    :func:`choose_rowpack`.  Records nothing: the warm plane plans
+    launches it does not dispatch (``aot/warmset.py``)."""
     from .schedule import plan_fusion_groups
 
     val_flat = admit(seq1_codes, seq2_codes, weights)
@@ -249,15 +250,25 @@ def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     groups = plan_buckets(sizes, packable=cuda)
     group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
                   if cuda and fuse else [(k,) for k in sorted(groups)])
-    _obs_gauge("config_fused_groups", len(group_keys))
     plans = []
     for keys in group_keys:
         idx = np.asarray(sorted(i for k in keys for i in groups[k]), dtype=np.int64)
         batch = pad_problem(seq1_codes, [seq2_codes[i] for i in idx])
         l2s = choose_rowpack(batch.l2p, batch.len2) if cuda else None
-        if cuda:
-            _obs_gauge("config_rowpack", l2s if l2s is not None else 0)
         plans.append(PlannedLaunch(tuple(keys), idx, batch, l2s))
+    return val_flat, plans
+
+
+def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
+                  fuse: bool = True):
+    """:func:`launch_plans` of a batch about to be dispatched, recorded
+    in the ``config_fused_groups`` and ``config_rowpack`` gauges."""
+    val_flat, plans = launch_plans(seq1_codes, seq2_codes, weights, backend, fuse=fuse)
+    if plans:
+        _obs_gauge("config_fused_groups", len(plans))
+    if backend == "cuda":
+        for plan in plans:
+            _obs_gauge("config_rowpack", plan.l2s if plan.l2s is not None else 0)
     return val_flat, plans
 
 

@@ -11,8 +11,11 @@ the port's rule; ``parallel/comm.py`` picks the collectives).
 The devices a mesh can take: on ``cuda``, one slot per card
 (``torch.cuda.device_count()``) unless ``devices=`` names them (repeats
 allowed, as in JAX: a one-card host can run a mesh whose slots all name
-``cuda:0``); on ``cpu``, ``SEQALIGN_HOST_DEVICES`` slots (default 1), each
-naming the one CPU device, the counterpart of XLA's
+``cuda:0``), or, when ``SEQALIGN_HOST_DEVICES`` asks for more slots than
+there are cards, that many slots naming the cards in turn (so the native
+driver's ``TPU_SEQALIGN_MESH`` reaches a mesh on a one-card host); on
+``cpu``, ``SEQALIGN_HOST_DEVICES`` slots (default 1), each naming the one
+CPU device, the counterpart of XLA's
 ``--xla_force_host_platform_device_count``; under ``--distributed``, one
 slot per process.
 """
@@ -62,9 +65,13 @@ def global_devices(device="cuda") -> list[torch.device]:
         rank = process_index()
         return [local_device(kind) if r == rank else torch.device(kind)
                 for r in range(world)]
+    slots = max(1, env_int("SEQALIGN_HOST_DEVICES"))
     if kind == "cpu":
-        return [torch.device("cpu")] * max(1, env_int("SEQALIGN_HOST_DEVICES"))
-    return [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+        return [torch.device("cpu")] * slots
+    cards = [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+    if cards and slots > len(cards):
+        return [cards[i % len(cards)] for i in range(slots)]
+    return cards
 
 
 def _mesh(devs: list, shape: tuple[int, ...], names: tuple[str, ...]) -> Mesh:

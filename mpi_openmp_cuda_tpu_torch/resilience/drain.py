@@ -10,6 +10,13 @@ boundary (the batch journal loop and the ``--stream`` submit loop);
 CLI exits 75 (``EX_TEMPFAIL``: rerun with ``--resume``).  A second
 signal exits at once (``os._exit(128 + signum)``).
 
+The handler only sets the flag and notes the signal: it publishes
+nothing.  The bus's subscribers (the flight recorder, the trace) take
+locks the interrupted main thread may be holding, and a publish from the
+handler would wait on them forever.  The next :func:`drain_requested`
+check (or the guard's exit) announces the request: the ``drain.request``
+event and the stderr line.
+
 :class:`DrainInterrupt` is a ``BaseException``: the retry policy's
 ``except Exception`` must not retry a preemption.
 """
@@ -29,24 +36,31 @@ class DrainInterrupt(BaseException):
 
 _requested = False
 _signals = 0
+_pending: str | None = None  # a signal's name, announced outside the handler
+_announce_lock = threading.Lock()
 
 
 def drain_requested() -> bool:
-    """The chunk-boundary check: one global read."""
+    """The chunk-boundary check: one global read (and, once after a
+    signal, its announcement)."""
+    if _pending is not None:
+        _announce()
     return _requested
 
 
-def request_drain(why: str, log=None) -> None:
-    """Set the drain flag (idempotent), logged once."""
-    global _requested
-    if not _requested:
-        _requested = True
-        publish("drain.request", why=why)
-        (log or log_line)(
-            f"mpi_openmp_cuda_tpu_torch: drain requested ({why}); finishing "
-            "in-flight chunks, flushing the journal, then exiting 75 "
-            "(resumable) — a second signal force-exits"
-        )
+def _announce(log=None) -> None:
+    """Publish and log a signal's drain request, once."""
+    global _pending
+    with _announce_lock:
+        why, _pending = _pending, None
+    if why is None:
+        return
+    publish("drain.request", why=why)
+    (log or log_line)(
+        f"mpi_openmp_cuda_tpu_torch: drain requested ({why}); finishing "
+        "in-flight chunks, flushing the journal, then exiting 75 "
+        "(resumable) — a second signal force-exits"
+    )
 
 
 class drain_guard:
@@ -59,7 +73,7 @@ class drain_guard:
         self._saved: list[tuple[int, object]] = []
 
     def __enter__(self):
-        global _requested, _signals
+        global _requested, _signals, _pending
         prearm = self._prearm
         if prearm is None:
             from ..utils.env import env_flag
@@ -67,6 +81,7 @@ class drain_guard:
             prearm = env_flag("SEQALIGN_DRAIN")
         _requested = bool(prearm)
         _signals = 0
+        _pending = None
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
                 try:
@@ -77,6 +92,7 @@ class drain_guard:
 
     def __exit__(self, *exc):
         global _requested, _signals
+        _announce(self._log)  # a signal no boundary saw
         saved, self._saved = self._saved, []
         for sig, old in saved:
             try:
@@ -88,13 +104,17 @@ class drain_guard:
         return False
 
     def _on_signal(self, signum, frame) -> None:
-        global _signals
+        global _signals, _requested, _pending
         _signals += 1
         if _signals > 1:
             # A second signal: exit now; flushed journal chunks are fsync'd.
             os._exit(128 + signum)
+        if _requested:
+            return
         try:
             name = signal.Signals(signum).name
         except ValueError:
             name = f"signal {signum}"
-        request_drain(name, self._log)
+        # Flag and note only: the announcement waits for drain_requested.
+        _pending = name
+        _requested = True

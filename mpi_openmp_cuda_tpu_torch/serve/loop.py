@@ -34,7 +34,10 @@ signal handler only sets the flag: no device work happens inside it.
 setups (``ops/_build.py::build_count``) are baselined after the first
 block; the delta is the ``serve_steady_compiles`` gauge, which must stay
 0.  On the card both kernels are loaded before the first tick
-(:func:`warm_kernels`).
+(:func:`warm_kernels`).  After a ``--prewarm`` (``aot/prewarm.py``) the
+baseline is pinned at tick 0 instead (:meth:`ServeLoop.baseline_steady`):
+the first block is held to zero too, and the gauge ``serve_prewarmed``
+is 1.
 
 **SLO armor**: admission is a cost-aware token bucket plus the
 accept/shed-new/drain-only machine (:mod:`.slo`); per-request deadlines
@@ -590,6 +593,14 @@ class ServeLoop:
             "dropped (clients were sent drained notices)"
         )
 
+    def baseline_steady(self) -> None:
+        """Pin the steady baseline now, before the first tick (after a
+        prewarm), so the first block too must reuse what is built, loaded
+        and set up; the gauge ``serve_prewarmed`` says the strict baseline
+        is armed."""
+        self._steady_base = build_count()
+        obs_gauge("serve_prewarmed", 1)
+
     def record_steady_gauge(self) -> None:
         """Export the builds, loads and setups since the first block (0
         until a block has finished)."""
@@ -731,7 +742,7 @@ def warm_kernels(deg) -> None:
         log_line(f"{PROG}: warning: serve: the kernels are not available ({e})")
 
 
-def run_serve(args, timer, policy, deg, out_stream=None) -> int:
+def run_serve(args, timer, policy, deg, out_stream=None, prewarmed=False) -> int:
     """CLI entry for ``--serve`` and ``--fleet-standby`` (called with the
     obs plane, faults, the watchdog and the drain guard already armed, and
     the kernels warmed, by ``io.cli.run``).
@@ -748,6 +759,9 @@ def run_serve(args, timer, policy, deg, out_stream=None) -> int:
     fresh generation (the coordinator) or waits to take one over (the
     standby); a clean completion sweeps the board (``gc_final``) and every
     exit posts the shutdown key that releases the workers.
+
+    ``prewarmed`` (the CLI ran the prewarm) pins the steady baseline at
+    tick 0 (:meth:`ServeLoop.baseline_steady`).
     """
     from ..io.parse import open_input
     from ..io.pipeline import ChunkPipeline
@@ -765,6 +779,8 @@ def run_serve(args, timer, policy, deg, out_stream=None) -> int:
         obs_gauge("breaker_state", STATE_CLOSED)
     loop = ServeLoop(ChunkPipeline(policy, deg, breaker=breaker), policy,
                      journal_path=args.journal)
+    if prewarmed:
+        loop.baseline_steady()
     standby = bool(getattr(args, "fleet_standby", False))
     board = leader = None
     if getattr(args, "fleet_board", None):

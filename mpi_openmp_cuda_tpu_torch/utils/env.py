@@ -3,12 +3,14 @@
 A copy of the registry pattern of ``mpi_openmp_cuda_tpu/utils/
 platform.py``, holding only the variables the port reads so far (the
 serve, telemetry and breaker knobs of ``--serve``, the fleet's and the
-rescue tier's ``SEQALIGN_BEACON_S`` among them), under
+rescue tier's ``SEQALIGN_BEACON_S``, the warm plane's ``SEQALIGN_PREWARM``
+and the native driver's ``TPU_SEQALIGN_DEVICE`` among them), under
 the same names as the JAX package, so one shell drives both CLIs, plus
 the rendezvous variables of a ``--distributed`` job under torchrun's
 names (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``); nothing else in the port reads
-them.  Every
+them.  :func:`cache_home` and :func:`platform_tag` place the warm
+plane's manifest (``aot/manifest.py``).  Every
 read happens at call time (tests' ``monkeypatch.setenv`` works) and a
 malformed value raises one ``ValueError`` naming the variable.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +72,18 @@ ENV_VARS: tuple[EnvVar, ...] = (
     EnvVar("TPU_SEQALIGN_COMPILE_CACHE", "str", None,
            "off/0 disables the cache home; a directory is the legacy "
            "home when SEQALIGN_CACHE_DIR is unset"),
+    EnvVar("SEQALIGN_PREWARM", "flag", False,
+           "warm the kernels' launch shapes at process start (same as "
+           "--prewarm; the manifest lives under <cache home>/aot)"),
+    EnvVar("TPU_SEQALIGN_DEVICE", "str", None,
+           "the native driver final_torch's device: cuda (default) or cpu "
+           "(read by native/torch_backend.cpp, handed to native_bridge)"),
     EnvVar("SEQALIGN_HOST_DEVICES", "int", 1,
            "mesh devices the host counts as under --device cpu, each naming "
            "the one CPU device (the port's counterpart of XLA's "
-           "--xla_force_host_platform_device_count)"),
+           "--xla_force_host_platform_device_count); on cuda, a count above "
+           "the card count gives that many mesh slots naming the cards in "
+           "turn"),
     # The serve plane (--serve): its socket, queue, batching, SLO armor
     # and live telemetry.
     EnvVar("SEQALIGN_SERVE_PORT", "int", None,
@@ -236,3 +247,21 @@ def cache_home() -> str | None:
     if legacy:
         return legacy
     return os.path.join(os.path.expanduser("~"), ".cache", "mpi_openmp_cuda_tpu_torch")
+
+
+def platform_tag(device=None) -> str:
+    """The warm plane's partition tag for ``device`` (``cuda`` when None):
+    ``cuda-sm<major><minor>-<device-name slug>`` on a card (e.g.
+    ``cuda-sm90-nvidia-h100-80gb-hbm3``), the device type (``cpu``)
+    otherwise; the port's counterpart of ``mpi_openmp_cuda_tpu/utils/
+    platform.py::platform_tag``, so a CPU manifest never drives a card's
+    replay, nor one card's another's."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    major, minor = torch.cuda.get_device_capability(index)
+    slug = re.sub(r"[^a-z0-9]+", "-", torch.cuda.get_device_name(index).lower()).strip("-")
+    return f"cuda-sm{major}{minor}-{slug}"

@@ -57,6 +57,24 @@ def test_host_devices_default_to_one(monkeypatch):
     assert tmesh.global_devices("cpu") == [CPU] * 8
 
 
+def test_host_devices_past_the_card_count_repeat_the_cards(monkeypatch):
+    """On cuda the knob only adds slots: past the card count they name the
+    cards in turn (a one-card host reaches any mesh); below it every card
+    is a slot, as without it."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cards = [torch.device("cuda:0"), torch.device("cuda:1")]
+    monkeypatch.delenv("SEQALIGN_HOST_DEVICES", raising=False)
+    assert tmesh.global_devices("cuda") == cards
+    monkeypatch.setenv("SEQALIGN_HOST_DEVICES", "5")
+    assert tmesh.global_devices("cuda") == cards * 2 + cards[:1]
+    assert tmesh.make_mesh(4).size == 4
+    monkeypatch.setenv("SEQALIGN_HOST_DEVICES", "1")
+    assert tmesh.global_devices("cuda") == cards
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setenv("SEQALIGN_HOST_DEVICES", "4")
+    assert tmesh.global_devices("cuda") == []
+
+
 def test_make_mesh_shapes(monkeypatch):
     monkeypatch.setenv("SEQALIGN_HOST_DEVICES", "8")
     assert tmesh.make_mesh(device="cpu").size == 8

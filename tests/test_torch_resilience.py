@@ -537,6 +537,30 @@ def test_sigterm_mid_stream_drains_then_resume(tmp_path, monkeypatch, capfd):
     assert out == golden("stress_small")
 
 
+def test_sigterm_inside_a_bus_publish_is_announced_at_the_next_check(capfd):
+    """The drain handler publishes nothing: a SIGTERM that lands while the
+    main thread holds the flight recorder's and the trace's locks (inside
+    a bus publish) only sets the flag, and the next check announces it
+    (a publish from the handler would wait on those locks forever)."""
+    from mpi_openmp_cuda_tpu_torch.obs import (
+        arm_observability, disarm_observability, flightrec, trace)
+
+    registry, _ = arm_observability(with_trace=True, flightrec_depth=16)
+    try:
+        with drain_mod.drain_guard():
+            with flightrec.active_flightrec()._lock, trace.active_trace()._lock:
+                signal.raise_signal(signal.SIGTERM)
+            assert "drain requested" not in capfd.readouterr().err
+            assert drain_mod.drain_requested()
+            assert "drain requested (SIGTERM)" in capfd.readouterr().err
+            assert registry.snapshot()["counters"]["drain_requests"] == 1
+            assert [e["name"] for e in flightrec.active_flightrec().snapshot_tape()
+                    if e["name"] == "drain.request"] == ["drain.request"]
+    finally:
+        disarm_observability()
+    assert not drain_mod.drain_requested()
+
+
 def test_cli_run_leaves_no_signal_handlers(capfd):
     before = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT))
     port("--input", fixture("tiny"), "--deadline", "5", capfd=capfd)
