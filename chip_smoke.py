@@ -194,7 +194,26 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    in this process on max-size and the 1024-short-row input (counts set to
    0 just before: both kernels launch), bytes == the oracle's triples; the
    binary with ``CUDA_VISIBLE_DEVICES=`` exits non-zero with its
-   diagnostic and no stdout.
+   diagnostic and no stdout;
+18. ``--check`` (``analysis/``): (a) the fixtures, max-size, input3-class
+   and the 1024 short rows through the CLI without and with ``--check``
+   (stdout == the goldens, the launch counts equal, every checked launch
+   == its plain version by a spy), then with ``SEQALIGN_CHECK=1`` a serve
+   tick in this process (8 max-size and 64 short rows twice each, lines ==
+   the batch CLI's) and ``--mesh 2`` / ``--mesh seq:2`` max-size runs
+   (``SEQALIGN_HOST_DEVICES=2``), each against its unchecked run; (b)
+   max-size's warm CLI wall without and with ``--check``, min of five
+   each (and min and median over 20 each), interleaved, beside the hook's
+   own host time on the same batch; (c) one seeded violation a gate on the card, each
+   raising its subclass with no kernel launch after it: a packing class
+   narrower than a live row (and the same through the CLI: rc 65 and the
+   JAX CLI's stderr shape), a launch group holding a key wider than its
+   L2P, a ring window at L2P 85120 past the card's shared-memory opt-in
+   limit, and a Seq2 code 27; (d) the shared-memory audit over the whole
+   chooser space against the card's ``shared_memory_per_block_optin``
+   (== the kernel library's own query), the model == ``fused_scorer_smem``
+   at every L2P to 12288, and each kernel's registers and static shared
+   memory (``cudaFuncGetAttributes``) held against the model.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
@@ -219,6 +238,7 @@ import os
 import pstats
 import re
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -734,6 +754,8 @@ def main() -> int:
         np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, time_ms, card)
     # -- 17. the warm plane and the native driver -----------------------------
     warm_counts = warm_phase(np, torch, cli, cs, fixtures, inputs, card)
+    # -- 18. --check: the launch contracts on the card -------------------------
+    check_counts = check_phase(np, torch, cli, cs, compare, fixtures, inputs, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -747,7 +769,7 @@ def main() -> int:
              "rescue": rescue_counts, "robustness": robust_counts,
              "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
-             **warm_counts,
+             **warm_counts, "check": check_counts,
              "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2671,6 +2693,265 @@ def warm_phase(np, torch, cli, cs, fixtures, inputs, card) -> dict[str, dict[str
     tmp.cleanup()
     log(f"warm and native phase: {time.perf_counter() - t_phase:.1f} s")
     return {"prewarm": warm, "native": native}
+
+
+def check_phase(np, torch, cli, cs, compare, fixtures, inputs, card) -> dict[str, int]:
+    """Phase 18: ``--check`` on the card.  (a) the fixtures, max-size,
+    input3-class and the 1024 short rows through the CLI with ``--check``,
+    a serve tick in this process and ``--mesh 2`` / ``--mesh seq:2`` runs
+    with ``SEQALIGN_CHECK=1``: stdout == the goldens, launch counts == the
+    unchecked runs', every checked launch == its plain version (a spy);
+    (b) max-size's warm CLI wall with and without ``--check``; (c) one
+    seeded violation a gate, each raising its subclass with no launch
+    after it, and one through the CLI (rc 65, the JAX CLI's stderr shape);
+    (d) the shared-memory and register audit against the card's own
+    attributes.  Returns the checked runs' launch counts."""
+    import dataclasses
+
+    from mpi_openmp_cuda_tpu_torch.analysis import (
+        OperandViolation, RowpackViolation, SmemBudgetError, SuperblockViolation,
+        smem)
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.io.pipeline import ChunkPipeline
+    from mpi_openmp_cuda_tpu_torch.ops import dispatch
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer
+    from mpi_openmp_cuda_tpu_torch.parallel.ring import RingSharding
+    from mpi_openmp_cuda_tpu_torch.resilience.degrade import BackendDegrader
+    from mpi_openmp_cuda_tpu_torch.resilience.policy import RetryPolicy
+    from mpi_openmp_cuda_tpu_torch.serve.loop import ServeLoop, warm_kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    tags = [f.name for f in fixtures] + ["max-size", "input3-class", "1024 short rows"]
+    gold = {t: inputs[t].with_suffix(".out").read_bytes() for t in tags}
+    real = {"fused_scorer": dispatch.fused_scorer, "packed_scorer": dispatch.packed_scorer}
+    seen = []
+
+    def fused(state):
+        raw = real["fused_scorer"](state)
+        compare("fused_scorer", raw, cs.fused_scorer_plain(state))
+        seen.append("fused_scorer")
+        return raw
+
+    def packed(state, l2s):
+        raw = real["packed_scorer"](state, l2s)
+        compare("packed_scorer", raw, cs.packed_scorer_plain(state, l2s))
+        seen.append("packed_scorer")
+        return raw
+
+    def spy(on: bool):
+        if on:
+            dispatch.fused_scorer, dispatch.packed_scorer = fused, packed
+        else:
+            dispatch.fused_scorer = real["fused_scorer"]
+            dispatch.packed_scorer = real["packed_scorer"]
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(cs.launch_counts)
+
+    # -- a. the CLI with --check == without, the launches == plain -----------
+    check_counts = dict.fromkeys(cs.launch_counts, 0)
+    for tag in tags:
+        argv = ["--input", str(inputs[tag])]
+        (rc0, out0, _), base = counted(lambda: run_cli(cli, argv))
+        spy(True)
+        try:
+            seen.clear()
+            (rc, out, _), got = counted(lambda: run_cli(cli, ["--check", *argv]))
+        finally:
+            spy(False)
+        if rc0 != 0 or rc != 0 or out != gold[tag] or out0 != gold[tag]:
+            fail(f"check: {tag}: rc {rc0}/{rc}, stdout differs from the golden")
+        if got != base or len(seen) != sum(got.values()):
+            fail(f"check: {tag}: launches {got} with --check, {base} without "
+                 f"({len(seen)} spied)")
+        for name, n in got.items():
+            check_counts[name] += n
+    log(f"check cli: {len(tags)} inputs byte-identical with --check, launches "
+        f"{check_counts} == the unchecked runs', every one == plain")
+
+    # In process with SEQALIGN_CHECK=1: a serve tick, then two meshes.
+    os.environ["SEQALIGN_CHECK"] = "1"
+    try:
+        probs = {t: load_problem(str(inputs[t])) for t in ("max-size", "1024 short rows")}
+        lines = {t: gold[t].decode().splitlines() for t in probs}
+        reqs = [({"id": f"m{i}", "weights": list(probs["max-size"].weights),
+                  "seq1": probs["max-size"].seq1,
+                  "seq2": probs["max-size"].seq2[8 * i:8 * i + 8]},
+                 _renumbered(lines["max-size"], 8 * i, 8)) for i in range(2)]
+        reqs += [({"id": f"s{i}", "weights": list(probs["1024 short rows"].weights),
+                   "seq1": probs["1024 short rows"].seq1,
+                   "seq2": probs["1024 short rows"].seq2[64 * i:64 * i + 64]},
+                  _renumbered(lines["1024 short rows"], 64 * i, 64)) for i in range(2)]
+
+        def serve_tick(check):
+            policy = RetryPolicy()
+            scorer = AlignmentScorer("cuda", device="cuda", check=check)
+            deg = BackendDegrader(scorer, lambda b: AlignmentScorer(b, device="cuda"))
+            warm_kernels(deg)
+            loop = ServeLoop(ChunkPipeline(policy, deg), policy)
+            if loop.check != bool(check if check is not None else True):
+                fail(f"check: the serve loop's check is {loop.check}")
+            sink = _Sink()
+            for raw, _ in reqs:
+                loop.ingest(json.dumps(raw), sink)
+            def drain():
+                while loop.tick():
+                    pass
+
+            _, counts = counted(drain)
+            got = _lines_of(sink.records)
+            for raw, want in reqs:
+                if got.get(raw["id"]) != want:
+                    fail(f"check: serve request {raw['id']} differs from the batch CLI")
+            return counts
+
+        base = serve_tick(False)
+        spy(True)
+        try:
+            seen.clear()
+            got = serve_tick(None)  # SEQALIGN_CHECK=1
+        finally:
+            spy(False)
+        if got != base or len(seen) != sum(got.values()) or min(got.values()) < 1:
+            fail(f"check: serve tick launches {got} with the check, {base} without")
+        for name, n in got.items():
+            check_counts[name] += n
+        log(f"check serve tick (SEQALIGN_CHECK=1): {len(reqs)} requests == the batch "
+            f"CLI, launches {got} == unchecked, every one == plain")
+
+        os.environ["SEQALIGN_HOST_DEVICES"] = "2"
+        try:
+            for mesh in ("2", "seq:2"):
+                argv = ["--mesh", mesh, "--input", str(inputs["max-size"])]
+                os.environ["SEQALIGN_CHECK"] = "0"
+                (rc0, out0, _), base = counted(lambda: run_cli(cli, argv))
+                os.environ["SEQALIGN_CHECK"] = "1"
+                (rc, out, _), got = counted(lambda: run_cli(cli, argv))
+                if rc0 or rc or out != gold["max-size"] or out0 != out:
+                    fail(f"check: --mesh {mesh}: rc {rc0}/{rc}, stdout differs")
+                if got != base or got["fused_scorer"] < 2:
+                    fail(f"check: --mesh {mesh}: launches {got}, unchecked {base}")
+                for name, n in got.items():
+                    check_counts[name] += n
+                log(f"check --mesh {mesh} (SEQALIGN_CHECK=1): max-size == golden, "
+                    f"launches {got} == unchecked")
+        finally:
+            os.environ.pop("SEQALIGN_HOST_DEVICES", None)
+    finally:
+        os.environ.pop("SEQALIGN_CHECK", None)
+
+    # -- b. the check's added wall: max-size, warm, min of five --------------
+    path = str(inputs["max-size"])
+    off, on = [], []
+    for i in range(40):
+        checked = i % 4 in (1, 2)  # off, on, on, off, ...
+        rc, _, wall = run_cli(cli, (["--check"] if checked else []) + ["--input", path])
+        if rc:
+            fail(f"check: max-size wall run rc {rc}")
+        (on if checked else off).append(wall)
+    log(f"check wall max-size: off {min(off[:5]) * 1e3:.3f} ms, --check "
+        f"{min(on[:5]) * 1e3:.3f} ms (min of five each; "
+        f"{(min(on[:5]) - min(off[:5])) * 1e3:+.3f} ms); over {len(off)} runs each: "
+        f"min {min(off) * 1e3:.3f} / {min(on) * 1e3:.3f} ms, median "
+        f"{statistics.median(off) * 1e3:.3f} / {statistics.median(on) * 1e3:.3f} ms [{card}]")
+    # The hook alone on the same batch: validate_plans over max-size's
+    # planned launches on the card, host clock, 200 calls.
+    prob = load_problem(path)
+    val_flat, plans = dispatch.launch_plans(prob.seq1_codes, prob.seq2_codes, prob.weights)
+    dispatch._validate(val_flat, plans, "cuda", dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dispatch._validate(val_flat, plans, "cuda", dev)
+    hook_ms = (time.perf_counter() - t0) / 200 * 1e3
+    log(f"check hook max-size: {hook_ms:.6f} ms a batch ({len(plans)} launch "
+        f"group(s), host) [{card}]")
+
+    # -- c. one seeded violation a gate: its subclass, no launch after ------
+    def seeded(what, exc, fn):
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        try:
+            fn()
+        except exc as e:
+            torch.cuda.synchronize()
+            if any(cs.launch_counts.values()):
+                fail(f"check: {what}: launches {cs.launch_counts} after the violation")
+            log(f"check seeded {what}: {type(e).__name__}, no launch: {str(e)[:160]}")
+            return
+        fail(f"check: {what}: no {exc.__name__} raised")
+
+    checked_scorer = AlignmentScorer("cuda", device=dev, check=True)
+    p_short = load_problem(str(inputs["1024 short rows"]))
+    p_max = load_problem(str(inputs["max-size"]))
+    choose = dispatch.choose_rowpack
+    dispatch.choose_rowpack = lambda l2p, lens: (8 if choose(l2p, lens) else None)
+    try:
+        seeded("class narrower than a live row", RowpackViolation,
+               lambda: checked_scorer.score_codes(p_short.seq1_codes, p_short.seq2_codes,
+                                                  p_short.weights))
+        err = []
+        rc, out, _ = run_cli(cli, ["--check", "--input", str(inputs["1024 short rows"])], err)
+        msg = err[0].strip().splitlines()[-1] if err and err[0].strip() else ""
+        if rc != 65 or out or not msg.startswith(
+                "mpi_openmp_cuda_tpu_torch: error: scoring: retry budget exhausted "
+                "after 1 attempts (rowpack class l2s=8"):
+            fail(f"check: the CLI's seeded violation: rc {rc}, stderr {msg!r}")
+        log(f"check seeded violation through the CLI: rc 65, {msg[:120]}")
+    finally:
+        dispatch.choose_rowpack = choose
+    plans = dispatch.launch_plans
+
+    def wide_key(*a, **k):
+        val_flat, got = plans(*a, **k)
+        return val_flat, [dataclasses.replace(p, keys=p.keys + (p.batch.l2p + 128,))
+                          if p.l2s is None else p for p in got]
+
+    dispatch.launch_plans = wide_key
+    try:
+        seeded("group key wider than its L2P", SuperblockViolation,
+               lambda: checked_scorer.score_codes(p_max.seq1_codes, p_max.seq2_codes,
+                                                  p_max.weights))
+    finally:
+        dispatch.launch_plans = plans
+    rng = np.random.default_rng(18)
+    ring = AlignmentScorer("cuda", device=dev, check=True,
+                           sharding=RingSharding.over_devices(2, devices=[dev] * 2))
+    long1 = rng.integers(1, 27, size=86000).astype(np.int8)
+    long2 = rng.integers(1, 27, size=85000).astype(np.int8)
+    seeded("shared memory past the card's opt-in limit (a ring window at L2P 85120)",
+           SmemBudgetError, lambda: ring.score_codes(long1, [long2], [1, 1, 1, 1]))
+    bad = [np.array([1, 2, 27], dtype=np.int8), *p_max.seq2_codes[:3]]
+    seeded("codes >= 27", OperandViolation,
+           lambda: checked_scorer.score_codes(p_max.seq1_codes, bad, p_max.weights))
+
+    # -- d. the shared-memory and register audit, the card's own numbers ----
+    budget = smem.card_budget(dev)
+    limit = cs._smem_limit(dev)
+    if budget != limit:
+        fail(f"check: torch's shared_memory_per_block_optin {budget} != the "
+             f"kernel library's {limit}")
+    n, worst = smem.audit_chooser_space(budget=budget)
+    drift = [l2p for l2p in range(128, smem.MAX_L2P_RING + 1, 128)
+             if cs._smem_need(l2p) != smem.fused_tile_shape(l2p).smem]
+    if drift:
+        fail(f"check: the smem model differs from csrc's tile_shape at L2P {drift[:8]}")
+    rows = smem.audit_attributes(smem.kernel_attributes())
+    log(f"check smem audit: {n} configs within {budget} B a block (the card's "
+        f"opt-in limit); worst {worst.describe()}; fused fits L2P <= "
+        f"{smem.max_fused_l2p(budget)}; model == fused_scorer_smem at every L2P "
+        f"128..{smem.MAX_L2P_RING} [{card}]")
+    for r in rows:
+        log(f"check kernel attributes {r['kernel']}: {r['registers']} registers "
+            f"(ptxas {r['expected_registers']}, cap {r['register_cap']}), static "
+            f"{r['static_bytes']} B (model {r['model_static_bytes']}), max threads "
+            f"{r['max_threads']}")
+    log(f"check phase: {time.perf_counter() - t_phase:.1f} s")
+    return check_counts
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

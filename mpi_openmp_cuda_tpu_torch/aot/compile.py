@@ -41,10 +41,10 @@ def _on_card(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def synthetic_launch(entry, device: torch.device) -> dispatch.BucketLaunch:
-    """The entry's launch on ``device``: ``rows`` rows of L2P ``l2p`` (each
-    ``l2s`` or fewer live chars when packed) against a Seq1 of ``l1p``
-    codes, seeded, staged as ``dispatch.bucket_launches`` stages a plan."""
+def synthetic_plan(entry) -> dispatch.PlannedLaunch:
+    """The entry's launch planned on the host: ``rows`` rows of L2P
+    ``l2p`` (each ``l2s`` or fewer live chars when packed) against a Seq1
+    of ``l1p`` codes, seeded."""
     rng = np.random.default_rng(0)
     len1 = entry.l1p
     len2 = max(1, min(entry.l2s or entry.l2p, len1 - 1))
@@ -54,9 +54,25 @@ def synthetic_launch(entry, device: torch.device) -> dispatch.BucketLaunch:
     rows[:, :len2] = rng.integers(1, 27, size=(entry.rows, len2))
     lens = np.full(entry.rows, len2, dtype=np.int32)
     batch = dispatch.PaddedBatch(seq1ext, len1, rows, lens, entry.l1p, entry.l2p)
-    plan = dispatch.PlannedLaunch(
+    return dispatch.PlannedLaunch(
         (entry.l2s or entry.l2p,), np.arange(entry.rows), batch, entry.l2s)
-    return dispatch._upload(value_table(WARM_WEIGHTS).reshape(-1), [plan], device)[0]
+
+
+def synthetic_launch(entry, device: torch.device) -> dispatch.BucketLaunch:
+    """:func:`synthetic_plan` on ``device``, staged as
+    ``dispatch.bucket_launches`` stages a plan."""
+    return dispatch._upload(value_table(WARM_WEIGHTS).reshape(-1), [synthetic_plan(entry)],
+                            device)[0]
+
+
+def validate_entry(entry, device: torch.device) -> None:
+    """``--check``: the entry's launch through the launch contracts
+    (``analysis/contracts.py``) on its host arrays, before any upload."""
+    from ..analysis.contracts import validate_plans
+
+    plan = synthetic_plan(entry)
+    validate_plans(value_table(WARM_WEIGHTS).reshape(-1), [plan], BACKEND_OF[entry.formulation],
+                   device)
 
 
 def compile_entry(entry, device=None) -> tuple[float, int]:

@@ -26,11 +26,12 @@ from __future__ import annotations
 
 import time
 
+from ..analysis import SeqcheckError
 from ..obs.events import log_line
 from ..obs.metrics import gauge, inc
 from ..ops import _build
 from ..ops.dispatch import resolve_device
-from .compile import compile_entry
+from .compile import compile_entry, validate_entry
 from .manifest import (
     PROG,
     build_manifest,
@@ -59,6 +60,7 @@ def prewarm(
     rows_per_block: int | None = None,
     manifest_path: str | None = None,
     device=None,
+    check: bool = False,
 ) -> dict:
     """Warm the process on ``device`` (``cuda`` when None): manifest
     replay, plus the problem's warm set when a problem is in hand; returns
@@ -67,7 +69,9 @@ def prewarm(
     Merge order: the manifest's fresh entries (known hot from a real
     earlier run), then the problem's warm set, then the stale entries
     re-warmed under the current fingerprint (source ``stale-rewarm``,
-    listed in the new manifest), deduplicated on ``executable_key``."""
+    listed in the new manifest), deduplicated on ``executable_key``.
+    With ``check`` (``--check``) each entry's launch is validated first
+    (``compile.validate_entry``) and a violation raises."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     fp = backend_fingerprint(dev)
@@ -94,7 +98,11 @@ def prewarm(
     failed = 0
     for entry in merged.values():
         try:
+            if check:
+                validate_entry(entry, dev)
             wall_s, nbytes = compile_entry(entry, dev)
+        except SeqcheckError:
+            raise  # --check: a violation is an error, not a cold entry
         except Exception as err:
             # advisory: one entry that failed to warm stays cold; its first
             # dispatch launches the kernel (or raises) as without a prewarm.

@@ -70,6 +70,8 @@ _T0 = time.perf_counter()
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from .utils.env import env_int, env_str  # noqa: E402
+
 PROG = "mpi_openmp_cuda_tpu_torch.bench"
 
 # Quiet-card bf16 GEMM probe (TFLOP/s) per device name, the gate's
@@ -116,12 +118,12 @@ def load_workload():
     from .io.parse import _parse_header_tokens, load_problem
     from .models.workload import INPUT3_CLASS_NAME, input3_class_problem
 
-    path = os.environ.get("BENCH_INPUT")
+    path = env_str("BENCH_INPUT")
     if path:
         problem, name = load_problem(path), os.path.basename(path)
     else:
         problem, name = input3_class_problem(), INPUT3_CLASS_NAME
-    w = os.environ.get("BENCH_WEIGHTS")
+    w = env_str("BENCH_WEIGHTS")
     if w:
         toks = w.replace(",", " ").split()
         if len(toks) != 4:
@@ -132,7 +134,7 @@ def load_workload():
 
 
 def pick_backend() -> str:
-    backend = os.environ.get("BENCH_BACKEND", "cuda")
+    backend = env_str("BENCH_BACKEND")
     if backend not in ("cuda", "oracle"):
         raise ValueError(f"BENCH_BACKEND must be cuda or oracle, got {backend!r}")
     return backend
@@ -344,7 +346,7 @@ def device_fields(problem, launches, device) -> dict:
         lambda: time_ms(run, DEVICE_REPS) / 1e3,
         probe_or_none,
         gate=gate,
-        max_attempts=max(1, int(os.environ.get("BENCH_ATTEMPTS", "3"))),
+        max_attempts=max(1, env_int("BENCH_ATTEMPTS")),
         log=attempt_logger(on_card),
     )
     chosen, gated = select_attempt(attempts, gate)
@@ -378,6 +380,37 @@ def device_fields(problem, launches, device) -> dict:
     sec, by = binding(floor_terms(counts, INT32_OPS_PER_S, SMEM_WORDS_PER_S))
     rec.update({"bound_us": sec * 1e6, "bound_by": by, "wall_vs_bound": wall / sec})
     return rec
+
+
+def ranges_record() -> dict:
+    """The bounds certificate's headline numbers beside the measured ones
+    (``analysis/ranges.py``: every constant of ``ops/bounds.py``
+    re-derived from Hopper numerics): a drifted window shows up in the
+    bench record, not only in ``scripts/torch_ranges_audit.py``.  Host
+    arithmetic only."""
+    from .analysis.ranges import certify
+
+    counts = certify()["counts"]
+    return {"constants_ok": counts["constants_ok"], "constants": counts["constants"],
+            "findings": counts["findings"]}
+
+
+def exitflow_record() -> dict:
+    """The failure-path certificate's headline numbers
+    (``analysis/exitflow.py``): the sink inventory, raise sites, broad
+    handlers, advisory markers and findings.  Host AST walking only."""
+    from .analysis.exitflow import audit_exitflow
+
+    report = audit_exitflow()
+    counts = report["counts"]
+    return {
+        "sinks": dict(report["sinks"]),
+        "raise_sites": counts["raise_sites"],
+        "production_raises": counts["production_raises"],
+        "broad_handlers": counts["broad_handlers"],
+        "advisory_markers": counts["advisory_markers"],
+        "findings": counts["findings"],
+    }
 
 
 def main(argv=None) -> int:
@@ -422,7 +455,7 @@ def main(argv=None) -> int:
     first_run_s = time.perf_counter() - t0
     cold_start_s = time.perf_counter() - _T0
     walls = []
-    for _ in range(int(os.environ.get("BENCH_REPS", "3"))):
+    for _ in range(env_int("BENCH_REPS")):
         t0 = time.perf_counter()
         out = run()
         walls.append(time.perf_counter() - t0)
@@ -450,6 +483,14 @@ def main(argv=None) -> int:
     if on_card:
         record.update(device_fields(problem, launches, device))
     record["kernel_launches"] = {**cuda_scorer.launch_counts, **probe.launch_counts}
+    # The certificates ride every record (never fatal): a drifted bound or
+    # a new unclassified raise lands beside the numbers it would corrupt.
+    for section, make in (("ranges", ranges_record), ("exitflow", exitflow_record)):
+        try:
+            record[section] = make()
+        except Exception as e:
+            # advisory: a diagnostic section; the measurement stands.
+            log(f"WARNING: {section} section failed ({e})")
     print(json.dumps(wrap_report("bench", record)), flush=True)
     log(f"backend={backend} device={record['device']} workload={workload} "
         f"launches={len(launches)} e2e_first_run={first_run_s:.3f}s "

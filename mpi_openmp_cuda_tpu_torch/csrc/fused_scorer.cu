@@ -39,3 +39,20 @@ extern "C" long long fused_scorer_smem_limit() {
         &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return err == cudaSuccess ? bytes : -static_cast<long long>(err);
 }
+
+// Registers, static shared memory and the thread limit of the production
+// kernels as cudaFuncGetAttributes reports them (which = 0: the tile
+// kernel, 1: the finish kernel).  Returns the CUDA error (0 on success).
+extern "C" int fused_scorer_attrs(int which, int* regs, long long* static_smem,
+                                  int* max_threads) {
+  cudaFuncAttributes a = {};
+  cudaError_t err = which == 0
+      ? cudaFuncGetAttributes(&a, fused::tile_kernel<fused::base>)
+      : which == 1 ? cudaFuncGetAttributes(&a, fused::finish_kernel<fused::base>)
+                   : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *static_smem = static_cast<long long>(a.sharedSizeBytes);
+  *max_threads = a.maxThreadsPerBlock;
+  return 0;
+}

@@ -335,3 +335,37 @@ extern "C" int packed_scorer_launch(const int* seq1ext, int len1,
   }
   return static_cast<int>(err);
 }
+
+namespace {
+
+template <int L2S>
+cudaError_t attrs(int which, cudaFuncAttributes* a) {
+  if (which == 0) return cudaFuncGetAttributes(a, tile_kernel<L2S, kWarps>);
+  if (which == 1)
+    return cudaFuncGetAttributes(a, finish_kernel<L2S, kFinishPairs>);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Registers, static shared memory and the thread limit of the production
+// kernels of class l2s as cudaFuncGetAttributes reports them (which = 0:
+// the tile kernel, 1: the finish kernel).  Returns the CUDA error (0 on
+// success; cudaErrorInvalidValue for an l2s outside {8, 16, 32, 64}).
+extern "C" int packed_scorer_attrs(int l2s, int which, int* regs,
+                                   long long* static_smem, int* max_threads) {
+  cudaFuncAttributes a = {};
+  cudaError_t err;
+  switch (l2s) {
+    case 8: err = attrs<8>(which, &a); break;
+    case 16: err = attrs<16>(which, &a); break;
+    case 32: err = attrs<32>(which, &a); break;
+    case 64: err = attrs<64>(which, &a); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *static_smem = static_cast<long long>(a.sharedSizeBytes);
+  *max_threads = a.maxThreadsPerBlock;
+  return 0;
+}

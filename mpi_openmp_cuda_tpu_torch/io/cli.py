@@ -42,9 +42,11 @@ import io
 import os
 import signal
 import sys
+import threading
 
 import numpy as np
 
+from ..analysis import SeqcheckError
 from ..obs import arm_observability, disarm_observability
 from ..obs import export as obs_export
 from ..obs import flightrec as obs_flightrec
@@ -64,6 +66,7 @@ from .pipeline import ChunkPipeline, FeedStager, PendingWindow
 from .printer import guarded_stdout, print_results, write_json_sidecar
 
 EX_OK = 0
+EX_ARGPARSE = 2  # argparse's own usage error
 EX_USAGE = 64
 EX_FATAL = 65
 EX_TEMPFAIL = 75
@@ -71,10 +74,62 @@ EX_TEMPFAIL = 75
 PROG = "mpi_openmp_cuda_tpu_torch"
 
 
-def _sigusr2_dump(signum, frame) -> None:
+class _Usr2Dumper:
+    """The helper thread that dumps the flight recorder for SIGUSR2.
+
+    The handler runs on the main thread between two bytecodes, possibly
+    inside ``FlightRecorder.record_event`` with the recorder's lock held
+    (a plain lock: taking it again there would hang the process).  So
+    the handler only counts a request and wakes this thread, which dumps
+    once the main thread lets go of the lock.  :meth:`stop` dumps what
+    is still pending, then ends the thread."""
+
+    def __init__(self):
+        self._wake = threading.Event()
+        self._requests = 0
+        self._done = 0
+        self._stopping = False
+        self._thread = threading.Thread(target=self._loop, name="seqalign-usr2-dump",
+                                        daemon=True)
+        self._thread.start()
+
+    def request(self) -> None:
+        """Signal-handler safe: a counter and one wake-up."""
+        self._requests += 1
+        self._wake.set()
+
+    def _loop(self) -> None:
+        while True:
+            self._wake.wait()
+            self._wake.clear()
+            while self._done < self._requests:
+                self._done += 1
+                obs_flightrec.dump_active("sigusr2")
+            if self._stopping:
+                return
+
+    def stop(self) -> None:
+        self._stopping = True
+        self._wake.set()
+        self._thread.join()
+
+
+_usr2: _Usr2Dumper | None = None  # the run's dumper while SIGUSR2 is ours
+
+
+def _sigusr2_dump(signum, frame) -> threading.Thread | None:
     """SIGUSR2 dumps the flight recorder without stopping the run
-    (registered only while the obs plane is armed)."""
-    obs_flightrec.dump_active("sigusr2")
+    (registered only while the obs plane is armed), never on the thread
+    the signal interrupted (:class:`_Usr2Dumper`).  Called with no run
+    dumper (a direct call), it dumps on a thread of its own, returned."""
+    dumper = _usr2
+    if dumper is not None:
+        dumper.request()
+        return None
+    helper = threading.Thread(target=obs_flightrec.dump_active, args=("sigusr2",),
+                              name="seqalign-usr2-dump", daemon=True)
+    helper.start()
+    return helper
 
 
 def _typed(cast, ok, want):
@@ -268,6 +323,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "takeover lands)",
     )
     p.add_argument(
+        "--check", action="store_true",
+        help="validate every concrete dispatch decision against the launch "
+        "contracts before it launches (the formulation, the int32 and fp32 "
+        "windows, the packed class, the launch group and ring window, the "
+        "operands, and the shared-memory model in "
+        "mpi_openmp_cuda_tpu_torch/analysis); a violation is an error, never "
+        "a move to another backend; the SEQALIGN_CHECK env var enables the "
+        "same checks when this flag is absent",
+    )
+    p.add_argument(
         "--prewarm", action="store_true",
         help="pay the card's cold costs at process start (the kernels' build "
         "and load, each width's shared-memory opt-in, one launch a warm "
@@ -346,15 +411,22 @@ def _make_scorer(args, distributed: bool) -> AlignmentScorer:
         from ..parallel.sharding import BatchSharding
 
         sharding = BatchSharding.over_devices(None, device=args.device)
-    return AlignmentScorer(args.backend, device=args.device, sharding=sharding)
+    return AlignmentScorer(args.backend, device=args.device, sharding=sharding,
+                           check=_check_on(args))
+
+
+def _check_on(args) -> bool:
+    """``--check``, or ``SEQALIGN_CHECK`` when the flag is absent."""
+    return bool(args.check) or env_flag("SEQALIGN_CHECK")
 
 
 def _make_degrader(args, scorer) -> BackendDegrader:
     """The run's degrade chain state (a pass-through unless --degrade);
-    replacement scorers keep the device and the sharding."""
+    replacement scorers keep the device, the sharding and the check."""
     return BackendDegrader(
         scorer,
-        lambda b: AlignmentScorer(b, device=args.device, sharding=scorer.sharding),
+        lambda b: AlignmentScorer(b, device=args.device, sharding=scorer.sharding,
+                                  check=scorer.check),
         enabled=bool(args.degrade),
     )
 
@@ -377,8 +449,11 @@ def _run_prewarm(args, timer, *, problem=None, backend=None) -> bool:
             # shapes of its rows: the manifest it writes is what a later
             # `--serve --prewarm` restart replays.
             prewarm(problem=problem, backend=backend, device=args.device,
-                    rows_per_block=env_int("SEQALIGN_SERVE_BLOCK_ROWS", DEFAULT_BLOCK_ROWS))
+                    rows_per_block=env_int("SEQALIGN_SERVE_BLOCK_ROWS", DEFAULT_BLOCK_ROWS),
+                    check=_check_on(args))
         return True
+    except SeqcheckError:
+        raise  # --check: a violation is an error, never a cold start
     except Exception as e:
         # advisory: warming is an optimization; scoring proceeds cold.
         print(f"{PROG}: warning: prewarm failed ({e})", file=sys.stderr)
@@ -785,7 +860,11 @@ def run(argv: list[str] | None = None) -> int:
     except SystemExit as e:
         # argparse's own verdict: usage text on stderr and 2 for a bad
         # command line, 0 after --help.
-        return e.code if isinstance(e.code, int) else EX_USAGE
+        if e.code == EX_OK:
+            return EX_OK
+        if e.code == EX_ARGPARSE:
+            return EX_ARGPARSE
+        return EX_USAGE
     if args.stream and args.selfcheck:
         print(f"{PROG}: error: --selfcheck cannot be combined with --stream "
               "(selfcheck re-verifies against the fully-materialised problem)",
@@ -858,6 +937,8 @@ def run(argv: list[str] | None = None) -> int:
             registry, recorder = arm_observability(
                 with_trace=bool(trace_out) or args.fleet_worker,
                 flightrec_depth=frec_depth)
+            global _usr2
+            _usr2 = _Usr2Dumper()
             try:
                 prev_usr2 = signal.signal(signal.SIGUSR2, _sigusr2_dump)
             except (ValueError, AttributeError, OSError):
@@ -894,15 +975,19 @@ def run(argv: list[str] | None = None) -> int:
             else:
                 _run_batch(args, policy, out, timer, dist)
         rc = worker_rc if args.fleet_worker else EX_OK
+        return rc
     except DrainInterrupt as e:
         # A requested preemption: nothing printed, the journal flushed.
         print(f"{PROG}: drained: {e}", file=sys.stderr)
         rc = EX_TEMPFAIL
+        return rc
     except BrokenPipeError:
         rc = 1
+        return rc
     except Exception as e:  # fail-stop: diagnose on stderr, nonzero exit
         print(f"{PROG}: error: {e}", file=sys.stderr)
         rc = EX_TEMPFAIL if _is_resumable(e) else EX_FATAL
+        return rc
     finally:
         if registry is not None:
             _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2)
@@ -914,7 +999,6 @@ def run(argv: list[str] | None = None) -> int:
             drain.__exit__(None, None, None)
         if dist is not None:
             dist.shutdown_distributed()
-    return rc
 
 
 def _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2) -> None:
@@ -924,25 +1008,41 @@ def _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2) -> Non
     the plane disarmed."""
     if rc == EX_FATAL:
         obs_flightrec.dump_active("fatal-exit")
+    global _usr2
     tracer = obs_trace.active_trace()
     try:
         obs_export.flush_trace(tracer, trace_out, exit_code=rc)
     except Exception as e:
-        print(f"{PROG}: warning: trace not written ({e})", file=sys.stderr)
+        # advisory: the run's verdict stands; a lost trace is a warning.
+        log_line(f"{PROG}: warning: trace not written ({e})")
     try:
         obs_export.flush_run_report(
             registry, recorder, metrics_out, exit_code=rc,
             extra={"gap_attribution": tracer.gap_attribution()} if tracer else None,
         )
     except Exception as e:
-        print(f"{PROG}: warning: run report not written ({e})", file=sys.stderr)
+        # advisory: the run's verdict stands; a lost report is a warning.
+        log_line(f"{PROG}: warning: run report not written ({e})")
     if prev_usr2 is not None:
         try:
             signal.signal(signal.SIGUSR2, prev_usr2)
         except (ValueError, OSError):
             pass
+    # The handler is gone: the dumper ends after any pending dump.
+    if _usr2 is not None:
+        _usr2.stop()
+        _usr2 = None
     disarm_observability()
 
 
 def main() -> None:
-    sys.exit(run())
+    try:
+        rc = run()
+    except (KeyError, ValueError) as e:
+        # Only the pre-arm plumbing can get here (an undeclared env read in
+        # utils/env.py, a malformed env value): run()'s ladder maps
+        # everything once its flush try is entered.  A usage verdict with
+        # the message, not a traceback, as in the JAX CLI.
+        print(f"{PROG}: usage: {e}", file=sys.stderr)
+        rc = EX_USAGE
+    sys.exit(rc)

@@ -138,7 +138,7 @@ class PendingWindow:
             try:
                 promise.prefetch()
             except Exception:
-                # Advisory: a copy that cannot start here starts again in
+                # advisory: a copy that cannot start here starts again in
                 # result(), inside the chunk's retry budget.
                 pass
         self._pending.append((promise, *rest))
@@ -174,6 +174,6 @@ class FeedStager:
         try:
             return self.degrader.scorer.prestage_codes(seq1_codes, codes, weights)
         except Exception:
-            # Advisory: a real fault resurfaces at dispatch, inside the
+            # advisory: a real fault resurfaces at dispatch, inside the
             # chunk's retry budget.
             return None

@@ -778,6 +778,29 @@ def validate_report(rec) -> None:
                 "entries_exact/production_buckets/signed_survivors/"
                 f"findings ints, got {counts!r}"
             )
+    elif kind == "bounds-cert":
+        # scripts/torch_ranges_audit.py's constant certification
+        # (analysis/ranges.py, the port's bounds-only certifier).
+        consts = rec.get("derived_constants")
+        if not isinstance(consts, list) or not consts or not all(
+            isinstance(c, dict) and isinstance(c.get("name"), str)
+            and isinstance(c.get("ok"), bool) and "derived" in c and "wired" in c
+            for c in consts
+        ):
+            problems.append(
+                "derived_constants: want a non-empty list of name/derived/"
+                f"wired/ok rows, got {consts!r}"
+            )
+        if not isinstance(rec.get("findings"), list):
+            problems.append(f"findings: want a list, got {rec.get('findings')!r}")
+        counts = rec.get("counts")
+        if not isinstance(counts, dict) or not all(
+            isinstance(counts.get(k), int)
+            for k in ("constants", "constants_ok", "findings")
+        ):
+            problems.append(
+                f"counts: want constants/constants_ok/findings ints, got {counts!r}"
+            )
     elif kind == "exitpath-audit":
         # scripts/exitpath_audit.py's exception-flow certification
         # report (analysis/exitflow.py).

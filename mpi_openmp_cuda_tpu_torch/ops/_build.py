@@ -39,6 +39,7 @@ from pathlib import Path
 
 from ..obs.events import publish
 from ..resilience.policy import KernelUnavailableError
+from ..utils.env import env_str
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -66,7 +67,7 @@ def note_setup() -> None:
 
 
 def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cuda_home = env_str("CUDA_HOME") or env_str("CUDA_PATH")
     if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
         return str(Path(cuda_home) / "bin" / "nvcc")
     found = shutil.which("nvcc")

@@ -60,7 +60,7 @@ window route to the gather formulation (``dispatch.effective_backend``).
 
 from __future__ import annotations
 
-INT32_MAX = 2147483647  # = 2^31 - 1
+INT32_MAX = 2147483647  # = 2^31 - 1  # cert: int32-max
 
 
 def max_exact_value(max_len2: int) -> int:
@@ -94,7 +94,8 @@ def check_int32_window(max_abs_value: int, max_len2: int) -> None:
         )
 
 
-F32_EXACT_WINDOW = 1 << 24  # every integer below 2^24 is an exact fp32
+# Every integer below 2^24 is an exact fp32.
+F32_EXACT_WINDOW = 1 << 24  # cert: f32-exact-window
 
 
 def mm_max_exact_value(l2p: int) -> int:

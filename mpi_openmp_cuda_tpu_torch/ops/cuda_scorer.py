@@ -128,7 +128,7 @@ def _numpy_state(seq1ext, len1, rows, lens, val_flat, device, *, window) -> Scor
             f"lens {lens.shape} (need L1P = len(seq1ext) - L2P - 1 > 0, a "
             f"multiple of {TILE})"
         )
-    len1_ok = INT32_MIN < len1 <= 2**31 - 1 if window else 0 <= len1 <= l1p
+    len1_ok = INT32_MIN < len1 <= 2**31 - 1 if window else 0 <= len1 <= l1p  # cert: int32-max
     if not len1_ok or (b and not (0 <= lens.min() and lens.max() <= l2p)):
         raise ValueError("lengths outside the padded shapes")
     for name, codes in (("seq1ext", seq1ext), ("rows", rows)):

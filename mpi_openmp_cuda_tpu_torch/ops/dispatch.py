@@ -374,18 +374,32 @@ def _upload(val_flat, plans, device: torch.device) -> list[BucketLaunch]:
 def bucket_launches(
     seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, device: torch.device,
     *, backend: str = "cuda", staged: StagedFeed | None = None, fuse: bool = True,
+    check: bool = False,
 ) -> list[BucketLaunch]:
     """The launches that score one batch on ``device``: the plans of
     :func:`plan_launches` with their operands on the device, or those of
     ``staged`` when it was staged for the same operands (checked by
     :func:`operand_digest`; the production schedule only).
-    :class:`AlignmentScorer` launches exactly these."""
+    :class:`AlignmentScorer` launches exactly these.  With ``check``
+    (``--check``) every plan is validated on its host arrays
+    (``analysis/contracts.py::validate_plans``) before any is uploaded; a
+    staged feed was validated when it was staged."""
     if staged is not None and fuse:
         launches = staged.take(operand_digest(seq1_codes, seq2_codes, weights, backend))
         if launches is not None:
             return launches
     val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, backend, fuse=fuse)
+    if check:
+        _validate(val_flat, plans, backend, device)
     return _upload(val_flat, plans, device) if plans else []
+
+
+def _validate(val_flat, plans, backend: str, device) -> None:
+    """The ``--check`` hook: every planned launch through the launch
+    contracts (``analysis/contracts.py``); raises before any upload."""
+    from ..analysis.contracts import validate_plans
+
+    validate_plans(val_flat, plans, backend, device)
 
 
 def run_launch(launch: BucketLaunch, backend: str) -> torch.Tensor:
@@ -533,9 +547,12 @@ class AlignmentScorer:
     or ``parallel.ring.RingSharding`` that scores each dispatch over its
     mesh (no packing, no launch groups, no staged feed there; the caps
     give way on the ring, ``sharding.unbounded``).
+    check: validate every launch against ``analysis/contracts.py`` before
+    it is made (``--check``); None reads ``SEQALIGN_CHECK``.
     """
 
-    def __init__(self, backend: str = "auto", device=None, sharding=None):
+    def __init__(self, backend: str = "auto", device=None, sharding=None,
+                 check: bool | None = None):
         if backend == "auto":
             backend = "cuda"
         if backend not in BACKENDS:
@@ -545,6 +562,13 @@ class AlignmentScorer:
         self.device = None if backend == "oracle" else resolve_device(device)
         self.sharding = sharding
         self._side = None  # the staging stream (CUDA, made at first use)
+        if check is None:
+            from ..utils.env import env_flag
+
+            check = env_flag("SEQALIGN_CHECK")
+        # --check / SEQALIGN_CHECK: validate every concrete dispatch
+        # decision against the launch contracts before it launches.
+        self.check = bool(check)
 
     def score_codes(self, seq1_codes, seq2_codes, weights, *, staged=None,
                     links=(), trace_ctx=None) -> np.ndarray:
@@ -578,7 +602,7 @@ class AlignmentScorer:
         with _obs_span("chunk_dispatch"):
             launches = bucket_launches(
                 seq1_codes, seq2_codes, weights, self.device, backend=self.backend,
-                staged=staged,
+                staged=staged, check=self.check,
             )
             parts = [(b.idx, run_launch(b, self.backend), b.state.lens) for b in launches]
             pending = BucketedPending(parts, len(seq2_codes), int(seq1_codes.size),
@@ -605,16 +629,28 @@ class AlignmentScorer:
         val_flat = admit(seq1_codes, seq2_codes, weights, caps=not unbounded)
         if not getattr(sharding, "bucketed", False):
             batch = pad_problem(seq1_codes, seq2_codes, enforce_caps=not unbounded)
+            if self.check:
+                self._validate_sharded([batch], val_flat)
             return sharding.score_async(batch, val_flat, backend=self.backend)
         groups = plan_buckets([c.size for c in seq2_codes], packable=False,
                               min_rows=MIN_BUCKET_ROWS * sharding.n_devices)
         _obs_gauge("config_fused_groups", len(groups))
-        parts = []
+        subs = []
         for key in sorted(groups):
             idx = np.asarray(groups[key], dtype=np.int64)
-            sub = pad_problem(seq1_codes, [seq2_codes[i] for i in idx])
-            parts.append((idx, sharding.score_async(sub, val_flat, backend=self.backend)))
+            subs.append((idx, pad_problem(seq1_codes, [seq2_codes[i] for i in idx])))
+        if self.check:
+            self._validate_sharded([sub for _, sub in subs], val_flat)
+        parts = [(idx, sharding.score_async(sub, val_flat, backend=self.backend))
+                 for idx, sub in subs]
         return ShardedPending.merge(parts, len(seq2_codes))
+
+    def _validate_sharded(self, batches, val_flat) -> None:
+        """The ``--check`` hook of a sharded dispatch: every mesh shard's
+        and ring window's launch validated before any is made."""
+        from ..analysis.contracts import validate_sharded
+
+        validate_sharded(self.sharding, batches, val_flat, self.backend, self.device)
 
     def prestage_codes(self, seq1_codes, seq2_codes, weights) -> StagedFeed | None:
         """Plan a future :meth:`score_codes_async` of the same operands and
@@ -625,6 +661,8 @@ class AlignmentScorer:
         if self.backend == "oracle" or not seq2_codes or self.sharding is not None:
             return None
         val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, self.backend)
+        if self.check:
+            _validate(val_flat, plans, self.backend, self.device)
         cuda = self.device.type == "cuda"
         if cuda and self._side is None:
             self._side = torch.cuda.Stream(self.device)

@@ -1016,6 +1016,8 @@ class FleetWorker:
         try:
             rows = self._score_offer(offer, epoch)
         except Exception as e:
+            # advisory: the claim stays leased and lease expiry
+            # re-dispatches the superblock (logged and counted below).
             # The claim stays leased: lease expiry re-dispatches the
             # superblock, and a worker must not die on one bad block.  A
             # kernel that fails to build or launch lands here too (on a

@@ -153,6 +153,9 @@ class ServeLoop:
         # Within a tick, block N+1's host-to-device copies are staged
         # while block N computes (_dispatch's ``nxt`` lookahead).
         self.stager = FeedStager(getattr(pipeline, "degrader", None))
+        # --check / SEQALIGN_CHECK, as the run's scorer has it.
+        self.check = bool(getattr(getattr(getattr(pipeline, "degrader", None),
+                                          "scorer", None), "check", False))
         # The pipeline's circuit breaker (None without --degrade): the
         # loop ticks it, so its transitions count ticks, not seconds.
         self.breaker = getattr(pipeline, "breaker", None)
@@ -257,6 +260,7 @@ class ServeLoop:
         if self.fleet is not None and self.fleet.accepting():
             try:
                 self._check_poison(block)
+                self._check_block(block)
             except Exception as e:
                 self._block_failed(block, e)
                 return None
@@ -279,6 +283,7 @@ class ServeLoop:
         links = block.link_ids()
         try:
             self._check_poison(block)
+            self._check_block(block)
             promise = self.pipeline.dispatch(
                 block.seq1_codes, block.codes, block.weights, budget,
                 links=links, staged=staged,
@@ -326,6 +331,16 @@ class ServeLoop:
 
     # -- poison-request quarantine ----------------------------------------
 
+    def _check_block(self, block) -> None:
+        """``--check``: the superblock's launch contract (its row count and
+        one L2P bucket, ``analysis/contracts.py::check_serve_block``)
+        before any of its launches; the scorer's own hook then checks each
+        launch.  A violation fails the block like any scoring error."""
+        if self.check:
+            from ..analysis.contracts import check_serve_block
+
+            check_serve_block(block, self.rows_per_block)
+
     def _check_poison(self, block) -> None:
         """Chaos marker: a poisoned session makes every superblock that
         holds it fail fatally (a ValueError: no retry, no degrade), so the
@@ -355,6 +370,7 @@ class ServeLoop:
         """Score one superblock synchronously under a fresh budget and
         demux: the quarantine path's unit of work."""
         self._check_poison(block)
+        self._check_block(block)
         budget = self.policy.new_budget()
         promise = self.pipeline.dispatch(
             block.seq1_codes, block.codes, block.weights, budget, links=block.link_ids(),

@@ -167,6 +167,25 @@ ENV_VARS: tuple[EnvVar, ...] = (
     EnvVar("MASTER_PORT", "int", None,
            "--distributed: the coordinator's TCP port"),
     EnvVar("WORLD_SIZE", "int", None, "--distributed: processes in the job"),
+    EnvVar("SEQALIGN_CHECK", "flag", False,
+           "validate every concrete dispatch decision against the launch "
+           "contracts before it launches (same as --check)"),
+    EnvVar("BENCH_INPUT", "str", None,
+           "the bench's workload: an input file (default: the input3-class "
+           "synthetic problem)"),
+    EnvVar("BENCH_WEIGHTS", "str", None,
+           "the bench's weights, 'w1,w2,w3,w4', over the workload's own"),
+    EnvVar("BENCH_BACKEND", "str", "cuda",
+           "the bench's backend: cuda or oracle"),
+    EnvVar("BENCH_ATTEMPTS", "int", 3,
+           "the bench's timing attempts before the probe gate gives up"),
+    EnvVar("BENCH_REPS", "int", 3,
+           "the bench's warm end-to-end runs after the first"),
+    EnvVar("CUDA_HOME", "str", None,
+           "the CUDA toolkit whose bin/nvcc builds the kernels (before "
+           "CUDA_PATH and PATH)"),
+    EnvVar("CUDA_PATH", "str", None,
+           "the CUDA toolkit, when CUDA_HOME is unset"),
     EnvVar("RANK", "int", None, "--distributed: this process's rank"),
     EnvVar("LOCAL_RANK", "int", None,
            "--distributed: this process's rank on its host (default RANK)"),

@@ -179,7 +179,14 @@ def test_port_import_loads_no_jax():
         "mpi_openmp_cuda_tpu_torch.obs.telemetry, mpi_openmp_cuda_tpu_torch.load.driver, "
         "mpi_openmp_cuda_tpu_torch.load.gates, mpi_openmp_cuda_tpu_torch.load.refit, "
         "mpi_openmp_cuda_tpu_torch.load.report, mpi_openmp_cuda_tpu_torch.aot.prewarm, "
-        "mpi_openmp_cuda_tpu_torch.native_bridge; "
+        "mpi_openmp_cuda_tpu_torch.native_bridge, "
+        "mpi_openmp_cuda_tpu_torch.analysis.contracts, "
+        "mpi_openmp_cuda_tpu_torch.analysis.smem, "
+        "mpi_openmp_cuda_tpu_torch.analysis.ranges, "
+        "mpi_openmp_cuda_tpu_torch.analysis.seqlint, "
+        "mpi_openmp_cuda_tpu_torch.analysis.lockgraph, "
+        "mpi_openmp_cuda_tpu_torch.analysis.exitflow, "
+        "mpi_openmp_cuda_tpu_torch.analysis.interleave; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_openmp_cuda_tpu')]; print(bad); sys.exit(bool(bad))"
     )

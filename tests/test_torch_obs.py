@@ -477,7 +477,9 @@ def test_sigusr2_dumps_the_armed_flight_recorder(tmp_path, quiet_env):
     tobs.arm_observability(flightrec_depth=4)
     try:
         tevents.publish("retry.attempt")
-        tcli._sigusr2_dump(signal.SIGUSR2, None)
+        # The dump runs on a helper thread (never under the interrupted
+        # thread's recorder lock): wait for it before disarming.
+        tcli._sigusr2_dump(signal.SIGUSR2, None).join(timeout=60)
     finally:
         tobs.disarm_observability()
     (dump,) = (tmp_path / "tmp" / "mpi_openmp_cuda_tpu_torch" / "flightrec").glob(
