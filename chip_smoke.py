@@ -213,7 +213,29 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    chooser space against the card's ``shared_memory_per_block_optin``
    (== the kernel library's own query), the model == ``fused_scorer_smem``
    at every L2P to 12288, and each kernel's registers and static shared
-   memory (``cudaFuncGetAttributes``) held against the model.
+   memory (``cudaFuncGetAttributes``) held against the model;
+19. the last analysis tiers (``analysis/{costmodel,traceaudit,recompile,
+   collectives,dataflow}.py``): (a) the fixtures, max-size, input3-class
+   and the 1024 short rows through the CLI, counts set to 0 before each:
+   the ``launch_counts`` deltas == ``schedule.fused_schedule_config``'s
+   ``declared_launches`` by kernel, stdout == the goldens, and the launch
+   audit's traced dispatch on the card (stubbed launches, the operands on
+   the card) with no finding; (b) the cost sheet against the card: each
+   launch's ``model_kernel_us`` beside its CUDA-event time, and the sheet's
+   ``predicted_wall_us`` over the bench's ``device_wall_us`` of the same
+   launches (diagnostic; fails only when the sheet's launch count differs
+   from the card's); (c) ``assert_compiles(0)`` around a warm CLI run of
+   each input, a serve tick, ``--mesh 2`` and ``--mesh seq:2``; (d) the
+   comms audit's forms ``2x2`` and ``seq:4`` on ``[cuda:0] x 4``: the
+   card's ``comm.log`` == ``tests/golden/torch_comms_audit.json``'s, the
+   slots' sequences equal, every operand on its slot's device, rows ==
+   the CPU run's; (e) the staged feed under a retry (``--retries 1
+   --faults chunk_scoring:fail=1``, feed overlap on), batch and
+   ``--stream 16``: stdout == the golden, ``feed_prestage_hits`` == the
+   first attempts' launches, one more upload than staged feeds (the
+   retried chunk re-uploads from the host); and, under
+   ``torch.cuda.set_sync_debug_mode("warn")``, the synchronising calls
+   between a batch's first launch and its epilogue copy (diagnostic).
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
@@ -756,6 +778,8 @@ def main() -> int:
     warm_counts = warm_phase(np, torch, cli, cs, fixtures, inputs, card)
     # -- 18. --check: the launch contracts on the card -------------------------
     check_counts = check_phase(np, torch, cli, cs, compare, fixtures, inputs, card)
+    # -- 19. the cost sheet, the launch audit, builds, comms, the staged feed --
+    analysis_counts = analysis_phase(np, torch, cli, cs, fixtures, inputs, time_ms, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -769,7 +793,7 @@ def main() -> int:
              "rescue": rescue_counts, "robustness": robust_counts,
              "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
-             **warm_counts, "check": check_counts,
+             **warm_counts, "check": check_counts, "analysis": analysis_counts,
              "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2952,6 +2976,206 @@ def check_phase(np, torch, cli, cs, compare, fixtures, inputs, card) -> dict[str
             f"{r['max_threads']}")
     log(f"check phase: {time.perf_counter() - t_phase:.1f} s")
     return check_counts
+
+
+def analysis_phase(np, torch, cli, cs, fixtures, inputs, time_ms, card) -> dict[str, int]:
+    """Phase 19: the cost model, the launch audit, the build counter, the
+    comms audit and the staged feed under a retry, on the card (see the
+    module docstring).  Returns the launch counts of its (a) runs."""
+    import warnings
+
+    from mpi_openmp_cuda_tpu_torch.analysis import collectives, traceaudit
+    from mpi_openmp_cuda_tpu_torch.analysis.costmodel import schedule_cost_sheet
+    from mpi_openmp_cuda_tpu_torch.analysis.recompile import assert_compiles
+    from mpi_openmp_cuda_tpu_torch.bench import DEVICE_REPS, schedule_run
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.io.pipeline import ChunkPipeline
+    from mpi_openmp_cuda_tpu_torch.ops import dispatch
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, bucket_launches
+    from mpi_openmp_cuda_tpu_torch.ops.schedule import fused_schedule_config, launch_configs
+    from mpi_openmp_cuda_tpu_torch.resilience.degrade import BackendDegrader
+    from mpi_openmp_cuda_tpu_torch.resilience.policy import RetryPolicy
+    from mpi_openmp_cuda_tpu_torch.serve.loop import ServeLoop, warm_kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    big = ["max-size", "input3-class", "1024 short rows"]
+    tags = [f.name for f in fixtures] + big
+    gold = {t: inputs[t].with_suffix(".out").read_bytes() for t in tags}
+    probs = {t: load_problem(str(inputs[t])) for t in tags}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(cs.launch_counts)
+
+    # -- a. launches on the card == the planner's declaration ---------------
+    total = dict.fromkeys(cs.launch_counts, 0)
+    for tag in tags:
+        (rc, out, _), got = counted(lambda: run_cli(cli, ["--input", str(inputs[tag])]))
+        want = fused_schedule_config(probs[tag]).declared_launches
+        if rc != 0 or out != gold[tag]:
+            fail(f"analysis: {tag}: rc {rc}, stdout differs from the golden")
+        if got != want:
+            fail(f"analysis: {tag}: the card launched {got}, the planner declares {want}")
+        for name, n in got.items():
+            total[name] += n
+        if tag in big:
+            # The traced dispatch raises ScheduleDriftError off the declaration.
+            rep = traceaudit.audit_schedule(probs[tag], device=dev)
+            if rep["findings"]:
+                fail(f"analysis: {tag}: launch audit findings on the card {rep['findings']}")
+            log(f"analysis launch audit {tag}: {rep['launches_by_kernel']}, "
+                f"{rep['epilogues']} epilogue, {rep['host_fetches']} host fetch, operands "
+                f"{[(r['name'], r['dtype'], r['bytes']) for r in rep['operands']][:8]}")
+    log(f"analysis launches: {len(tags)} inputs, the card's launch_counts deltas == "
+        f"declared_launches on every one (total {total}), stdout == the goldens")
+
+    # -- b. the cost sheet against the card (diagnostic) ---------------------
+    for tag in tags:
+        prob = probs[tag]
+        sheet = schedule_cost_sheet(prob)
+        launches = bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights, dev)
+        if sheet["totals"] is None or sheet["totals"]["launches"] != len(launches):
+            fail(f"analysis: {tag}: the sheet prices {sheet['totals']} launches, the card "
+                 f"makes {len(launches)}")
+        if not launches:
+            continue
+        rows = []
+        for row, launch in zip(sheet["buckets"], launches):
+            st = launch.state
+            kern = ((lambda st=st: cs.fused_scorer(st)) if launch.l2s is None
+                    else (lambda st=st, l2s=launch.l2s: cs.packed_scorer(st, l2s)))
+            ms = time_ms(kern, reps=50)
+            rows.append(f"{row['kernel']} L2P {row['l2p']} rows {row['rows']}: model "
+                        f"{row['model_kernel_us']:.3f} us [{row['model']}], card "
+                        f"{ms * 1e3:.3f} us ({row['model_kernel_us'] / (ms * 1e3):.3f})")
+        wall_us = time_ms(schedule_run(launches), DEVICE_REPS) * 1e3
+        pred = sheet["totals"]["predicted_wall_us"]
+        log(f"analysis sheet {tag}: {'; '.join(rows)}; predicted_wall_us {pred:.3f} / "
+            f"device_wall_us {wall_us:.3f} = {pred / wall_us:.3f} [{card}]")
+
+    # -- c. no build in steady state -----------------------------------------
+    for tag in tags:
+        argv = ["--input", str(inputs[tag])]
+        with assert_compiles(0):
+            rc, out, _ = run_cli(cli, argv)
+        if rc or out != gold[tag]:
+            fail(f"analysis: warm {tag}: rc {rc}, stdout differs")
+    pm, ps = probs["max-size"], probs["1024 short rows"]
+    reqs = [{"id": "m0", "weights": list(pm.weights), "seq1": pm.seq1, "seq2": pm.seq2[:8]},
+            {"id": "s0", "weights": list(ps.weights), "seq1": ps.seq1, "seq2": ps.seq2[:64]}]
+    policy = RetryPolicy()
+    deg = BackendDegrader(AlignmentScorer("cuda", device="cuda"),
+                          lambda b: AlignmentScorer(b, device="cuda"))
+    warm_kernels(deg)
+    loop = ServeLoop(ChunkPipeline(policy, deg), policy)
+    sink = _Sink()
+    for raw in reqs:
+        loop.ingest(json.dumps(raw), sink)
+    with assert_compiles(0):
+        while loop.tick():
+            pass
+    got = _lines_of(sink.records)
+    want_lines = {"m0": gold["max-size"].decode().splitlines()[:8],
+                  "s0": gold["1024 short rows"].decode().splitlines()[:64]}
+    if got != want_lines:
+        fail("analysis: the serve tick's lines differ from the batch CLI's")
+    os.environ["SEQALIGN_HOST_DEVICES"] = "2"
+    try:
+        for mesh in ("2", "seq:2"):
+            argv = ["--mesh", mesh, "--input", str(inputs["max-size"])]
+            run_cli(cli, argv)  # warm
+            with assert_compiles(0):
+                rc, out, _ = run_cli(cli, argv)
+            if rc or out != gold["max-size"]:
+                fail(f"analysis: --mesh {mesh}: rc {rc}, stdout differs")
+    finally:
+        os.environ.pop("SEQALIGN_HOST_DEVICES", None)
+    log(f"analysis builds: 0 in steady state over {len(tags)} warm CLI runs, a serve "
+        "tick (8 max-size + 64 short rows), --mesh 2 and --mesh seq:2")
+
+    # -- d. the comms audit's forms on [cuda:0] x 4 == the CPU golden ---------
+    golden = json.loads((REPO / "tests" / "golden" / "torch_comms_audit.json").read_text())
+    want_log = {e["spec"]: e["log"] for e in golden["entries"]}
+    for spec in ("2x2", "seq:4"):
+        cpu_sh, cpu_rows, _ = collectives.run_spec(spec, [torch.device("cpu")] * 4)
+        sh, rows, calls = collectives.run_spec(spec, [dev] * 4, device="cuda")
+        comm = sh.comm
+        got_log = [[k, e] for k, e in comm.log]
+        seqs = {s: comm.slot_log.get(s) for s in comm.local_slots()}
+        placed = collectives.operand_placement(spec, calls, sh.mesh, comm.local_slots())
+        if got_log != want_log[spec] or len({json.dumps(v) for v in seqs.values()}) != 1:
+            fail(f"analysis: comms {spec} on the card: log {got_log} != golden "
+                 f"{want_log[spec]} or slots differ")
+        if placed or not np.array_equal(rows, cpu_rows):
+            fail(f"analysis: comms {spec}: placement {placed}, rows differ from the CPU's")
+        log(f"analysis comms {spec} on [cuda:0] x 4: comm.log == the CPU golden "
+            f"({len(got_log)} calls, {dict(comm.counts)}), slots equal, operands placed")
+
+    # -- e. the staged feed under a retry --------------------------------------
+    uploads = []
+    real_upload = dispatch._upload
+
+    def counted_upload(val_flat, plans, device):
+        uploads.append(len(plans))
+        return real_upload(val_flat, plans, device)
+
+    os.environ["TPU_SEQALIGN_FEED_OVERLAP"] = "1"
+    dispatch._upload = counted_upload
+    try:
+        for tag, stream in (("max-size", None), ("1024 short rows", 16)):
+            prob = probs[tag]
+            report = inputs[tag].with_suffix(".retry.json")
+            argv = (["--stream", str(stream)] if stream else []) + [
+                "--retries", "1", "--faults", "chunk_scoring:fail=1",
+                "--metrics-out", str(report), "--input", str(inputs[tag])]
+            uploads.clear()
+            rc, out, _ = run_cli(cli, argv)
+            c = json.loads(report.read_text())["counters"]
+            chunks = ([prob.seq2_codes] if not stream else
+                      [prob.seq2_codes[i:i + stream]
+                       for i in range(0, len(prob.seq2_codes), stream)])
+            first = sum(len(launch_configs(prob.seq1_codes, ch, prob.weights))
+                        for ch in chunks)
+            staged, hits = c.get("feed_prestages", 0), c.get("feed_prestage_hits", 0)
+            if rc or out != gold[tag]:
+                fail(f"analysis: staged feed under a retry, {tag}: rc {rc}, stdout differs")
+            if staged != len(chunks) or hits != first or len(uploads) != staged + 1:
+                fail(f"analysis: staged feed under a retry, {tag}: {staged} feeds staged "
+                     f"for {len(chunks)} chunks, {hits} hits (first attempts' launches "
+                     f"{first}), {len(uploads)} uploads (want {staged + 1})")
+            log(f"analysis staged feed under a retry, {tag}{f' --stream {stream}' if stream else ''}: "
+                f"stdout == golden, {staged} feeds, {hits} hits == the first attempts' "
+                f"launches, {len(uploads)} uploads (the retried chunk re-uploaded)")
+    finally:
+        dispatch._upload = real_upload
+        os.environ.pop("TPU_SEQALIGN_FEED_OVERLAP", None)
+
+    # -- the synchronising calls between a batch's first launch and its copy --
+    for tag in big:
+        prob = probs[tag]
+        run = schedule_run(bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights,
+                                           dev))
+        run()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        # The mode's own notice ("... is a prototype feature ...") is no sync.
+        syncs = [str(w.message).splitlines()[0][:100] for w in caught
+                 if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+        log(f"analysis sync debug {tag}: {len(syncs)} synchronising call(s) between the "
+            f"first launch and the epilogue copy {syncs[:4]}")
+    log(f"analysis phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

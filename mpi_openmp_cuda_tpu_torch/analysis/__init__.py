@@ -24,7 +24,19 @@ card's own attributes on it):
 * :mod:`.lockgraph` — the whole-program lock-graph audit;
 * :mod:`.exitflow` — the failure-path certifier;
 * :mod:`.interleave` — the small-scope model checker over the fleet
-  protocol's real state machines.
+  protocol's real state machines;
+* :mod:`.costmodel` — the Hopper cost sheet: every plannable launch shape
+  and every planned launch of a problem priced with the launch model of
+  ``ops/schedule.py`` and the bound of ``ops/costs.py``, and the comms
+  rows of 2/4/8-device meshes;
+* :mod:`.traceaudit` — the launch audit: the launches the dispatch hands
+  the card against those the planner declares, and the operands each
+  one uploads;
+* :mod:`.recompile` — the kernel-build counter over ``ops/_build.py``;
+* :mod:`.collectives` — the comms audit over ``parallel/comm.py``'s
+  per-slot logs and the ``parallel/`` source;
+* :mod:`.dataflow` — the staging dataflow pass: the staged feed of
+  ``ops/dispatch.py`` is read once, stream-safe, and re-staged on retry.
 
 Every failure raises a :class:`SeqcheckError` subclass whose message
 names the violated bound and the fix.  ``SeqcheckError`` is a
@@ -122,6 +134,41 @@ class ExitFlowError(SeqcheckError):
     fire point.  The message names the site and the escape path."""
 
 
+class CostModelError(SeqcheckError):
+    """The cost sheet cannot price a launch shape or a schedule (a
+    non-finite or non-positive modelled time, or a formulation it has no
+    rule for)."""
+
+
+class TraceAuditError(SeqcheckError):
+    """The launch audit found an operand hazard: a dtype wider than the
+    kernel reads, a large operand uploaded twice in one dispatch, a second
+    value table in one batch, or an entry point that failed to run."""
+
+
+class ScheduleDriftError(SeqcheckError):
+    """The launches the dispatch makes drifted from those the planner
+    declares (``schedule.fused_schedule_config``), or the schedule-audit
+    record drifted from its golden (``scripts/torch_schedule_audit.py
+    --update`` regenerates it deliberately)."""
+
+
+class DataflowError(SeqcheckError):
+    """The staging dataflow pass (analysis/dataflow.py) found a staged-feed
+    hazard: a feed made outside ``prestage_codes`` or read outside
+    ``take``, a feed taken twice, an operand of a launch that ``take``
+    does not make the stream record, or a retry path that re-reads a
+    taken feed.  The message carries the blocking call path."""
+
+
+class CollectiveAuditError(SeqcheckError):
+    """The comms audit (analysis/collectives.py) found a sharding hazard:
+    slots whose collective sequences differ, a collective under a branch
+    on the rank or slot, a tensor crossing devices outside
+    ``parallel/comm.py``, a shard's operand off its slot's device, or ring
+    shifts that drifted from ``ring_plan``'s R."""
+
+
 __all__ = [
     "SeqcheckError",
     "ContractViolation",
@@ -136,4 +183,9 @@ __all__ = [
     "InterleaveViolation",
     "RangeCertError",
     "ExitFlowError",
+    "CostModelError",
+    "TraceAuditError",
+    "ScheduleDriftError",
+    "DataflowError",
+    "CollectiveAuditError",
 ]

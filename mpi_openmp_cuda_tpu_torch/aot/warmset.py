@@ -26,21 +26,25 @@ A warm entry's identity has two halves:
   manifest entry recorded under another digest is STALE: re-warmed under
   the current one, never replayed.
 
-:func:`select_warmset` merges two of the JAX package's three sources:
+:func:`select_warmset` merges the JAX package's three sources, in order:
 
-1. the problem's launches, as ``dispatch.launch_plans`` makes them
+1. the top-K hot configs of the problem's cost sheet
+   (``analysis/costmodel.py::schedule_cost_sheet``: the launch shapes the
+   sheet models the most time in, so the largest cold costs go first),
+   each the first of the problem's launches with its launch-shape key;
+2. the problem's launches, as ``dispatch.launch_plans`` makes them
    (launch groups and packed classes) and ``dispatch.run_launch`` routes
    them (``effective_backend``: past the kernels' int32 window a ``cuda``
    launch runs ``gather``);
-2. the serve superblock shapes: every block the serve batcher would cut
+3. the serve superblock shapes: every block the serve batcher would cut
    from the problem's rows (``serve/batcher.plan_blocks``, the problem as
    one request), planned as the scorer plans any batch, so a block of at
    least ``MIN_BUCKET_ROWS`` short real rows takes its packed form; plus,
    for each L2P bucket, a block of ``rows_per_block`` full-length rows
    (the fused form a block of pad rows and long rows takes).
 
-The third JAX source, the top-K of the cost sheet's hot configs, and
-``crosscheck_hot_configs`` wait for the port of ``analysis/costmodel``.
+:func:`crosscheck_hot_configs` lists the hot rows no warm entry covers
+(empty: the warm set holds the whole ranking).
 """
 
 from __future__ import annotations
@@ -58,6 +62,9 @@ FORMULATIONS = ("cuda-fused", "cuda-packed", "mm", "gather")
 #: The backend ``dispatch.run_launch`` is called with for each formulation.
 BACKEND_OF = {"cuda-fused": "cuda", "cuda-packed": "cuda", "mm": "mm", "gather": "gather"}
 
+#: Hot configs of the cost sheet warmed first (the JAX package's top-K).
+HOT_CONFIGS_TOP_K = 4
+
 
 @dataclasses.dataclass(frozen=True)
 class WarmEntry:
@@ -68,7 +75,7 @@ class WarmEntry:
     l2s: int | None  # packing class (cuda-packed only)
     rows: int  # padded rows of the launch
     l1p: int  # sizes the warm launch; not part of the identity
-    source: str = "schedule"  # schedule | serve-block | manifest | stale-rewarm
+    source: str = "schedule"  # hot-config | schedule | serve-block | manifest | stale-rewarm
 
     @property
     def cache_key(self) -> tuple:
@@ -142,22 +149,11 @@ def backend_fingerprint(device=None) -> dict:
 
 def _entries(seq1_codes, seq2_codes, weights, backend, source) -> list[WarmEntry]:
     """One entry per launch the scorer makes for the batch, routed as
-    ``dispatch.run_launch`` routes it."""
-    from ..ops.dispatch import effective_backend, launch_plans, max_scored
-    from ..ops.values import max_abs_value
+    ``dispatch.run_launch`` routes it (``schedule.launch_configs``)."""
+    from ..ops.schedule import launch_configs
 
-    val_flat, plans = launch_plans(seq1_codes, seq2_codes, weights, backend)
-    maxv = max_abs_value(val_flat)
-    out = []
-    for plan in plans:
-        b = plan.batch
-        route = effective_backend(backend, maxv, b.l2p, max_scored(b))
-        if route == "cuda":
-            form, l2s = ("cuda-fused", None) if plan.l2s is None else ("cuda-packed", plan.l2s)
-        else:
-            form, l2s = route, None
-        out.append(WarmEntry(form, b.l2p, l2s, b.batch_size, b.l1p, source))
-    return out
+    return [cfg.warm_entry(source)
+            for cfg in launch_configs(seq1_codes, seq2_codes, weights, backend)]
 
 
 def _serve_block_entries(problem, backend, rows_per_block: int) -> list[WarmEntry]:
@@ -178,19 +174,49 @@ def _serve_block_entries(problem, backend, rows_per_block: int) -> list[WarmEntr
     return out
 
 
+def _hot_config_entries(problem, backend) -> list[WarmEntry]:
+    """The top-K rows of the cost sheet's hot-config ranking, each as the
+    entry of the first launch of the problem with its launch-shape key.
+    The sheet prices the Hopper kernels only: off them (``mm``,
+    ``gather``, a launch past the int32 window) it ranks nothing and the
+    schedule source covers every launch."""
+    from ..analysis.costmodel import schedule_cost_sheet
+    from ..ops.schedule import kernel_configs
+
+    hot = schedule_cost_sheet(problem, backend)["hot_configs"][:HOT_CONFIGS_TOP_K]
+    if not hot:
+        return []
+    first: dict[tuple, object] = {}
+    for cfg in kernel_configs(problem, backend):
+        first.setdefault(cfg.cache_key, cfg)
+    return [first[(r["formulation"], r["l2p"], r["l2s"])].warm_entry("hot-config")
+            for r in hot]
+
+
 def select_warmset(problem, backend: str, rows_per_block: int | None = None) -> list[WarmEntry]:
     """The deduplicated warm set of one problem on ``backend`` (``auto``
-    is ``cuda``): the problem's launches, then, with ``rows_per_block``,
-    the serve superblock shapes.  ``oracle`` scores on the host: []."""
+    is ``cuda``): the cost sheet's top :data:`HOT_CONFIGS_TOP_K` hot configs
+    first, then the problem's launches, then, with ``rows_per_block``, the
+    serve superblock shapes.  ``oracle`` scores on the host: []."""
     if backend == "auto":
         backend = "cuda"
     if backend == "oracle":
         return []
     merged: dict[tuple, WarmEntry] = {}
-    entries = _entries(problem.seq1_codes, problem.seq2_codes, problem.weights, backend,
-                       "schedule")
+    entries = _hot_config_entries(problem, backend)
+    entries += _entries(problem.seq1_codes, problem.seq2_codes, problem.weights, backend,
+                        "schedule")
     if rows_per_block:
         entries += _serve_block_entries(problem, backend, int(rows_per_block))
     for entry in entries:
         merged.setdefault(entry.executable_key, entry)
     return list(merged.values())
+
+
+def crosscheck_hot_configs(entries, hot_rows) -> list[dict]:
+    """Hot-ranking rows with no covering warm entry (empty: the warm set
+    holds the ranking), keyed on the launch-shape key ``(formulation,
+    l2p, l2s)``, so it takes live cost-sheet rows and the golden view of
+    ``tests/golden/torch_schedule_audit.json`` alike."""
+    have = {e.cache_key for e in entries}
+    return [r for r in hot_rows if (r["formulation"], r["l2p"], r.get("l2s")) not in have]

@@ -382,6 +382,33 @@ def device_fields(problem, launches, device) -> dict:
     return rec
 
 
+def comms_record(problem) -> dict:
+    """The comms audit's inventory totals (``analysis/collectives.py``, the
+    mesh forms on ``[cpu] x N``) and the workload's modelled scaling rows,
+    which wait for a four-chip cell to be measured."""
+    from .analysis.collectives import inventory_totals
+    from .analysis.costmodel import schedule_cost_sheet
+
+    comms = schedule_cost_sheet(problem)["comms"] or {}
+    return {**inventory_totals(), "measured": False,
+            "link_gbytes_s": comms.get("link_gbytes_s"),
+            "scaling": comms.get("scaling", [])}
+
+
+def donation_record(problem) -> dict:
+    """Eager PyTorch has no buffer donation: the staging pass's counts
+    (``analysis/dataflow.py``) and the workload's large operands, each
+    pinned live (``analysis/traceaudit.py``)."""
+    from .analysis.dataflow import audit_dataflow
+    from .analysis.traceaudit import audit_schedule
+
+    counts = audit_dataflow()["counts"]
+    don = audit_schedule(problem)["donation"]
+    return {"donation_supported": False, "large_buffers": don["large_buffers"],
+            "pinned_live": len(don["pinned_live"]), "restage_paths": counts["restage_paths"],
+            "findings": counts["findings"]}
+
+
 def ranges_record() -> dict:
     """The bounds certificate's headline numbers beside the measured ones
     (``analysis/ranges.py``: every constant of ``ops/bounds.py``
@@ -481,11 +508,19 @@ def main(argv=None) -> int:
         "feed_overlap": feed_overlap_enabled(),
     }
     if on_card:
+        from .analysis.costmodel import predicted_wall_us
+
         record.update(device_fields(problem, launches, device))
+        record["predicted_device_wall_us"] = predicted_wall_us(problem, backend)
+        if record["predicted_device_wall_us"] is not None:
+            record["predicted_vs_measured"] = (record["predicted_device_wall_us"]
+                                               / record["device_wall_us"])
     record["kernel_launches"] = {**cuda_scorer.launch_counts, **probe.launch_counts}
     # The certificates ride every record (never fatal): a drifted bound or
     # a new unclassified raise lands beside the numbers it would corrupt.
-    for section, make in (("ranges", ranges_record), ("exitflow", exitflow_record)):
+    for section, make in (("ranges", ranges_record), ("exitflow", exitflow_record),
+                          ("comms", lambda: comms_record(problem)),
+                          ("donation", lambda: donation_record(problem))):
         try:
             record[section] = make()
         except Exception as e:
@@ -497,7 +532,8 @@ def main(argv=None) -> int:
         f"cold_start={cold_start_s:.3f}s{' (prewarmed)' if prewarmed else ''}"
         + (f" device_wall={record['device_wall_us']:.3f}us "
            f"floor={record['floor_us']:.3f}us ({record['floor_by']}) "
-           f"bound={record['bound_us']:.3f}us" if on_card else ""))
+           f"bound={record['bound_us']:.3f}us "
+           f"predicted={record['predicted_device_wall_us']}us" if on_card else ""))
     return 0
 
 

@@ -72,14 +72,27 @@ class WorkCounts:
         )
 
 
+def shape_counts(len1: int, lens, l1p: int, l2p: int) -> WorkCounts:
+    """The work of one launch of ``len(lens)`` rows padded to ``l2p``
+    against a Seq1 of ``len1`` chars padded to ``l1p``: the needed cells
+    over ``n < l1p`` and the bytes of its operands (``[L1P + L2P + 1]``
+    Seq1, ``[B, L2P]`` rows, ``[B]`` lens, the ``[27, 27]`` table) and its
+    ``[B, 4]`` output, all int32."""
+    b = len(lens)
+    nbytes = 4 * ((l1p + l2p + 1) + b * l2p + b + 27 * 27 + 4 * b)
+    cells = needed_cells(len1, lens, l1p)
+    return WorkCounts(cells, INT_OPS_PER_CELL * cells, LOOKUPS_PER_CELL * cells, nbytes)
+
+
 def state_counts(state) -> WorkCounts:
     """The work of one launch on a ``cuda_scorer.ScorerState``."""
-    nbytes = 4 * (
-        state.seq1ext.numel() + state.rows.numel() + state.lens.numel()
-        + state.val.numel() + 4 * state.rows.shape[0]
-    )
-    cells = needed_cells(state.len1, state.lens.tolist(), state.l1p)
-    return WorkCounts(cells, INT_OPS_PER_CELL * cells, LOOKUPS_PER_CELL * cells, nbytes)
+    return shape_counts(state.len1, state.lens.tolist(), state.l1p, state.rows.shape[1])
+
+
+def bound_seconds(counts: WorkCounts) -> tuple[float, str]:
+    """(least time in seconds, binding term) of ``counts`` at the
+    data-sheet peaks."""
+    return binding(floor_terms(counts, INT32_OPS_PER_S, SMEM_WORDS_PER_S))
 
 
 def schedule_counts(launches) -> WorkCounts:
@@ -107,5 +120,5 @@ def binding(terms: dict[str, float]) -> tuple[float, str]:
 def bound_ms(state) -> tuple[float, str, str]:
     """(least time in ms, "bytes" or "operations", the binding term) of one
     launch at the data-sheet peaks."""
-    sec, term = binding(floor_terms(state_counts(state), INT32_OPS_PER_S, SMEM_WORDS_PER_S))
+    sec, term = bound_seconds(state_counts(state))
     return sec * 1e3, "bytes" if term == "bytes" else "operations", term

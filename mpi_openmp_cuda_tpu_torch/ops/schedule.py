@@ -1,7 +1,6 @@
 """Launch groups: the production schedule as a first-class object (the
-port of ``mpi_openmp_cuda_tpu/ops/schedule.py``: ``plan_fusion_groups``
-and ``production_schedule``; ``kernel_configs`` and
-``fused_schedule_config`` serve the JAX trace audit, which is not ported).
+port of ``mpi_openmp_cuda_tpu/ops/schedule.py``: ``plan_fusion_groups``,
+``production_schedule``, ``kernel_configs`` and ``fused_schedule_config``).
 
 :func:`plan_fusion_groups` partitions the 128-aligned length buckets of
 ``dispatch.plan_buckets`` into launch groups: contiguous runs of the
@@ -42,9 +41,19 @@ so the choice is the one an enumeration of all 2^(k-1) partitions makes,
 at any number of keys.  ``dispatch.bucket_launches`` builds one launch per group, and the
 bench and ``chip_smoke.py`` derive their launches from it, so they time
 exactly the production schedule.
+
+:func:`kernel_configs` describes that schedule on the host, one
+:class:`LaunchConfig` a launch, planned by ``dispatch.launch_plans`` and
+routed as ``dispatch.run_launch`` routes it; :func:`fused_schedule_config`
+declares the launches each kernel must see for a problem, the number the
+launch audit (``analysis/traceaudit.py``) and ``chip_smoke.py`` hold the
+kernels' launch counters to.  The cost sheet (``analysis/costmodel.py``)
+prices the same configs.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -159,3 +168,109 @@ def production_schedule(problem, device="cpu"):
     return bucket_launches(
         problem.seq1_codes, problem.seq2_codes, problem.weights, torch.device(device)
     )
+
+
+# The kernel a formulation launches (``cuda_scorer.launch_counts`` names);
+# ``mm`` and ``gather`` are plain PyTorch and launch none of them.
+KERNEL_OF = {"cuda-fused": "fused_scorer", "cuda-packed": "packed_scorer"}
+
+
+@dataclass(frozen=True)
+class LaunchConfig:
+    """The host-side facts of one launch of the production schedule: its
+    formulation (``aot/warmset.FORMULATIONS``), padded shapes, Seq1 length,
+    padded rows and their lengths, packing class, the fused kernel's
+    cluster shape (:func:`cluster_shape`; None off it), and the bucket keys
+    of its launch group."""
+
+    formulation: str
+    l1p: int
+    l2p: int
+    len1: int
+    rows: int
+    l2s: int | None
+    cluster: tuple[int, int] | None
+    lens: tuple[int, ...]
+    bucket_keys: tuple = ()
+
+    @property
+    def kernel(self) -> str | None:
+        """The ``cuda_scorer`` kernel the launch runs (None: mm, gather)."""
+        return KERNEL_OF.get(self.formulation)
+
+    @property
+    def live_pairs(self) -> int:
+        return sum(1 for n in self.lens if n > 0)
+
+    def warm_entry(self, source: str = "schedule"):
+        """The warm plane's entry of this launch (``aot/warmset.WarmEntry``)."""
+        from ..aot.warmset import WarmEntry
+
+        return WarmEntry(self.formulation, self.l2p, self.l2s, self.rows, self.l1p, source)
+
+    @property
+    def cache_key(self) -> tuple:
+        """The warm manifest's launch-shape key (``WarmEntry.cache_key``)."""
+        return self.warm_entry().cache_key
+
+    @property
+    def executable_key(self) -> tuple:
+        """``WarmEntry.executable_key``: :attr:`cache_key` x padded rows."""
+        return self.warm_entry().executable_key
+
+
+def launch_configs(seq1_codes, seq2_codes, weights, backend: str = "cuda") -> list[LaunchConfig]:
+    """One :class:`LaunchConfig` per launch the scorer makes for the batch
+    on ``backend`` (``auto`` is ``cuda``; ``oracle`` makes none)."""
+    from .dispatch import effective_backend, launch_plans, max_scored
+    from .values import max_abs_value
+
+    if backend == "auto":
+        backend = "cuda"
+    if backend == "oracle":
+        return []
+    val_flat, plans = launch_plans(seq1_codes, seq2_codes, weights, backend)
+    maxv = max_abs_value(val_flat)
+    out = []
+    for plan in plans:
+        b = plan.batch
+        route = effective_backend(backend, maxv, b.l2p, max_scored(b))
+        if route == "cuda":
+            form = "cuda-fused" if plan.l2s is None else "cuda-packed"
+        else:
+            form = route
+        out.append(LaunchConfig(
+            formulation=form, l1p=int(b.l1p), l2p=int(b.l2p), len1=int(b.len1),
+            rows=int(b.batch_size), l2s=plan.l2s if form == "cuda-packed" else None,
+            cluster=cluster_shape(int(b.l2p)) if form == "cuda-fused" else None,
+            lens=tuple(int(x) for x in b.len2), bucket_keys=tuple(plan.keys),
+        ))
+    return out
+
+
+def kernel_configs(problem, backend: str = "cuda") -> list[LaunchConfig]:
+    """:func:`launch_configs` of a parsed problem (``io.parse.Problem``)."""
+    return launch_configs(problem.seq1_codes, problem.seq2_codes, problem.weights, backend)
+
+
+@dataclass(frozen=True)
+class FusedScheduleConfig:
+    """The launch structure the planner declares for a problem: the bucket
+    keys of each launch, in launch order, and the launches each kernel
+    must see (``declared_launches``, by ``cuda_scorer.launch_counts``
+    name; a launch routed to ``mm`` or ``gather`` launches no kernel and
+    counts in ``launches`` only)."""
+
+    groups: tuple
+    declared_launches: dict
+    launches: int
+
+
+def fused_schedule_config(problem, backend: str = "cuda") -> FusedScheduleConfig:
+    """The declared launch structure of ``problem`` on ``backend``."""
+    cfgs = kernel_configs(problem, backend)
+    declared = dict.fromkeys(KERNEL_OF.values(), 0)
+    for cfg in cfgs:
+        if cfg.kernel is not None:
+            declared[cfg.kernel] += 1
+    return FusedScheduleConfig(tuple(c.bucket_keys for c in cfgs), declared, len(cfgs))

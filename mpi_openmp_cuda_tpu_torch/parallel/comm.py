@@ -24,7 +24,12 @@ the mesh's devices.  :class:`ProcessCollectives` runs over
 ``nccl`` they stay on the card.  Both count their calls by kind in
 ``counts`` (once per slot) and log each as ``(kind, elements)`` in
 ``log``, the elements a slot receives: what the structure tests read, as
-the JAX package's read the collectives of the compiled program.
+the JAX package's read the collectives of the compiled program.  Both
+also keep each local slot's own sequence in ``slot_log`` (``{slot:
+[(kind, elements, bytes)]}``, a ``gather`` or ``broadcast`` in every
+local slot's sequence, since every slot takes part): the comms audit
+(``analysis/collectives.py``) holds the slots' sequences to each other,
+and a process's to the one-process run's.
 """
 
 from __future__ import annotations
@@ -47,14 +52,21 @@ class Collectives:
         self.mesh = mesh
         self.counts: collections.Counter = collections.Counter()
         self.log: list[tuple[str, int]] = []
+        self.slot_log: dict[int, list[tuple[str, int, int]]] = {}
 
     def reset_counts(self) -> None:
         self.counts.clear()
         self.log.clear()
+        self.slot_log.clear()
 
-    def _note(self, kind: str, elements: int) -> None:
+    def _note(self, kind: str, elements: int, itemsize: int, slots) -> None:
+        """Count one call of ``kind`` and log it; ``slots`` are the local
+        slots whose sequences it enters."""
         self.counts[kind] += 1
         self.log.append((kind, int(elements)))
+        for slot in slots:
+            self.slot_log.setdefault(slot, []).append(
+                (kind, int(elements), int(elements) * int(itemsize)))
 
     def _sp(self) -> int:
         return self.mesh.shape.get(SEQ_AXIS, 1)
@@ -80,7 +92,7 @@ class LocalCollectives(Collectives):
         out = {}
         for slot in blocks:
             src = blocks[self._next(slot)]
-            self._note("shift", src.numel())
+            self._note("shift", src.numel(), src.element_size(), [slot])
             out[slot] = src.to(self.mesh.device(slot))
         return out
 
@@ -91,16 +103,17 @@ class LocalCollectives(Collectives):
             row = slot - slot % sp
             dev = self.mesh.device(slot)
             out[slot] = torch.stack([parts[row + d].to(dev) for d in range(sp)])
-            self._note("all_gather", out[slot].numel())
+            self._note("all_gather", out[slot].numel(), out[slot].element_size(), [slot])
         return out
 
     def gather(self, rows: dict[int, torch.Tensor], take: list[int]) -> np.ndarray:
         host = np.concatenate([rows[s].cpu().numpy() for s in take])
-        self._note("gather", host.size)
+        self._note("gather", host.size, host.itemsize, rows)
         return host
 
     def broadcast(self, arr: np.ndarray) -> np.ndarray:
-        self._note("broadcast", np.asarray(arr).size)
+        arr = np.asarray(arr)
+        self._note("broadcast", arr.size, arr.itemsize, self.local_slots())
         return arr
 
 
@@ -155,7 +168,7 @@ class ProcessCollectives(Collectives):
             ops = [dist.P2POp(dist.isend, send, dst), dist.P2POp(dist.irecv, recv, src)]
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        self._note("shift", recv.numel())
+        self._note("shift", recv.numel(), recv.element_size(), [self.rank])
         return {self.rank: recv.to(self.mesh.device(self.rank))}
 
     def all_gather(self, parts: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
@@ -165,7 +178,7 @@ class ProcessCollectives(Collectives):
         bufs = [torch.empty_like(send) for _ in range(self._sp())]
         dist.all_gather(bufs, send, group=self.seq_group)
         out = torch.stack(bufs).to(self.mesh.device(self.rank))
-        self._note("all_gather", out.numel())
+        self._note("all_gather", out.numel(), out.element_size(), [self.rank])
         return {self.rank: out}
 
     def gather(self, rows: dict[int, torch.Tensor], take: list[int]) -> np.ndarray:
@@ -175,7 +188,7 @@ class ProcessCollectives(Collectives):
         bufs = [torch.empty_like(send) for _ in range(self.world)]
         dist.all_gather(bufs, send)
         host = np.concatenate([bufs[s].cpu().numpy() for s in take])
-        self._note("gather", host.size)
+        self._note("gather", host.size, host.itemsize, [self.rank])
         return host
 
     def broadcast(self, arr: np.ndarray) -> np.ndarray:
@@ -185,7 +198,7 @@ class ProcessCollectives(Collectives):
         import torch.distributed as dist
 
         arr = np.ascontiguousarray(arr)
-        self._note("broadcast", arr.size)
+        self._note("broadcast", arr.size, arr.itemsize, [self.rank])
         if arr.size == 0:
             return arr
         t = torch.from_numpy(arr.copy()).to(self.stage)

@@ -8,7 +8,8 @@ ring-shards Seq1 over N devices (sequence/context parallel), 'DxS'
 composes both on a 2-D mesh.  Bad specs raise ValueError (never a silent
 fallback to some other parallelism strategy); a missing subsystem module
 raises RuntimeError with the offending feature named.  ``device`` is the
-kind of device the mesh takes (``'cuda'`` or ``'cpu'``).
+kind of device the mesh takes (``'cuda'`` or ``'cpu'``); ``devices``, when
+given, is the mesh's explicit device list (the comms audit's ``[cpu] x N``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def _feature_import(what: str, importer):
         ) from e
 
 
-def build_sharding(mesh_arg: str | None, device="cuda"):
+def build_sharding(mesh_arg: str | None, device="cuda", devices=None):
     """Parse a mesh spec into a sharding strategy (None = single device)."""
     if mesh_arg is None:
         return None
@@ -64,11 +65,11 @@ def build_sharding(mesh_arg: str | None, device="cuda"):
         if spec[0] == "seq":
             return _feature_import(
                 "--mesh sequence sharding", _imp_ring
-            ).over_devices(seq=_count(spec[1]), device=device)
+            ).over_devices(seq=_count(spec[1]), device=device, devices=devices)
         if spec[0] == "batch":
             return _feature_import(
                 "--mesh batch sharding", _imp_batch
-            ).over_devices(_count(spec[1]), device=device)
+            ).over_devices(_count(spec[1]), device=device, devices=devices)
         raise _bad(f" (unknown axis {spec[0]!r})")
     if len(spec) != 1:
         raise _bad()
@@ -78,8 +79,8 @@ def build_sharding(mesh_arg: str | None, device="cuda"):
             raise _bad()
         dp, sp = (_count(t) for t in tokens)
         return _feature_import("--mesh 2-D sharding", _imp_ring).over_devices(
-            seq=sp, batch=dp, device=device
+            seq=sp, batch=dp, device=device, devices=devices
         )
     return _feature_import("--mesh batch sharding", _imp_batch).over_devices(
-        _count(spec[0]), device=device
+        _count(spec[0]), device=device, devices=devices
     )

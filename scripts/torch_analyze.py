@@ -21,8 +21,22 @@ Passes, cheapest first:
 6. contracts     — every scoring entry point's plain version at a tiny
                    CPU size against its output contract
                    (``analysis/contracts.py``);
-7. interleave    — the fleet protocol's interleavings
+7. cost model    — every plannable launch shape priced, and the
+                   input3-class sheet (``analysis/costmodel.py``; golden
+                   drift in ``scripts/torch_schedule_audit.py``);
+8. launch audit  — input3-class's traced dispatch against the declared
+                   launches, its operands (``analysis/traceaudit.py``);
+9. comms         — every mesh form's collectives on ``[cpu] x N``, the
+                   ``parallel/`` source (``analysis/collectives.py``;
+                   golden drift in ``scripts/torch_comms_audit.py``);
+10. dataflow     — the staged feed's single use, stream safety and
+                   re-staging on retry (``analysis/dataflow.py``; golden
+                   drift in ``scripts/torch_donation_audit.py``);
+11. interleave   — the fleet protocol's interleavings
                    (``analysis/interleave.py``).
+
+The build counter (``analysis/recompile.py``) needs a card to count on;
+``chip_smoke.py`` phase 19 holds it at 0 in steady state.
 
 Every pass runs whatever the others did; the run ends with a summary
 table.  Exit 0 iff every pass is clean.  Needs no device.
@@ -82,6 +96,41 @@ def _contracts():
     return f"{len(contracts.audit_entry_points())} entry/bucket rows OK"
 
 
+def _costmodel():
+    from mpi_openmp_cuda_tpu_torch.analysis import costmodel
+    from mpi_openmp_cuda_tpu_torch.models.workload import input3_class_problem
+
+    n, best = costmodel.audit_config_space()
+    t = costmodel.schedule_cost_sheet(input3_class_problem())["totals"]
+    return (f"{n} launch shapes priced (nearest its bound: {best.kind} L2P {best.l2p}, "
+            f"{best.bound_share:.3f}); input3-class {t['launches']} launch(es), "
+            f"predicted {t['predicted_wall_us']:.3f} us")
+
+
+def _traceaudit():
+    from mpi_openmp_cuda_tpu_torch.analysis import traceaudit
+    from mpi_openmp_cuda_tpu_torch.models.workload import input3_class_problem
+
+    r = traceaudit.run_or_raise(input3_class_problem())
+    rows = traceaudit.audit_entry_points()
+    return (f"input3-class {r['launches_by_kernel']} == declared, {r['epilogues']} "
+            f"epilogue, {r['host_fetches']} host fetch, {len(rows)} entry rows, 0 findings")
+
+
+def _collectives():
+    from mpi_openmp_cuda_tpu_torch.analysis import collectives
+
+    c = collectives.run_or_raise()["counts"]
+    return f"{c['entries']} mesh forms, {c['collectives']} collectives, 0 findings"
+
+
+def _dataflow():
+    from mpi_openmp_cuda_tpu_torch.analysis import dataflow
+
+    c = dataflow.run_or_raise()["counts"]
+    return f"{c['restage_paths']} re-staging paths, {c['pinned']} pins, 0 findings"
+
+
 def _interleave():
     from mpi_openmp_cuda_tpu_torch.analysis import interleave
 
@@ -92,7 +141,8 @@ def _interleave():
 PASSES = (
     ("seqlint", _seqlint), ("lockgraph", _lockgraph), ("exitflow", _exitflow),
     ("ranges", _ranges), ("smem", _smem), ("contracts", _contracts),
-    ("interleave", _interleave),
+    ("costmodel", _costmodel), ("traceaudit", _traceaudit), ("collectives", _collectives),
+    ("dataflow", _dataflow), ("interleave", _interleave),
 )
 
 

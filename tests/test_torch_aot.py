@@ -140,9 +140,11 @@ def test_serve_block_entries_cover_both_forms():
             forms.add(identity(plan)[0])
     assert forms == {"cuda-fused", "cuda-packed"}
     assert any(e.source == "serve-block" and e.formulation == "cuda-packed" for e in entries)
-    # Without rows_per_block only the problem's own launches are warmed.
+    # Without rows_per_block only the problem's own launches are warmed:
+    # its hot configs (the cost sheet's top-K) first, then the rest.
     alone = select_warmset(prob, "cuda")
-    assert {e.source for e in alone} == {"schedule"}
+    assert {e.source for e in alone} == {"hot-config", "schedule"}
+    assert alone[0].source == "hot-config"
 
 
 def test_warmset_routes_past_the_int32_window_to_gather():

@@ -186,7 +186,12 @@ def test_port_import_loads_no_jax():
         "mpi_openmp_cuda_tpu_torch.analysis.seqlint, "
         "mpi_openmp_cuda_tpu_torch.analysis.lockgraph, "
         "mpi_openmp_cuda_tpu_torch.analysis.exitflow, "
-        "mpi_openmp_cuda_tpu_torch.analysis.interleave; "
+        "mpi_openmp_cuda_tpu_torch.analysis.interleave, "
+        "mpi_openmp_cuda_tpu_torch.analysis.costmodel, "
+        "mpi_openmp_cuda_tpu_torch.analysis.traceaudit, "
+        "mpi_openmp_cuda_tpu_torch.analysis.recompile, "
+        "mpi_openmp_cuda_tpu_torch.analysis.collectives, "
+        "mpi_openmp_cuda_tpu_torch.analysis.dataflow; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_openmp_cuda_tpu')]; print(bad); sys.exit(bool(bad))"
     )
