@@ -120,10 +120,18 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    shared memory printed; two processes of ``--distributed`` on the card
    (``gloo``: the ranks share it) with ``--mesh 2`` and ``--mesh seq:2``
    on mixedcase and max-size (rank 0 == golden, rank 1 silent, both 0)
-   and a parse failure on rank 0 (both 65 within 60 s); then max-size's
+   and a parse failure on rank 0 (both 65 within 60 s); then two
+   processes of two slots each (``SEQALIGN_HOST_DEVICES=2``: four global
+   slots of the one card) with no ``--mesh``, ``--mesh 4``, ``seq:4`` and
+   ``2x2`` on mixedcase and max-size (rank 0 == golden, rank 1 silent,
+   both 0), ``seq:4`` on :func:`ring_problems`' Seq1 6144 (rank 0 == the
+   oracle), ``--mesh 2`` refused (both 65, the JAX CLI's message), and
+   each rank's ``--metrics-out`` report of the ``--mesh 4`` max-size job
+   counting two fused launches a bucket, its two slots'; then max-size's
    warm wall single-device, over ``[cuda:0] x 4`` and over ``seq:8``
-   with each path's summed launch time (CUDA events), and a two-process
-   job's wall;
+   with each path's summed launch time (CUDA events), and the walls,
+   process start to exit, of a two-process ``--mesh 2`` job and of the
+   two-process, four-slot ``--mesh 4`` job;
 15. the serve plane (``serve/``, ``load/``): (a) a ``ServeLoop`` in this
    process on ``cuda:0``, launch counts set to 0 just before it, takes 25
    requests in one tick (8 of max-size's rows each from 8 requests, 16
@@ -1315,22 +1323,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_job(argv, stdin_path, nproc=2, rank_argv=None) -> list:
+def launch_job(argv, stdin_path, nproc=2, rank_argv=None, env=None) -> list:
     """One ``--distributed`` job of ``nproc`` processes of the CLI on this
-    host (torchrun's variables set by hand), rank 0 reading
+    host (torchrun's variables set by hand, ``env`` added), rank 0 reading
     ``stdin_path``, each rank given ``rank_argv(rank)`` after ``argv``
     when that is set; returns the started processes."""
     port = free_port()
     procs = []
     for rank in range(nproc):
-        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-               "WORLD_SIZE": str(nproc), "RANK": str(rank), "LOCAL_RANK": str(rank),
-               "LOCAL_WORLD_SIZE": str(nproc)}
+        env_r = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                 "WORLD_SIZE": str(nproc), "RANK": str(rank), "LOCAL_RANK": str(rank),
+                 "LOCAL_WORLD_SIZE": str(nproc), **(env or {})}
         with open(stdin_path if rank == 0 else os.devnull, "rb") as stdin:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", PKG, "--distributed", *argv,
                  *(rank_argv(rank) if rank_argv else ())], stdin=stdin,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=REPO))
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env_r, cwd=REPO))
     return procs
 
 
@@ -1350,6 +1358,62 @@ def finish_job(procs, timeout=120) -> list[tuple[int, bytes, bytes]]:
                 p.kill()
                 p.communicate()
     return outs
+
+
+#: Two slots a process: a two-process job's four global slots on the card.
+HYBRID_ENV = {"SEQALIGN_HOST_DEVICES": "2"}
+
+
+def hybrid_jobs(np, dispatch, cs, small, big, big_seqs, long_problem, long_want,
+                tmpdir) -> dict[str, dict[str, int]]:
+    """Phase 14's jobs of two processes of two slots each: the goldens at no
+    ``--mesh``, ``4``, ``seq:4`` and ``2x2``, the ring past the cap, the
+    partial-mesh refusal, and each rank's launches at ``--mesh 4`` on
+    max-size (returned by rank)."""
+    long_in = Path(tmpdir) / "seq1_6144.txt"
+    long_in.write_text(as_text(np, *long_problem))
+    reports = [Path(tmpdir) / f"hybrid{rank}.json" for rank in range(2)]
+    jobs = {}
+    for mesh in (None, "4", "seq:4", "2x2"):
+        for path in (small, big):
+            argv = [] if mesh is None else ["--mesh", mesh]
+            argv_r = (lambda rank: ["--metrics-out", str(reports[rank])]) if (
+                (mesh, path) == ("4", big)) else None
+            jobs[(mesh or "none", path.name)] = (
+                launch_job(argv, path, rank_argv=argv_r, env=HYBRID_ENV),
+                path.with_suffix(".out").read_bytes())
+    jobs[("seq:4", long_in.name)] = (launch_job(["--mesh", "seq:4"], long_in, env=HYBRID_ENV),
+                                     long_want.encode())
+    jobs[("2", "refused")] = (launch_job(["--mesh", "2"], small, env=HYBRID_ENV), None)
+    refusal = b"multi-host jobs must mesh all 4 global devices, got --mesh 2"
+    for (mesh, name), (procs, want) in jobs.items():
+        (rc0, out0, err0), (rc1, out1, err1) = finish_job(procs)
+        if want is None:
+            if (rc0, rc1) != (65, 65) or out0 or out1 or refusal not in err0 or (
+                    refusal not in err1):
+                fail(f"2x2-slot --mesh 2: rc {rc0}/{rc1}, stderr {err0[-300:]!r}")
+            log(f"2 processes x 2 slots, --mesh 2: both exit 65, {refusal.decode()!r}")
+            continue
+        if rc0 or rc1 or out0 != want or out1 or b"2 processes x 2 slots" not in err0:
+            fail(f"2 processes x 2 slots --mesh {mesh} {name}: rc {rc0}/{rc1}, rank 1 "
+                 f"stdout {len(out1)} bytes; stderr {err0[-400:]!r} {err1[-400:]!r}")
+        log(f"2 processes x 2 slots (4 global slots on the card) --mesh {mesh} {name}: "
+            f"rank 0 stdout == {'oracle' if name == long_in.name else 'golden'}, rank 1 "
+            f"silent, both exit 0")
+    buckets = len(dispatch.plan_buckets([q.size for q in big_seqs], packable=False,
+                                        min_rows=dispatch.MIN_BUCKET_ROWS * 4))
+    counts = {}
+    for rank, path in enumerate(reports):
+        rec = json.loads(path.read_text())
+        got = {k: rec["counters"].get(f"{k}_launches", 0) for k in cs.launch_counts}
+        if got["fused_scorer"] != 2 * buckets or got["packed_scorer"]:
+            fail(f"2 processes x 2 slots --mesh 4 max-size, rank {rank}'s launches {got}, "
+                 f"want {2 * buckets} fused (2 slots x {buckets} buckets)")
+        counts[f"2x2-slot rank {rank}"] = got
+    log(f"2 processes x 2 slots --mesh 4 max-size: launches {counts}, 2 a bucket over "
+        f"{buckets} buckets, {rec['gauges'].get('distributed_slots')} global slots, "
+        f"transport {rec['gauges'].get('distributed_transport')}")
+    return counts
 
 
 def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_ms,
@@ -1534,6 +1598,11 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
     log(f"2-process --mesh 2 max-size, rank 0's launches {dist_counts}, transport "
         f"{rec['gauges'].get('distributed_transport')}")
 
+    # -- 3b. two processes of two slots each: four global slots ------------
+    hybrid_counts = hybrid_jobs(np, dispatch, cs, small, big, probs["max-size"][1],
+                                ring_only["Seq1 6144"],
+                                want_rows("Seq1 6144", *ring_only["Seq1 6144"]), tmp.name)
+
     # -- 4. times --------------------------------------------------------------
     s1, seqs, w = probs["max-size"]
     ring8 = AlignmentScorer("cuda", device=dev0, sharding=rings["seq:8"])
@@ -1554,16 +1623,18 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
         log(f"max-size {name}: warm wall min {min(walls[name]) * 1e3:.3f} ms of "
             f"{[round(x * 1e3, 3) for x in walls[name]]}, {len(kern[name])} launches "
             f"summing {ms:.6f} ms of device time, bound {b_ms:.6f} ms [{card}]")
-    procs = launch_job(["--mesh", "2"], big)
-    t0 = time.perf_counter()
-    (rc0, out0, _), (rc1, _, _) = finish_job(procs)
-    wall = time.perf_counter() - t0
-    if rc0 or rc1 or out0 != big.with_suffix(".out").read_bytes():
-        fail("2-process --mesh 2 max-size (timed): wrong exit or stdout")
-    log(f"2-process --distributed --mesh 2 max-size job wall {wall:.3f} s, process "
-        f"start to exit [{card}]")
+    for what, mesh, env in (("2 processes x 1 slot", "2", None),
+                            ("2 processes x 2 slots", "4", HYBRID_ENV)):
+        t0 = time.perf_counter()
+        (rc0, out0, _), (rc1, _, _) = finish_job(launch_job(["--mesh", mesh], big, env=env))
+        wall = time.perf_counter() - t0
+        if rc0 or rc1 or out0 != big.with_suffix(".out").read_bytes():
+            fail(f"{what} --mesh {mesh} max-size (timed): wrong exit or stdout")
+        log(f"{what} --distributed --mesh {mesh} max-size job wall {wall:.3f} s, process "
+            f"start to exit [{card}]")
     tmp.cleanup()
-    return {"batch mesh": batch_counts, "ring": ring_counts, "2-process rank 0": dist_counts}
+    return {"batch mesh": batch_counts, "ring": ring_counts, "2-process rank 0": dist_counts,
+            **hybrid_counts}
 
 
 class _Sink:

@@ -9,7 +9,8 @@ in each local slot's sequence (``Collectives.slot_log``: kind, elements,
 bytes).  This audit reads those logs, and the ``parallel/`` source, and
 proves four things for every mesh form of :data:`AUDIT_SPECS`, run on
 ``[cpu] x N`` through ``LocalCollectives`` at the JAX audit's
-representative batch (:func:`representative_problem`):
+representative batch (:func:`representative_problem`), and a fifth for a
+job's logs:
 
 1. **The inventory**, per slot and in program order: the batch mesh makes
    no collective in the compute and one ``gather`` a dispatched bucket;
@@ -27,6 +28,10 @@ representative batch (:func:`representative_problem`):
 4. **The ring cross-check**: each ring slot's shifts equal
    ``ring_plan``'s R, and the cost sheet's seq rows
    (``analysis/costmodel.py``) price the same R (``ring-plan-drift``).
+5. **The hybrid form** (:func:`hybrid_findings`, fed by a job of several
+   processes of several slots each): every slot's sequence, from its
+   process's ``ProcessCollectives.slot_log``, equals the same slot's in
+   the one-process run of the same mesh (``hybrid-divergence``).
 
 ``scripts/torch_comms_audit.py`` wraps the body in the ``comms-audit``
 report and diffs it against ``tests/golden/torch_comms_audit.json``.  CPU
@@ -240,6 +245,29 @@ def audit_spec_entries(devices_for=None) -> tuple[list[dict], list[dict]]:
             "log": [[k, e] for k, e in comm.log],
         })
     return entries, findings
+
+
+def hybrid_findings(spec: str, slot_logs: dict) -> list[dict]:
+    """``hybrid-divergence`` findings: ``slot_logs`` (``{slot: [(kind,
+    elements, bytes)]}``, the ``slot_log`` of every process of a job that
+    ran :func:`run_spec` on ``spec``, merged) against each slot's sequence
+    in the one-process ``LocalCollectives`` run of ``spec`` over ``[cpu] x
+    N``, ``N`` the job's global slots."""
+    import torch
+
+    sharding, _, _ = run_spec(spec, [torch.device("cpu")] * len(slot_logs))
+    want = sharding.comm.slot_log
+    findings = []
+    for slot in range(sharding.mesh.size):
+        got = [tuple(op) for op in slot_logs.get(slot, ())]
+        if got != want.get(slot, []):
+            findings.append({
+                "kind": "hybrid-divergence", "entry": f"{type(sharding).__name__}[{spec}]",
+                "detail": f"slot {slot} issued {got} in the job of several processes, "
+                          f"{want.get(slot, [])} in one process: the processes' slots "
+                          "no longer follow the one-process plan",
+            })
+    return findings
 
 
 def ring_crosscheck(entries: list[dict]) -> tuple[list[dict], list[dict]]:

@@ -332,7 +332,10 @@ def validate_sharded(sharding, batches, val_flat, backend: str, device=None) -> 
     made.  A batch mesh launches one shard of ``ceil(B / devices)`` rows a
     device, each checked as a launch; the ring launches one window a Seq1
     shard (L1P = Bs, ``len1_eff = len1 - d * Bs``) on the fused kernel, or
-    the gather window body."""
+    the gather window body.  Every slot of the mesh is checked on every
+    process, its local slots and the others' alike, so in a job of
+    several processes a violation stops every rank before any upload and
+    no rank is left waiting in a collective."""
     from ..ops import dispatch
     from ..ops.values import max_abs_value
     from .smem import card_budget

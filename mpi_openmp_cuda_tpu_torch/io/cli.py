@@ -174,8 +174,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--distributed", action="store_true",
         help="join a multi-process job first (torch.distributed, from "
         "torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK): "
-        "one device a process, rank 0 reads the input and prints; without "
-        "--mesh the batch is sharded over every process",
+        "each process drives its local slots (its share of the cards, or "
+        "SEQALIGN_HOST_DEVICES of them), rank 0 reads the input and prints; "
+        "without --mesh the batch is sharded over every global slot",
     )
     p.add_argument("--json", default=None, metavar="PATH",
                    help="also write results as a JSON sidecar file")
@@ -400,7 +401,8 @@ def _build_obs(args) -> tuple[bool, str | None, float | None, str | None]:
 def _make_scorer(args, distributed: bool) -> AlignmentScorer:
     """The run's scorer: ``--mesh``'s sharding (``parallel/specs.py``), or,
     in a ``--distributed`` job without one, the batch sharded over every
-    process (the reference's MPI_Scatter, main.c:174)."""
+    global slot, each process's local slots (the reference's MPI_Scatter,
+    main.c:174; JAX shards over every global device)."""
     from ..ops.dispatch import resolve_device
     from ..parallel.specs import build_sharding
 

@@ -19,9 +19,12 @@ slots (:meth:`local_slots`), slots numbered row-major over the mesh.
 
 :class:`LocalCollectives` runs in one process and copies tensors between
 the mesh's devices.  :class:`ProcessCollectives` runs over
-``torch.distributed``, one slot a process (slot ``r`` is rank ``r``); over
-``gloo`` the tensors it moves are staged through host memory, over
-``nccl`` they stay on the card.  Both count their calls by kind in
+``torch.distributed``, ``k`` slots a process (process ``r`` drives slots
+``r * k`` to ``r * k + k - 1``, :meth:`Mesh.owner`): between a process's
+own slots it copies, as :class:`LocalCollectives` does, and between
+processes it calls ``torch.distributed``; over ``gloo`` the tensors it
+moves are staged through host memory, over ``nccl`` through the
+process's first card.  Both count their calls by kind in
 ``counts`` (once per slot) and log each as ``(kind, elements)`` in
 ``log``, the elements a slot receives: what the structure tests read, as
 the JAX package's read the collectives of the compiled program.  Both
@@ -39,6 +42,7 @@ import collections
 import numpy as np
 import torch
 
+from .distributed import process_count, slots_per_process
 from .mesh import SEQ_AXIS, Mesh
 
 
@@ -117,11 +121,27 @@ class LocalCollectives(Collectives):
         return arr
 
 
+def group_plan(mesh: Mesh) -> list[tuple[int, ...]]:
+    """The process sets of the ``seq`` rows that span processes, first
+    appearance first, each once: the groups every rank creates, in this
+    order, for the rows' ``all_gather`` (a set of every process is the
+    whole job and needs no group of its own)."""
+    if SEQ_AXIS not in mesh.shape:
+        return []
+    sp, plan = mesh.shape[SEQ_AXIS], []
+    for row in range(0, mesh.size, sp):
+        procs = tuple(sorted({mesh.owner(s) for s in range(row, row + sp)}))
+        if 1 < len(procs) < mesh.processes and procs not in plan:
+            plan.append(procs)
+    return plan
+
+
 class ProcessCollectives(Collectives):
-    """One slot a process over the default ``torch.distributed`` group:
-    slot ``r`` is rank ``r``.  A mesh with both axes gets one group per
-    ``seq`` row for its ``all_gather`` (every rank creates every group, in
-    order, when the scorer is built)."""
+    """``k`` slots a process over the default ``torch.distributed`` group:
+    process ``r`` drives slots ``r * k`` to ``r * k + k - 1``.  A ``seq``
+    row that spans some but not all processes gathers in a group of its
+    own (:func:`group_plan`; every rank creates every group, in order,
+    when the scorer is built)."""
 
     def __init__(self, mesh: Mesh | None = None):
         import torch.distributed as dist
@@ -129,76 +149,118 @@ class ProcessCollectives(Collectives):
         super().__init__(mesh)
         self.rank = dist.get_rank()
         self.world = dist.get_world_size()
-        if mesh is not None and mesh.size != self.world:
-            raise ValueError(
-                f"a {self.world}-process job needs a mesh of {self.world} "
-                f"devices, got {mesh.size}"
-            )
+        self.k = 1
+        if mesh is not None:
+            self.k = slots_per_process()
+            if mesh.size != self.world * self.k:
+                raise ValueError(
+                    f"a {self.world}-process job of {self.k} slots a process needs a "
+                    f"mesh of {self.world * self.k} devices, got {mesh.size}"
+                )
         if dist.get_backend() == "gloo":
             self.stage = torch.device("cpu")
         elif mesh is not None:
-            self.stage = mesh.device(self.rank)
+            self.stage = mesh.device(self.rank * self.k)
         else:  # nccl: the card this rank drives (initialize_distributed set it)
             self.stage = torch.device("cuda", torch.cuda.current_device())
-        self.seq_group = None  # None: the whole job
-        if mesh is not None and SEQ_AXIS in mesh.shape:
-            sp = self._sp()
-            if sp < self.world:
-                groups = [dist.new_group(list(range(r, r + sp)))
-                          for r in range(0, self.world, sp)]
-                self.seq_group = groups[self.rank // sp]
+        self.groups = {}  # process set -> group; a set of every process: None
+        for procs in group_plan(mesh) if mesh is not None else ():
+            self.groups[procs] = dist.new_group(list(procs))
 
     def local_slots(self) -> list[int]:
-        return [self.rank]
+        return list(range(self.rank * self.k, (self.rank + 1) * self.k))
 
-    def _own(self, parts: dict[int, torch.Tensor]) -> torch.Tensor:
-        if list(parts) != [self.rank]:
-            raise ValueError(f"rank {self.rank} holds slot {self.rank} only, got {list(parts)}")
-        return parts[self.rank].to(self.stage).contiguous()
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.stage).contiguous()
+
+    def _tag(self, src: int, dst: int) -> int:
+        """The P2P tag of slot ``src``'s block to slot ``dst``: distinct for
+        every pair of slots, so gloo matches no message by order."""
+        return src * self.mesh.size + dst
 
     def shift(self, blocks: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
+        """A neighbour on this process is a device copy; the blocks to and
+        from other processes move in one ``batch_isend_irecv``, sends then
+        receives, each in tag order."""
         import torch.distributed as dist
 
-        send = self._own(blocks)
-        recv = torch.empty_like(send)
-        src, dst = self._next(self.rank), self._prev(self.rank)
-        if src == self.rank:
-            recv.copy_(send)
-        else:
-            ops = [dist.P2POp(dist.isend, send, dst), dist.P2POp(dist.irecv, recv, src)]
+        owner, slots = self.mesh.owner, self.local_slots()
+        out, sends, recvs = {}, [], []
+        for slot in slots:
+            dst = self._prev(slot)
+            if owner(dst) != self.rank:
+                sends.append((self._tag(slot, dst), self._staged(blocks[slot]), owner(dst)))
+            src = self._next(slot)
+            if owner(src) == self.rank:
+                out[slot] = blocks[src]
+            else:
+                buf = torch.empty(blocks[slot].shape, dtype=blocks[slot].dtype,
+                                  device=self.stage)
+                recvs.append((self._tag(src, slot), buf, owner(src), slot))
+        sends.sort(key=lambda op: op[0])
+        recvs.sort(key=lambda op: op[0])
+        ops = ([dist.P2POp(dist.isend, t, peer, tag=tag) for tag, t, peer in sends]
+               + [dist.P2POp(dist.irecv, t, peer, tag=tag) for tag, t, peer, _ in recvs])
+        if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        self._note("shift", recv.numel(), recv.element_size(), [self.rank])
-        return {self.rank: recv.to(self.mesh.device(self.rank))}
+        for _, buf, _, slot in recvs:
+            out[slot] = buf
+        for slot in slots:
+            got = out[slot] = out[slot].to(self.mesh.device(slot))
+            self._note("shift", got.numel(), got.element_size(), [slot])
+        return out
 
     def all_gather(self, parts: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
+        """A ``seq`` row this process holds whole is stacked here; a row that
+        spans processes gathers the stack of each holder's slots of it (padded
+        to the largest share) in the group of its holders, rows in order."""
         import torch.distributed as dist
 
-        send = self._own(parts)
-        bufs = [torch.empty_like(send) for _ in range(self._sp())]
-        dist.all_gather(bufs, send, group=self.seq_group)
-        out = torch.stack(bufs).to(self.mesh.device(self.rank))
-        self._note("all_gather", out.numel(), out.element_size(), [self.rank])
-        return {self.rank: out}
+        sp, out = self._sp(), {}
+        for row in sorted({s - s % sp for s in parts}):
+            share = {}  # holder rank -> its slots of the row, ranks ascending
+            for s in range(row, row + sp):
+                share.setdefault(self.mesh.owner(s), []).append(s)
+            mine = share[self.rank]
+            if len(share) == 1:
+                stack = [parts[s] for s in mine]
+            else:
+                width = max(map(len, share.values()))
+                send = torch.stack([self._staged(parts[s]) for s in mine])
+                if len(mine) < width:
+                    send = torch.cat([send, send.new_zeros((width - len(mine),
+                                                            *send.shape[1:]))])
+                bufs = [torch.empty_like(send) for _ in share]
+                dist.all_gather(bufs, send, group=self.groups.get(tuple(share)))
+                stack = [t for p, buf in zip(share, bufs) for t in buf[: len(share[p])]]
+            for s in mine:
+                dev = self.mesh.device(s)
+                out[s] = torch.stack([t.to(dev) for t in stack])
+                self._note("all_gather", out[s].numel(), out[s].element_size(), [s])
+        return out
 
     def gather(self, rows: dict[int, torch.Tensor], take: list[int]) -> np.ndarray:
+        """One ``all_gather`` of every process's ``[k, ...]`` stack of its
+        slots' rows; the host concatenation takes ``take`` in order."""
         import torch.distributed as dist
 
-        send = self._own(rows)
+        send = torch.stack([self._staged(rows[s]) for s in self.local_slots()])
         bufs = [torch.empty_like(send) for _ in range(self.world)]
         dist.all_gather(bufs, send)
-        host = np.concatenate([bufs[s].cpu().numpy() for s in take])
-        self._note("gather", host.size, host.itemsize, [self.rank])
+        k = self.k
+        host = np.concatenate([bufs[s // k][s % k].cpu().numpy() for s in take])
+        self._note("gather", host.size, host.itemsize, self.local_slots())
         return host
 
     def broadcast(self, arr: np.ndarray) -> np.ndarray:
         """Rank 0's ``arr`` on every rank (same shape and dtype everywhere,
-        which the callers' headers guarantee).  An empty array moves
-        nothing: every rank knows its shape from the header."""
+        which the callers' headers guarantee), once a process.  An empty
+        array moves nothing: every rank knows its shape from the header."""
         import torch.distributed as dist
 
         arr = np.ascontiguousarray(arr)
-        self._note("broadcast", arr.size, arr.itemsize, [self.rank])
+        self._note("broadcast", arr.size, arr.itemsize, self.local_slots())
         if arr.size == 0:
             return arr
         t = torch.from_numpy(arr.copy()).to(self.stage)
@@ -209,6 +271,4 @@ class ProcessCollectives(Collectives):
 def collectives_for(mesh: Mesh | None) -> Collectives:
     """:class:`ProcessCollectives` inside a job of several processes, else
     :class:`LocalCollectives`."""
-    from .distributed import process_count
-
     return ProcessCollectives(mesh) if process_count() > 1 else LocalCollectives(mesh)

@@ -11,14 +11,21 @@ torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
 feed from its broadcasts, as the reference's ``MPI_Bcast`` of seq1, the
 weights and the sizes (main.c:149-152).
 
-One device a process.  On ``cuda`` a rank drives ``cuda:LOCAL_RANK`` over
-``nccl`` when the host has a card for every local rank; when ranks must
-share a card (a one-card host), rank ``r`` drives ``cuda:(LOCAL_RANK mod
-device_count)`` over ``gloo``, with the small tensors it moves staged
-through host memory, since NCCL refuses two ranks on one device.  On
-``cpu`` the transport is ``gloo``.  The kernels run on the card either
-way; the choice is a transport's, told once on stderr and kept in the run
-report's gauges.
+Several mesh slots a process (:func:`local_devices`), as a JAX job has
+several devices a process.  On ``cuda`` a process drives ``k =
+max(1, device_count // LOCAL_WORLD_SIZE)`` cards from
+``cuda:(LOCAL_RANK * k mod device_count)`` over ``nccl`` when no two
+processes share a card; when they must (a one-card host), over ``gloo``,
+with the small tensors it moves staged through host memory, since NCCL
+refuses two ranks on one device.  ``SEQALIGN_HOST_DEVICES``, when set,
+is the slot count a process instead, its slots naming the process's
+cards in turn (two slots of ``cuda:0`` on a one-card host).  On ``cpu``
+a process has ``SEQALIGN_HOST_DEVICES`` slots (default 1) and the
+transport is ``gloo``.  Every process must have the same count: slot
+``rank * k + j`` is process ``rank``'s ``j``-th, process-major, the order
+``jax.devices()`` gives a multi-process JAX job.  The kernels run on the
+card either way; the choice is a transport's, told once on stderr and
+kept in the run report's gauges.
 
 The broadcasts are two-phase, as in the JAX package: a fixed-shape header
 (sizes, or an abort flag) first, then the payload, so a coordinator that
@@ -53,6 +60,9 @@ TIMEOUT_S = 300
 # The job's TCP store (its server runs in rank 0), kept for the rescue
 # board; None outside a job.
 _STORE = None
+# The mesh slots each process drives, exchanged when the job is joined;
+# None outside a job.
+_SLOTS = None
 
 
 def _guarded(describe: str):
@@ -93,41 +103,92 @@ def _local() -> tuple[int, int]:
             env_int("WORLD_SIZE", 1) if world is None else world)
 
 
-def local_device(kind: str = "cuda") -> torch.device:
-    """This process's device: ``cuda:(LOCAL_RANK mod device_count)`` on
-    ``cuda``, the CPU on ``cpu``."""
+def _host_slots() -> int | None:
+    """``SEQALIGN_HOST_DEVICES`` when set (>= 1), else None."""
+    slots = env_int("SEQALIGN_HOST_DEVICES", 0)
+    return max(1, slots) if slots else None
+
+
+def local_devices(kind: str = "cuda") -> list[torch.device]:
+    """The mesh slots this process drives: ``SEQALIGN_HOST_DEVICES``
+    (default 1) CPU slots on ``cpu``; on ``cuda`` this process's ``k =
+    max(1, device_count // LOCAL_WORLD_SIZE)`` cards from
+    ``cuda:(LOCAL_RANK * k mod device_count)``, or, with
+    ``SEQALIGN_HOST_DEVICES`` set, that many slots naming those cards in
+    turn."""
     if torch.device(kind).type == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")] * (_host_slots() or 1)
     count = torch.cuda.device_count()
     if count == 0:
         raise RuntimeError(
             "no CUDA device is available; pass --device cpu to score on the CPU"
         )
-    return torch.device(f"cuda:{_local()[0] % count}")
+    local_rank, local_world = _local()
+    k = max(1, count // local_world)
+    cards = [torch.device(f"cuda:{(local_rank * k + j) % count}") for j in range(k)]
+    return [cards[j % k] for j in range(_host_slots() or k)]
+
+
+def local_device(kind: str = "cuda") -> torch.device:
+    """This process's first slot (:func:`local_devices`): the device of its
+    collectives' staging under ``nccl``, the rescue tier's scorer and the
+    rank-0 log line."""
+    return local_devices(kind)[0]
 
 
 def transport(kind: str = "cuda") -> str:
-    """``nccl`` when every local rank has a card of its own, else
+    """``nccl`` when no two processes on this host share a card, else
     ``gloo``."""
     if torch.device(kind).type == "cpu":
         return "gloo"
     return "nccl" if torch.cuda.device_count() >= _local()[1] else "gloo"
 
 
+def slots_per_process() -> int:
+    """The mesh slots each process of the joined job drives (the count
+    :func:`initialize_distributed` exchanged; 1 outside a job)."""
+    if not _joined():
+        return 1
+    if _SLOTS is None:
+        raise RuntimeError(
+            "the torch.distributed job was not joined through "
+            "initialize_distributed: the processes' slot counts are unknown"
+        )
+    return _SLOTS
+
+
+def _exchange_slots(store, world: int, rank: int, k: int) -> int:
+    """Every process's slot count through the job's store; the common
+    count, or a RuntimeError when they differ."""
+    try:
+        store.set(f"seqalign/slots/{rank}", str(k))
+        counts = [int(store.get(f"seqalign/slots/{r}")) for r in range(world)]
+    except (RuntimeError, ValueError) as e:  # a peer gone mid-exchange
+        raise RuntimeError(f"multi-process initialization failed: slot counts: {e}") from e
+    if len(set(counts)) != 1:
+        raise RuntimeError(
+            "multi-process initialization failed: every process must drive "
+            f"the same number of mesh slots, got {counts} by rank "
+            "(SEQALIGN_HOST_DEVICES, or the cards a process)"
+        )
+    return k
+
+
 def initialize_distributed(device="cuda") -> None:
     """Join the job this process belongs to (the ``runOn2`` analogue), its
-    device of kind ``device`` and transport chosen by
-    :func:`local_device` and :func:`transport`."""
+    slots of kind ``device`` and transport chosen by :func:`local_devices`
+    and :func:`transport`, and agree on every process's slot count."""
     import torch.distributed as dist
 
     addr, port, world, rank = _rendezvous()
     kind = torch.device(device).type
-    dev = local_device(kind)
+    devs = local_devices(kind)
+    dev = devs[0]
     backend = transport(kind)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
-    global _STORE
+    global _STORE, _SLOTS
     try:
         # The store is made here, not by init_method="tcp://...", so the
         # rescue tier can post to it through public API: the same
@@ -141,12 +202,14 @@ def initialize_distributed(device="cuda") -> None:
     except (RuntimeError, ValueError) as e:
         raise RuntimeError(f"multi-process initialization failed: {e}") from e
     _STORE = store
+    _SLOTS = _exchange_slots(store, world, rank, len(devs))
     if rank == 0:
         why = ("ranks share a card" if backend == "gloo" and kind == "cuda"
                else "a card a rank" if backend == "nccl" else "host tensors")
-        log_line(f"mpi_openmp_cuda_tpu_torch: distributed: {world} processes, "
-                 f"rank 0 on {dev}, transport {backend} ({why})")
+        log_line(f"mpi_openmp_cuda_tpu_torch: distributed: {world} processes x "
+                 f"{_SLOTS} slots, rank 0 on {dev}, transport {backend} ({why})")
     _obs_gauge("distributed_processes", world)
+    _obs_gauge("distributed_slots", world * _SLOTS)
     _obs_gauge("distributed_transport", backend)
 
 
@@ -154,10 +217,10 @@ def shutdown_distributed() -> None:
     """Leave the job (no-op outside one)."""
     import torch.distributed as dist
 
-    global _STORE
+    global _STORE, _SLOTS
     if _joined():
         dist.destroy_process_group()
-    _STORE = None
+    _STORE = _SLOTS = None
 
 
 def job_store():
@@ -389,9 +452,10 @@ def scatter_gather_rescue(
 
     1. every process derives the same contiguous index ledger
        (:func:`..resilience.rescue.shard_index_sets`, MPI_Scatter parity)
-       and scores its own shard on its own device (``device``'s kind:
-       ``cuda:(LOCAL_RANK mod count)``, or the CPU), with no collective, so
-       a dead rank hangs no one;
+       and scores its own shard, one a process whatever its slot count,
+       on its first slot (:func:`local_device` of ``device``'s kind), as
+       the JAX tier scores on a local scorer, with no collective, so a
+       dead rank hangs no one;
     2. each posts a liveness beacon and its rows to the job's store
        (:class:`..resilience.rescue.StoreBoard`; its server is rank 0's,
        which outlives dead ranks);

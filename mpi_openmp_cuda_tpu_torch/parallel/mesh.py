@@ -5,8 +5,10 @@ The reference's process topology is ``mpiexec -np N`` over
 ``torch.device`` slots with named axes, a 1-D ``('batch',)`` axis for data
 parallelism over the Seq2 batch and, for the sequence-parallel ring
 (``parallel/ring.py``), a 2-D ``('batch', 'seq')`` one.  One process drives every slot, or, under
-``--distributed``, rank ``r`` drives slot ``r`` (one device a process,
-the port's rule; ``parallel/comm.py`` picks the collectives).
+``--distributed``, process ``r`` of a job whose processes drive ``k``
+slots each drives slots ``r * k`` to ``r * k + k - 1`` (its local slots,
+process-major, as ``jax.devices()`` orders a multi-process JAX job;
+:meth:`Mesh.owner`, and ``parallel/comm.py`` picks the collectives).
 
 The devices a mesh can take: on ``cuda``, one slot per card
 (``torch.cuda.device_count()``) unless ``devices=`` names them (repeats
@@ -16,8 +18,9 @@ there are cards, that many slots naming the cards in turn (so the native
 driver's ``TPU_SEQALIGN_MESH`` reaches a mesh on a one-card host); on
 ``cpu``, ``SEQALIGN_HOST_DEVICES`` slots (default 1), each naming the one
 CPU device, the counterpart of XLA's
-``--xla_force_host_platform_device_count``; under ``--distributed``, one
-slot per process.
+``--xla_force_host_platform_device_count``; under ``--distributed``, every
+process's local slots (``distributed.local_devices``), this process's own
+devices in its slots and placeholders of the device kind in the others.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.env import env_int
-from .distributed import local_device, process_count, process_index
+from .distributed import local_devices, process_count, process_index, slots_per_process
 
 BATCH_AXIS = "batch"
 SEQ_AXIS = "seq"
@@ -41,6 +44,8 @@ class Mesh:
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    #: The processes whose local slots the mesh takes, process-major.
+    processes: int = 1
 
     @property
     def shape(self) -> dict[str, int]:
@@ -54,17 +59,33 @@ class Mesh:
         """The device of flat slot ``slot`` (row-major)."""
         return self.devices.flat[slot]
 
+    @property
+    def per_process(self) -> int:
+        """The slots each process drives."""
+        return self.size // self.processes
+
+    def owner(self, slot: int) -> int:
+        """The rank of the process that drives flat slot ``slot``."""
+        return slot // self.per_process
+
 
 def global_devices(device="cuda") -> list[torch.device]:
     """The devices a mesh over ``device`` (``'cuda'`` or ``'cpu'``) can
-    take, in slot order: one per process under ``--distributed`` (this
-    process's own device in its slot), else this host's."""
+    take, in slot order: under ``--distributed`` every process's local
+    slots, process-major (this process's own devices in its slots), else
+    this host's."""
     kind = torch.device(device).type
     world = process_count()
     if world > 1:
-        rank = process_index()
-        return [local_device(kind) if r == rank else torch.device(kind)
-                for r in range(world)]
+        rank, k = process_index(), slots_per_process()
+        mine = local_devices(kind)
+        if len(mine) != k:
+            raise RuntimeError(
+                f"rank {rank} drives {len(mine)} {kind} slots, but the job "
+                f"agreed on {k} a process"
+            )
+        return [dev for r in range(world)
+                for dev in (mine if r == rank else [torch.device(kind)] * k)]
     slots = max(1, env_int("SEQALIGN_HOST_DEVICES"))
     if kind == "cpu":
         return [torch.device("cpu")] * slots
@@ -77,7 +98,7 @@ def global_devices(device="cuda") -> list[torch.device]:
 def _mesh(devs: list, shape: tuple[int, ...], names: tuple[str, ...]) -> Mesh:
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(shape), names)
+    return Mesh(arr.reshape(shape), names, processes=process_count())
 
 
 def make_mesh(n_devices: int | None = None, *, axis_name: str = BATCH_AXIS,

@@ -18,9 +18,9 @@ the results (``MPI_Gather`` x3), with a serial remainder on the root
 * :meth:`ShardedPending.result` gathers the shards' rows to the host, the
   ``MPI_Gather`` analogue: one ``gather`` a length bucket.
 
-In a job of several processes each process scores only its own shard
-(``comm.ProcessCollectives``), and the gather is a collective that every
-process reaches in the same order.
+In a job of several processes each process scores only the shards of
+its local slots (``comm.ProcessCollectives``), and the gather is a
+collective that every process reaches in the same order.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ fallback to some other parallelism strategy); a missing subsystem module
 raises RuntimeError with the offending feature named.  ``device`` is the
 kind of device the mesh takes (``'cuda'`` or ``'cpu'``); ``devices``, when
 given, is the mesh's explicit device list (the comms audit's ``[cpu] x N``).
+Device counts in the errors are global slots: under ``--distributed``,
+every process's local slots (``mesh.global_devices``).
 """
 
 from __future__ import annotations

@@ -83,7 +83,9 @@ ENV_VARS: tuple[EnvVar, ...] = (
            "the one CPU device (the port's counterpart of XLA's "
            "--xla_force_host_platform_device_count); on cuda, a count above "
            "the card count gives that many mesh slots naming the cards in "
-           "turn"),
+           "turn; under --distributed, the slots of each process (on cuda "
+           "naming the process's cards in turn), every process setting the "
+           "same count"),
     # The serve plane (--serve): its socket, queue, batching, SLO armor
     # and live telemetry.
     EnvVar("SEQALIGN_SERVE_PORT", "int", None,
