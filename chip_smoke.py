@@ -243,7 +243,28 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    first attempts' launches, one more upload than staged feeds (the
    retried chunk re-uploads from the host); and, under
    ``torch.cuda.set_sync_debug_mode("warn")``, the synchronising calls
-   between a batch's first launch and its epilogue copy (diagnostic).
+   between a batch's first launch and its epilogue copy (diagnostic);
+20. the installed port (the packaging layer and ``ops/_build.py``'s build
+   directory): a wheel built from a copy of the checkout (``pip wheel
+   --no-index --no-deps --no-build-isolation``), installed into a venv
+   chained to this interpreter's site-packages by a ``.pth`` file; with
+   ``PYTHONPATH`` and ``TPU_SEQALIGN_COMPILE_CACHE`` removed, a fresh
+   ``SEQALIGN_CACHE_DIR`` and a foreign working directory, (a) the
+   ``tpu-seqalign-torch`` console script under ``--profile --metrics-out``
+   on 8 max-size rows and 64 short rows (both kernels): stdout == the
+   checkout's == the oracle, its report's launch counts == the checkout's
+   run of the same input, ``recompiles`` 2, the fused and packed libraries
+   under ``$SEQALIGN_CACHE_DIR/torch_kernels`` with the checkout's source
+   digests, stderr naming that directory; then the same run again:
+   ``recompiles`` 0; its cold and warm walls printed with the card line;
+   then two cold processes at once on another fresh cache home, both
+   right, ``recompiles`` 2 between them (the build lock);
+   (b) the console script on the seven fixtures and max-size and ``python
+   -m mpi_openmp_cuda_tpu_torch`` on mixedcase, four processes at a time:
+   stdout == the goldens, each report's launches == the checkout's,
+   ``recompiles`` 0; beside them the README's library example, run as
+   written (cuda), prints ``[[40, 4, 2]]``; and no file under the venv's
+   site-packages created after the install.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
@@ -788,6 +809,8 @@ def main() -> int:
     check_counts = check_phase(np, torch, cli, cs, compare, fixtures, inputs, card)
     # -- 19. the cost sheet, the launch audit, builds, comms, the staged feed --
     analysis_counts = analysis_phase(np, torch, cli, cs, fixtures, inputs, time_ms, card)
+    # -- 20. the installed port: a wheel, its console script, a cache home -----
+    installed_counts = installed_phase(cli, cs, inputs, prefix_best, card)
     tmp.cleanup()
 
     # -- 6-8. the probe, the ablation and the bench path ------------------
@@ -802,6 +825,7 @@ def main() -> int:
              "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
              **warm_counts, "check": check_counts, "analysis": analysis_counts,
+             "installed": installed_counts,
              "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3247,6 +3271,186 @@ def analysis_phase(np, torch, cli, cs, fixtures, inputs, time_ms, card) -> dict[
             f"first launch and the epilogue copy {syncs[:4]}")
     log(f"analysis phase: {time.perf_counter() - t_phase:.1f} s")
     return total
+
+
+def _files_under(root: Path) -> set[str]:
+    """Every file and directory under ``root``."""
+    out = set()
+    for d, dirs, files in os.walk(root):
+        out.update(os.path.join(d, n) for n in dirs + files)
+    return out
+
+
+def installed_phase(cli, cs, inputs, prefix_best, card) -> dict[str, int]:
+    """Phase 20: the port as a user installs it, on the card (see the
+    module docstring).  Returns the launch counts of its runs of the
+    fixtures and max-size, summed from their run reports."""
+    import shutil
+    import sysconfig
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+    from mpi_openmp_cuda_tpu_torch.ops import _build
+
+    names = ("fused_scorer", "packed_scorer")
+    pip = ("--no-index", "--no-deps", "--no-build-isolation", "-q")
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    # -- a. a wheel from a copy of the checkout, installed into a venv --------
+    t0 = time.perf_counter()
+    src = root / "src"
+    src.mkdir()
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy(REPO / name, src)
+    for name in ("mpi_openmp_cuda_tpu", PKG):
+        shutil.copytree(REPO / name, src / name, ignore=shutil.ignore_patterns("__pycache__"))
+    subprocess.run([sys.executable, "-m", "pip", "wheel", *pip, "-w", str(root / "dist"),
+                    str(src)], check=True, timeout=600)
+    wheel = next((root / "dist").glob("*.whl"))
+    t_wheel = time.perf_counter() - t0
+    venv = root / "venv"
+    subprocess.run([sys.executable, "-m", "venv", str(venv)], check=True, timeout=300)
+    site = next((venv / "lib").glob("python*/site-packages"))
+    # Chained to this interpreter's packages (torch, numpy): the card's
+    # host has no network, so no dependency is resolved.
+    live = {sysconfig.get_paths()[k] for k in ("purelib", "platlib")}
+    (site / "chain.pth").write_text("".join(f"{p}\n" for p in sorted(live)))
+    subprocess.run([str(venv / "bin" / "pip"), "install", *pip, str(wheel)], check=True,
+                   timeout=600)
+    installed = _files_under(site)
+    log(f"installed: {wheel.name} built in {t_wheel:.3f} s, installed into a venv in "
+        f"{time.perf_counter() - t0 - t_wheel:.3f} s")
+
+    cache = root / "cache"  # a fresh cache home: the first build is cold
+    foreign = root / "elsewhere"
+    foreign.mkdir()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "TPU_SEQALIGN_COMPILE_CACHE")}
+    env["SEQALIGN_CACHE_DIR"] = str(cache)
+    script = str(venv / "bin" / "tpu-seqalign-torch")
+
+    def checkout_run(path):
+        """The checkout's stdout and launch counts for ``path``, in this
+        process."""
+        cs.reset_launch_counts()
+        rc, out, _ = run_cli(cli, ["--input", str(path)])
+        if rc != 0:
+            fail(f"installed: the checkout's CLI on {path.name}: rc {rc}")
+        return out, dict(cs.launch_counts)
+
+    def installed_run(tag, cmd, path, want, home=cache):
+        """One installed CLI process from the foreign directory, its cache
+        home ``home``, under ``--profile --metrics-out``: stdout ==
+        ``want[0]``, the report's launches == ``want[1]``; returns (wall s,
+        report counters, stderr)."""
+        report = root / f"{tag}.json"
+        t = time.perf_counter()
+        with open(path, "rb") as fh:
+            proc = subprocess.run([*cmd, "--profile", "--metrics-out", str(report)],
+                                  stdin=fh, capture_output=True, cwd=foreign,
+                                  env={**env, "SEQALIGN_CACHE_DIR": str(home)}, timeout=600)
+        wall = time.perf_counter() - t
+        err = proc.stderr.decode(errors="replace")
+        if proc.returncode != 0 or proc.stdout != want[0]:
+            fail(f"installed {tag}: rc {proc.returncode}, stdout == the checkout's "
+                 f"{proc.stdout == want[0]}: {err[-3000:]}")
+        rep = json.loads(report.read_text())
+        validate_report(rep)
+        c = rep["counters"]
+        got = {name: c.get(f"{name}_launches", 0) for name in names}
+        if got != want[1]:
+            fail(f"installed {tag}: launches {got}, the checkout's {want[1]}")
+        return wall, c, err
+
+    # -- b. the first use: both kernels built into the fresh cache home --------
+    prob = load_problem(str(inputs["max-size"]))
+    short = load_problem(str(inputs["1024 short rows"]))
+    both = root / "both.txt"
+    seqs = prob.seq2[:8] + short.seq2[:64]
+    both.write_text(" ".join(map(str, prob.weights)) + f"\n{prob.seq1}\n{len(seqs)}\n"
+                    + "\n".join(seqs) + "\n")
+    want_both = checkout_run(both)
+    oracle = "".join(
+        f"#{i}: score: {s}, n: {n}, k: {k}\n" for i, (s, n, k) in enumerate(
+            prefix_best(prob.seq1_codes, q, prob.weights)
+            for q in prob.seq2_codes[:8] + short.seq2_codes[:64]))
+    if want_both[0].decode() != oracle or min(want_both[1].values()) < 1:
+        fail(f"installed: the checkout's CLI on both.txt: == oracle "
+             f"{want_both[0].decode() == oracle}, launches {want_both[1]}")
+    cold, c_cold, err_cold = installed_run("cold", [script], both, want_both)
+    built = {name: cache / "torch_kernels" / _build._target(name).name for name in names}
+    if c_cold.get("recompiles") != 2 or not all(p.exists() for p in built.values()):
+        fail(f"installed cold: recompiles {c_cold.get('recompiles')}, libraries "
+             f"{ {n: p.exists() for n, p in built.items()} } under {cache / 'torch_kernels'}")
+    line = f"kernels {', '.join(names)} in {cache / 'torch_kernels'}"
+    if line not in err_cold:
+        fail(f"installed cold: stderr does not name the build directory: {err_cold[-1500:]}")
+    warm, c_warm, _ = installed_run("warm", [script], both, want_both)
+    if c_warm.get("recompiles", 0):
+        fail(f"installed warm: a second run built {c_warm['recompiles']} kernels")
+    log(f"installed: first use on 8 max-size + 64 short rows ({want_both[1]}): cold run "
+        f"{cold:.3f} s (2 nvcc builds, each at its kernel's first launch, into "
+        f"{cache / 'torch_kernels'}), warm run {warm:.3f} s, first-use build "
+        f"{cold - warm:.3f} s [{card}]")
+
+    # Two cold processes at once on one more fresh cache home: one builds
+    # each kernel under the build lock, the other waits and loads it.
+    shared = root / "shared-cache"
+    with ThreadPoolExecutor(2) as pool:
+        pair = list(pool.map(lambda i: installed_run(f"shared-{i}", [script], both, want_both,
+                                                     shared), range(2)))
+    if sum(c.get("recompiles", 0) for _, c, _ in pair) != 2:
+        fail(f"installed: two cold processes on one cache home built "
+             f"{[c.get('recompiles', 0) for _, c, _ in pair]} kernels, not 2 in all")
+    log(f"installed: two cold processes at once on one fresh cache home, both == the "
+        f"checkout's; recompiles {[c.get('recompiles', 0) for _, c, _ in pair]}, walls "
+        f"{[round(w, 3) for w, _, _ in pair]} s [{card}]")
+
+    # -- c. the fixtures and max-size from the foreign directory ---------------
+    runs = {path.stem: ([script], path) for path in sorted(inputs.values())
+            if path.parent == REPO / "tests" / "fixtures"}
+    runs["max-size"] = ([script], inputs["max-size"])
+    runs["module mixedcase"] = ([str(venv / "bin" / "python"), "-m", PKG],
+                                inputs["mixedcase.txt"])
+    wants = {tag: checkout_run(path) for tag, (_, path) in runs.items()}
+    for tag, (_, path) in runs.items():
+        golden = path.with_suffix(".out").read_bytes()
+        if wants[tag][0] != golden:
+            fail(f"installed: the checkout's CLI on {tag} differs from its golden")
+    # README "Library", the port's example, run as written.
+    readme = ("import mpi_openmp_cuda_tpu_torch as pkg\n"
+              "scorer = pkg.AlignmentScorer('auto', sharding=pkg.BatchSharding.over_devices())\n"
+              "print(scorer.score('HELLOWORLD', ['OWRL'], [10, 2, 3, 4]).tolist())\n")
+    with ThreadPoolExecutor(4) as pool:
+        library = pool.submit(subprocess.run, [str(venv / "bin" / "python"), "-c", readme],
+                              capture_output=True, text=True, cwd=foreign, env=env,
+                              timeout=600)
+        done = dict(zip(runs, pool.map(
+            lambda tag: installed_run(tag.replace(" ", "-"), runs[tag][0], runs[tag][1],
+                                      wants[tag]), runs)))
+        lib = library.result()
+    if lib.returncode != 0 or lib.stdout != "[[40, 4, 2]]\n":
+        fail(f"installed: the README library example: rc {lib.returncode}, stdout "
+             f"{lib.stdout!r}: {lib.stderr[-2000:]}")
+    counts = dict.fromkeys(names, 0)
+    for tag, (wall, c, _) in done.items():
+        if c.get("recompiles", 0):
+            fail(f"installed {tag}: built {c['recompiles']} kernels after the first use")
+        if tag != "module mixedcase":
+            for name in names:
+                counts[name] += wants[tag][1][name]
+    new = sorted(_files_under(site) - installed)
+    if new:
+        fail(f"installed: the runs wrote under site-packages: {new[:10]}")
+    log(f"installed: {len(runs)} runs (tpu-seqalign-torch on the 7 fixtures and max-size, "
+        f"python -m on mixedcase) == their goldens, launches == the checkout's, 0 builds, "
+        f"the README library example [[40, 4, 2]] on cuda, "
+        f"nothing written under site-packages; launches {counts}; walls "
+        f"{ {tag: round(w, 3) for tag, (w, _, _) in done.items()} } s [{card}]")
+    tmp.cleanup()
+    return counts
 
 
 def sass_ops(lib: Path, nvcc: str) -> dict[str, dict[str, int]]:

@@ -53,6 +53,7 @@ from ..obs import flightrec as obs_flightrec
 from ..obs import trace as obs_trace
 from ..obs.events import log_line
 from ..obs.metrics import gauge as obs_gauge
+from ..ops import _build
 from ..ops.dispatch import AlignmentScorer
 from ..resilience.degrade import BackendDegrader, run_degrading, verify_rows_against_oracle
 from ..resilience.drain import DrainInterrupt, drain_guard, drain_requested
@@ -991,6 +992,13 @@ def run(argv: list[str] | None = None) -> int:
         rc = EX_TEMPFAIL if _is_resumable(e) else EX_FATAL
         return rc
     finally:
+        kernels = _build.loaded()
+        if kernels and (args.profile or obs_on):
+            # Where this run's kernels were found or built (the checkout's
+            # build/, the cache home, a temporary directory): a report
+            # line like [profile]'s, so the run report counts no log line.
+            print(f"{PROG}: kernels {', '.join(kernels)} in {_build.BUILD_DIR}",
+                  file=sys.stderr)
         if registry is not None:
             _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2)
         # Faults, the watchdog and the drain handlers are armed per run:

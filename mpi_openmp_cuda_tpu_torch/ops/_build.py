@@ -2,18 +2,28 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use, on the machine with the card, into its own shared library under
-``build/torch_kernels/`` beside the package:
+:data:`BUILD_DIR`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
+:data:`BUILD_DIR` is resolved once, at import (:func:`resolve_build_dir`):
+``build/torch_kernels/`` beside the package in a source checkout (an
+editable install included), ``<cache home>/torch_kernels`` for an
+installed copy (``utils/env.py::cache_home``, the warm manifest's home),
+and a directory of this process under the temporary directory, removed
+at exit, when caching is off; never inside site-packages.  A directory
+that cannot be created or written raises ``KernelUnavailableError``
+naming it.
+
 The file name carries a hash of the sources (the ``.cu`` file and the
 shared ``.cuh`` headers) and flags, so an edited source is rebuilt and a
 stale library is never loaded.  Processes that share the build directory
-(the ranks of a ``--distributed`` job) build each library once: a build
-holds an exclusive file lock on ``build/torch_kernels/.lock`` while it
-checks what is missing and compiles it, each compiler writes a
-temporary file of its own, and ``os.replace`` publishes it whole.  ``build()`` starts one ``nvcc`` per
+(the ranks of a ``--distributed`` job, the installed processes of one
+cache home) build each library once: a build holds an exclusive file
+lock on ``<BUILD_DIR>/.lock`` while it checks what is missing and
+compiles it, each compiler writes a temporary file of its own, and
+``os.replace`` publishes it whole.  ``build()`` starts one ``nvcc`` per
 source, all at once, and returns each compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills); ``build_variants()`` does the same
 for the sweep scripts' builds of one source under other ``-D`` settings.
@@ -22,28 +32,52 @@ bus (the run report's ``recompiles`` counter).  :func:`build_count` counts
 every build, every library load and every lazy per-width setup
 (:func:`note_setup`) of this process: the serve loop's
 ``serve_steady_compiles`` gauge is its delta after the first block.
-Nothing here runs at import: the CPU tests import every module.
+Nothing here runs nvcc or touches the build directory at import: the CPU
+tests import every module.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import fcntl
 import hashlib
 import os
+import secrets
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 from ..obs.events import publish
 from ..resilience.policy import KernelUnavailableError
-from ..utils.env import env_str
+from ..utils.env import cache_home, env_str, source_checkout
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+
+
+def resolve_build_dir(package_dir: Path = PACKAGE_DIR) -> Path:
+    """Where the kernels of the package at ``package_dir`` are built:
+    ``<checkout>/build/torch_kernels`` when it runs from this project's
+    source checkout, else ``<cache home>/torch_kernels``, else (caching
+    off, ``TPU_SEQALIGN_COMPILE_CACHE=off``) a fresh path under the
+    temporary directory, made at the first build and removed when this
+    process exits."""
+    root = source_checkout(str(package_dir))
+    if root is not None:
+        return Path(root) / "build" / "torch_kernels"
+    home = cache_home()
+    if home is not None:
+        return Path(home) / "torch_kernels"
+    path = Path(tempfile.gettempdir()) / f"{package_dir.name}-kernels-{secrets.token_hex(8)}"
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return path
+
+
+BUILD_DIR = resolve_build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,7 +134,7 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
     all started together, each into a temporary file moved onto its
     library when it succeeds; returns ``{tag: ptxas report}``.  Raises
     ``KernelUnavailableError`` with the compiler's output when one fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _make_build_dir()
     procs = {}
     for tag, (src, out, flags) in jobs.items():
         tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
@@ -127,11 +161,26 @@ def _compile(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]) -> dict[str, s
     return reports
 
 
+def _make_build_dir() -> None:
+    """Create :data:`BUILD_DIR` if missing; ``KernelUnavailableError``
+    naming it when that fails."""
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    except OSError as e:
+        raise KernelUnavailableError(
+            f"cannot create the kernel build directory {BUILD_DIR}: {e}") from e
+
+
 @contextlib.contextmanager
 def _build_lock():
     """The build directory's exclusive file lock, for one build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "a") as f:
+    _make_build_dir()
+    try:
+        f = open(BUILD_DIR / ".lock", "a")
+    except OSError as e:
+        raise KernelUnavailableError(
+            f"cannot write to the kernel build directory {BUILD_DIR}: {e}") from e
+    with f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             yield
@@ -169,6 +218,12 @@ def build_variants(
     }
     reports = _compile(jobs)
     return {tag: (ctypes.CDLL(str(jobs[tag][1])), reports[tag]) for tag in jobs}
+
+
+def loaded() -> list[str]:
+    """The kernels this process has loaded so far, by name."""
+    with _lock:
+        return sorted(_libs)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -10,7 +10,9 @@ the rendezvous variables of a ``--distributed`` job under torchrun's
 names (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``); nothing else in the port reads
 them.  :func:`cache_home` and :func:`platform_tag` place the warm
-plane's manifest (``aot/manifest.py``).  Every
+plane's manifest (``aot/manifest.py``); :func:`cache_home` and
+:func:`source_checkout` place the kernels' build directory
+(``ops/_build.py``).  Every
 read happens at call time (tests' ``monkeypatch.setenv`` works) and a
 malformed value raises one ``ValueError`` naming the variable.
 """
@@ -20,6 +22,10 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+
+#: The distribution that ships both packages (``pyproject.toml``).
+PROJECT = "mpi-openmp-cuda-tpu"
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +74,8 @@ ENV_VARS: tuple[EnvVar, ...] = (
            "(0 disables)"),
     EnvVar("SEQALIGN_CACHE_DIR", "str", None,
            "the port's cache home (flight-recorder dumps under "
-           "<dir>/flightrec)"),
+           "<dir>/flightrec; an installed copy's kernels under "
+           "<dir>/torch_kernels)"),
     EnvVar("TPU_SEQALIGN_COMPILE_CACHE", "str", None,
            "off/0 disables the cache home; a directory is the legacy "
            "home when SEQALIGN_CACHE_DIR is unset"),
@@ -268,6 +275,43 @@ def cache_home() -> str | None:
     if legacy:
         return legacy
     return os.path.join(os.path.expanduser("~"), ".cache", "mpi_openmp_cuda_tpu_torch")
+
+
+def _checkout_pyproject(package_dir: str | None = None) -> str | None:
+    """The text of this project's ``pyproject.toml`` beside the package
+    (``package_dir``, this package by default), or None when there is
+    none: another project's file there does not count."""
+    path = os.path.join(os.path.dirname(package_dir or PACKAGE_DIR), "pyproject.toml")
+    try:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+    except OSError:
+        return None
+    return text if re.search(rf'(?m)^name\s*=\s*"{PROJECT}"\s*$', text) else None
+
+
+def source_checkout(package_dir: str | None = None) -> str | None:
+    """The root of the source checkout the package runs from (a clone,
+    an archive, an editable install), or None for an installed copy."""
+    if _checkout_pyproject(package_dir) is None:
+        return None
+    return os.path.dirname(package_dir or PACKAGE_DIR)
+
+
+def package_version() -> str:
+    """The project's version: the checkout's ``pyproject.toml`` when the
+    package runs from one (the code that runs, even beside a stale
+    install), else the installed distribution's metadata."""
+    text = _checkout_pyproject()
+    found = text and re.search(r'(?m)^version\s*=\s*"([^"]+)"', text)
+    if found:
+        return found.group(1)
+    from importlib.metadata import PackageNotFoundError, version
+
+    try:
+        return version(PROJECT)
+    except PackageNotFoundError:
+        return "unknown"
 
 
 def platform_tag(device=None) -> str:
