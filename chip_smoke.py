@@ -14,16 +14,18 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    PyTorch version on the card, exact equality, at the weights 10 2 3 4
    and at max |v| = 127, 128 and 3000; eight pairs against the numpy
    oracle ``prefix_best``; then the fused kernel's seams
-   (:func:`seam_problems`: tile edges, ties across tiles and char
-   segments, the edge lengths, all-equal weights), every row against its
-   plain version and the oracle;
+   (``scripts/torch_conformance.py::seam_problems``: tile edges, ties
+   across tiles and char segments, the edge lengths, all-equal weights),
+   every row against its plain version and the oracle;
 3. the packed kernel against its plain version and the fused kernel,
-   exact equality: first its seams (:func:`packed_seam_problems`: each
+   exact equality: first its seams (``scripts/torch_conformance.py::
+   packed_seam_problems``: each
    class at its boundary lengths, pairs of every length and len2 = 0 in one
    block, len2 = len1 and above, exact ties across lanes, tiles and hyphen
    positions, valid offsets that end mid-tile), every row against the
    oracle too; then the input4-class packed set (Seq1 2976, 30 Seq2 of
-   5..64, seed 7) and one batch per class 8/16/32;
+   5..64, seed 7; ``models/workload.py::input4_problem``) and one batch
+   per class 8/16/32;
 4. the main path: launch counts set to 0, then the batch CLI
    (``io.cli.run``) on every ``tests/fixtures/*.txt`` (stdout byte-identical
    to its ``.out``) and on the max-size, input4-class, 1024-short-row and
@@ -59,7 +61,9 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    input3-class workload in a subprocess; its one stdout line must
    validate as a bench run report and carry the device, the three probe
    rates, ``floor_us`` and launch counts of the fused scorer and the
-   probe > 0 (the bench resets its counts before its first run);
+   probe > 0 (the bench resets its counts before its first run); its
+   one launch reads ``formulation`` ``cuda`` with every floor, bound and
+   single-program field set;
 9. launch groups (``ops/schedule.py``), run after phase 5: for every CLI
    input, the planned launches (``bucket_launches``) against one launch a
    bucket (``fuse=False``): each group launch == its plain version, the
@@ -264,7 +268,19 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    stdout == the goldens, each report's launches == the checkout's,
    ``recompiles`` 0; beside them the README's library example, run as
    written (cuda), prints ``[[40, 4, 2]]``; and no file under the venv's
-   site-packages created after the install.
+   site-packages created after the install;
+21. the measurement scripts, each in a process of its own: (a)
+   ``scripts/torch_conformance.py`` in full (every backend, route, regime,
+   both kernels' seams and the seeded sweep == the oracle) exits 0, its
+   wall printed; (b) ``scripts/torch_bench_table.py --procs 2 --rows
+   input3-class,gather``: each row's table line and spread, and the four
+   bench records it ran: the two at input3-class's own weights read
+   ``cuda`` with every floor, bound and single-program field set, the
+   two at ``1000000,1,1,1`` (the port's bench at those weights) read
+   ``gather`` with those fields null; (c) ``scripts/torch_stream_bench.py``
+   at ``STREAM_BENCH_ROUNDS=1``: its one JSON line parses, with ``e2e_s``
+   for batch, ``--stream 32`` and ``--stream 32 --journal`` from
+   byte-identical outputs.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
@@ -344,103 +360,16 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def input4_problem(np):
-    """sb_refit.workloads()['input4-class-packed'] (i8): the fifth draw of
-    its seed-7 generator — Seq1 2976, 30 Seq2 of 5..64."""
-    rng = np.random.default_rng(7)
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module: the one copy of what the script
+    shares with this test (the conformance check's seam inputs, the
+    ablation's wrapper)."""
+    import importlib.util
 
-    def mk(len1, lens):
-        s1 = rng.integers(1, 27, size=len1)
-        return s1, [rng.integers(1, 27, size=int(n)) for n in lens]
-
-    mk(1489, rng.integers(56, 1153, size=32))
-    mk(3000, rng.integers(1200, 2000, size=64))
-    mk(1489, rng.integers(1460, 1490, size=64))
-    mk(2976, rng.integers(5, 83, size=30))
-    s1, seqs = mk(2976, rng.integers(5, 65, size=30))
-    return s1.astype(np.int8), [s.astype(np.int8) for s in seqs]
-
-
-def seam_problems(np):
-    """Inputs that try the seams of ``csrc/fused_scorer.cu``, as (tag, seq1,
-    seqs, weights, {row: (field, value)} the oracle's answer must show).
-    Fields: 1 = n, 2 = k."""
-    rng = np.random.default_rng(23)
-    s1 = rng.integers(1, 27, size=700).astype(np.int8)
-    skip = np.concatenate([s1[40:290], s1[291:441]])  # a hyphen after 250 chars
-    edges = [
-        s1[127:427],  # best offset: the last of tile 0 (its redundant edge column)
-        s1[128:428],  # the first of tile 1
-        s1[383:684], s1[5:338],  # lengths 301, 333: no multiple of 4 or of 6 segments
-        skip,
-        s1[:1], s1[1:], s1.copy(),  # len2 = 1, len1 - 1, len1
-        np.concatenate([s1, s1[:5]]),  # len2 > len1
-    ]
-    want = {0: (1, 127), 1: (1, 128), 2: (1, 383), 3: (1, 5), 4: (2, 250)}
-    out = [("tile edges and edge lengths", s1, edges, WEIGHTS, want)]
-    # Seq1 of period 150: offsets 20, 170, ..., 620 tie exactly, in five
-    # different tiles; the first must win.
-    block = rng.integers(1, 27, size=150).astype(np.int8)
-    out.append(("ties across tiles", np.tile(block, 5),
-                [block[20:140], np.tile(block, 2)[20:290]], WEIGHTS,
-                {0: (1, 20), 1: (1, 20)}))
-    # Two letters: ties between offsets and between hyphen positions in
-    # different char segments; with all-equal and all-zero weights too.
-    lo1 = rng.integers(1, 3, size=700).astype(np.int8)
-    lo = [rng.integers(1, 3, size=int(n)).astype(np.int8)
-          for n in rng.integers(2, 650, size=24)]
-    out.append(("two-letter ties", lo1, lo, [5, 1, 1, 1], {}))
-    out.append(("all-equal weights", lo1, lo, [1, 1, 1, 1], {}))
-    out.append(("all-zero weights", lo1, lo, [0, 0, 0, 0],
-                {i: (f, 0) for i in range(len(lo)) for f in (1, 2)}))
-    return out
-
-
-def packed_seam_problems(np):
-    """Inputs that try the seams of ``csrc/packed_scorer.cu``, as (tag, seq1,
-    seqs, weights, {row: (field, value)} the oracle's answer must show); every
-    row fits a packing class.  Fields: 1 = n, 2 = k."""
-    rng = np.random.default_rng(29)
-    s1 = rng.integers(1, 27, size=3000).astype(np.int8)
-    out = []
-    for l2s in (8, 16, 32, 64):  # each class at its boundary lengths
-        lens = [l2s, l2s // 2 + 1, l2s, 1, l2s - 1] * 4
-        out.append((f"class {l2s} at its boundary lengths", s1,
-                    [rng.integers(1, 27, size=n).astype(np.int8) for n in lens],
-                    WEIGHTS, {}))
-    # Pairs of every length, 0 included, side by side in one block.
-    lens = [0, 64, 1, 33, 0, 5, 17, 48, 2, 0, 63, 9, 31, 0, 40, 7]
-    out.append(("mixed lengths in one block, len2 = 0 rows", s1,
-                [s1[100 + 7 * i: 100 + 7 * i + n] for i, n in enumerate(lens)],
-                WEIGHTS, {1: (1, 107), 3: (1, 121)}))
-    short = s1[:40]
-    out.append(("len2 = len1 and len2 > len1", short,
-                [short.copy(), np.concatenate([short, s1[:5]]), s1[3:30], s1[:39]],
-                WEIGHTS, {2: (1, 3)}))
-    # A run of one letter 61 long at offset 4 * 401 + 3: offsets 1607 and
-    # 1608 (lanes 401 % 32 and the next) tie exactly, and at 1607 k = 0 ties
-    # every k >= 1.
-    run = s1.copy()
-    run[1607:1668] = 1
-    out.append(("ties across lanes and between k = 0 and k >= 1", run,
-                [run[1607:1667], run[1608:1640]], WEIGHTS,
-                {0: (1, 1607), 1: (1, 1607)}))
-    # Seq1 of period 1000: offsets 30, 1030 and 2030 tie, in tiles 0, 8, 15.
-    block = rng.integers(1, 27, size=1000).astype(np.int8)
-    out.append(("ties across tiles", np.tile(block, 3),
-                [block[30:90], block[30:62], block[30:46]], WEIGHTS,
-                {i: (1, 30) for i in range(3)}))
-    # The last valid offset, mid-tile (tile 23 holds 2944..3071).
-    out.append(("valid offsets end mid-tile", s1,
-                [s1[2962:2999], s1[2989:2997], s1[2943:2999]], WEIGHTS,
-                {0: (1, 2962), 1: (1, 2989), 2: (1, 2943)}))
-    lo1 = rng.integers(1, 3, size=3000).astype(np.int8)
-    lo = [rng.integers(1, 3, size=int(n)).astype(np.int8)
-          for n in rng.integers(1, 65, size=24)]
-    out.append(("two-letter ties", lo1, lo, [5, 1, 1, 1], {}))
-    out.append(("all-zero weights", lo1, lo, [0, 0, 0, 0],
-                {i: (f, 0) for i in range(len(lo)) for f in (1, 2)}))
-    return out
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def as_text(np, seq1, seqs, weights) -> str:
@@ -528,7 +457,7 @@ def main() -> int:
     from mpi_openmp_cuda_tpu_torch.io import cli
     from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
     from mpi_openmp_cuda_tpu_torch.models.workload import (
-        MAX_SIZE, input3_class_problem, synthetic_codes)
+        MAX_SIZE, input3_class_problem, input4_problem, synthetic_codes)
     from mpi_openmp_cuda_tpu_torch.ops import _build, probe
     from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
     from mpi_openmp_cuda_tpu_torch.ops.costs import bound_ms
@@ -538,6 +467,7 @@ def main() -> int:
     from mpi_openmp_cuda_tpu_torch.ops.values import max_abs_value, value_table
     from mpi_openmp_cuda_tpu_torch.utils.timing import card_line, time_ms
 
+    conformance = load_script("torch_conformance")
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     names = ("fused_scorer", "packed_scorer")
@@ -600,7 +530,7 @@ def main() -> int:
             f"{[(b.idx.size, b.state.rows.shape[1], b.l2s) for b in launches]} "
             f"== plain, 8 pairs == oracle")
 
-    for tag, s1, seqs, weights, want in seam_problems(np):
+    for tag, s1, seqs, weights, want in conformance.seam_problems():
         launches = bucket_launches(s1, seqs, weights, dev)
         if any(b.l2s is not None for b in launches):
             fail(f"seam input {tag!r} reached the packed kernel")
@@ -621,7 +551,7 @@ def main() -> int:
             value_table(weights).reshape(-1), dev,
         )
 
-    for tag, s1, seqs, weights, want in packed_seam_problems(np):
+    for tag, s1, seqs, weights, want in conformance.packed_seam_problems():
         st = state_of(s1, seqs, weights)
         l2s = next(c for c in cs.PACK_CLASSES if c >= st.max_len2)
         raw = cs.packed_scorer(st, l2s)
@@ -637,7 +567,7 @@ def main() -> int:
         log(f"packed seams, {tag}: {len(seqs)} rows, l2s {l2s}, == plain == "
             f"fused == oracle; k > 0 in {int((rows[:, 2] > 0).sum())} rows")
 
-    seq1_4, seqs_4 = input4_problem(np)
+    seq1_4, seqs_4 = input4_problem()
     packed_sets = {64: (seq1_4, seqs_4)}
     for l2s, seed in ((8, 81), (16, 82), (32, 83)):
         packed_sets[l2s] = (seq1_4, synthetic_codes(2976, 30, 5, l2s, seed)[1])
@@ -820,6 +750,8 @@ def main() -> int:
         bucket_launches(seq1_max, seqs_max, WEIGHTS, dev), card,
     )
     bench_counts = bench_phase(probe)
+    # -- 21. the measurement scripts ---------------------------------------
+    scripts_phase(card)
     paths = {"cli": counts, "serve": serve_counts, "fleet": fleet_counts,
              "rescue": rescue_counts, "robustness": robust_counts,
              "gather route": gather_counts,
@@ -1025,7 +957,7 @@ def backends_phase(np, torch, max_size, prefix_best, time_ms, card) -> None:
                              for b in launches})
             log(f"{backend} max-size, weights {weights}: {len(launches)} launches "
                 f"(formulations {routes}) == fused_scorer (8 rows of it == oracle)")
-    for tag, s1, sq, _, _ in seam_problems(np):
+    for tag, s1, sq, _, _ in load_script("torch_conformance").seam_problems():
         for weights in REGIME_WEIGHTS:
             want = [prefix_best(s1, q, weights) for q in sq]
             for backend in ("mm", "gather"):
@@ -3549,12 +3481,7 @@ def probe_phase(torch, probe, time_ms, card) -> dict:
 def ablation_phase(torch, cs, time_ms, bound_ms, launches, card):
     """Phase 7; returns (the ablate_scorer row, the ablation path's launch
     counts)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "torch_kernel_ablate", REPO / "scripts" / "torch_kernel_ablate.py")
-    abl = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(abl)
+    abl = load_script("torch_kernel_ablate")
     err = abl.check_variants(launches)
     log(f"ablation: {', '.join(abl.EXACT)} == fused_scorer on the "
         f"{len(launches)} max-size launches; every variant ran")
@@ -3621,6 +3548,7 @@ def bench_phase(probe) -> dict[str, int]:
     missing = [k for k in want if rec.get(k) is None]
     if rec.get("kind") != "bench" or missing:
         fail(f"bench record: kind {rec.get('kind')!r}, missing {missing}")
+    check_route_fields(rec, "cuda")
     counts = rec["kernel_launches"]
     for name in ("fused_scorer", "issue_probe"):
         if not counts.get(name, 0) > 0:
@@ -3628,6 +3556,73 @@ def bench_phase(probe) -> dict[str, int]:
     log(f"bench: {rec['launches']} launches per scoring run; launches in the "
         f"whole bench run (warm-ups, timed repeats and probes included): {counts}")
     return counts
+
+
+def check_route_fields(rec: dict, route: str) -> None:
+    """A bench record at one route: ``formulation`` names it, and the
+    kernel floor, bound and single-program fields are all set on
+    ``cuda``, all null on ``gather``."""
+    from mpi_openmp_cuda_tpu_torch.bench import BOUND_KEYS, FLOOR_KEYS, SINGLE_PROGRAM_KEYS
+
+    keys = FLOOR_KEYS + BOUND_KEYS + SINGLE_PROGRAM_KEYS
+    unset = [k for k in keys if rec.get(k) is None]
+    want_unset = [] if route == "cuda" else list(keys)
+    if rec.get("formulation") != route or unset != want_unset or any(
+            rec.get(k) is None for k in ("device_wall_us", "value")):
+        fail(f"bench record of {rec.get('metric')!r}: formulation "
+             f"{rec.get('formulation')!r}, null fields {unset}; want {route!r} with "
+             f"null fields {want_unset}")
+
+
+def scripts_phase(card) -> None:
+    """Phase 21: the conformance check, the bench table's input3-class and
+    gather rows and the stream bench, each in a process of its own."""
+    from mpi_openmp_cuda_tpu_torch.obs.metrics import validate_report
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "STREAM_BENCH_", "TORCH_CONFORMANCE_"))}
+
+    def script(name, *args, extra=None, timeout=600):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "scripts" / f"{name}.py"), *args],
+                              cwd=REPO, env={**env, **(extra or {})}, capture_output=True,
+                              text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if line.strip():
+                log(f"{name}: {line}")
+        if proc.returncode != 0:
+            fail(f"scripts/{name}.py exited {proc.returncode}")
+        log(f"{name}: exit 0 in {wall:.1f} s [{card}]")
+        return proc.stdout.splitlines()
+
+    # -- a. the conformance check, in full ------------------------------------
+    script("torch_conformance")
+
+    # -- b. the bench table's input3-class and gather rows ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "records.ndjson"
+        script("torch_bench_table", "--procs", "2", "--rows", "input3-class,gather",
+               "--records", str(path), extra={"BENCH_REPS": "2", "BENCH_ATTEMPTS": "2"})
+        lines = path.read_text().splitlines()
+    if len(lines) != 4:
+        fail(f"the bench table recorded {len(lines)} bench records, want 4")
+    for line in lines:
+        rec = json.loads(line)
+        validate_report(rec)
+        check_route_fields(rec, "gather" if "+w=1000000,1,1,1" in rec["metric"] else "cuda")
+    log("bench table: 2 input3-class records read cuda with every field set, 2 at "
+        "1000000,1,1,1 read gather with null kernel floor, bound and single-program fields")
+
+    # -- c. the stream bench, one round ----------------------------------------
+    out = script("torch_stream_bench", extra={"STREAM_BENCH_ROUNDS": "1"})
+    rec = json.loads(out[-1])
+    modes = sorted(rec.get("e2e_s", {}))
+    if modes != ["batch", "stream", "stream+journal"] or not all(
+            v > 0 for v in rec["e2e_s"].values()) or rec.get("rounds") != 1:
+        fail(f"the stream bench's record: {rec}")
+    log(f"stream bench: stream/batch {rec['stream_vs_batch']:.4f}, journal/stream "
+        f"{rec['journal_vs_stream']:.4f} over one round [{card}]")
 
 
 if __name__ == "__main__":

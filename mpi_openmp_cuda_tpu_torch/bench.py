@@ -31,7 +31,13 @@ The record, ``wrap_report("bench", ...)``, exactly one stdout line:
   (``aot/prewarm.py``, with the workload as its problem) before the first
   run, so that ``e2e_first_run_s`` and ``cold_start_s`` are those of a
   prewarmed process (its launches are in ``kernel_launches``);
-* ``formulation`` (``cuda``, ``plain`` on the CPU, or ``oracle``),
+* ``formulation``: on the card the route the run's launches took
+  (:func:`launch_routes`: ``cuda``, or ``gather`` where a launch's own
+  longest scored row breaks the kernels' int32 window), one name when
+  every launch took the same route, else each route with its count in
+  launch order (``"cuda*2+gather*1"``) beside ``routes``, the same runs
+  as a list, and ``floor_launches``, the positions of the launches the
+  floor and bound count; ``plain`` on the CPU; ``oracle``;
   ``launches`` (launches per run) and ``kernel_launches`` (launches per
   kernel during this bench, probes included);
 * ``device`` and ``power_limit_w`` (``nvidia-smi``), or ``"cpu"``;
@@ -48,7 +54,11 @@ The record, ``wrap_report("bench", ...)``, exactly one stdout line:
   (``ops/costs.py``), with ``floor_by`` and ``wall_vs_floor``; the same
   for the whole batch padded into one fused launch (``*_single_program``,
   its own measured wall); and ``bound_us`` / ``bound_by`` /
-  ``wall_vs_bound``, the same counts at the data-sheet peaks.
+  ``wall_vs_bound``, the same counts at the data-sheet peaks.  The floor
+  and the bound count only the launches routed to a kernel, and are null
+  when none is; the single-program fields are null when the padded batch
+  is outside the kernels' window (``bounds.kernel_fits``), where the
+  fused kernel would not be exact.
 
 Off the card the record says ``"device": "cpu"`` and carries no probe,
 floor or rate field.
@@ -233,6 +243,26 @@ def run_attempts(measure, probe, *, gate, max_attempts, sleep=time.sleep, log=No
     return attempts
 
 
+def interleaved_gated_rounds(measure, probe, *, gate, max_attempts, sleep=time.sleep,
+                             log=None):
+    """:func:`run_attempts` for an interleaved measurement of several
+    variants (every variant measured inside one bracketed window, so
+    their ratios survive a neighbour's drift): ``measure()`` returns any
+    result.  Returns ``(result, Attempt, gated)`` of the attempt
+    :func:`select_attempt` picks (every ``wall`` is 0: the first gated
+    attempt, else the closest to quiet)."""
+    results = []
+
+    def timed():
+        results.append(measure())
+        return 0.0
+
+    attempts = run_attempts(timed, probe, gate=gate, max_attempts=max_attempts,
+                            sleep=sleep, log=log)
+    chosen, gated = select_attempt(attempts, gate)
+    return results[next(i for i, a in enumerate(attempts) if a is chosen)], chosen, gated
+
+
 def select_attempt(attempts, gate) -> tuple[Attempt, bool]:
     """(the attempt to record, whether it was gated): the fastest gated
     attempt; else the attempt closest to quiet (highest bracketing-probe
@@ -292,6 +322,56 @@ def attempt_logger(on_card: bool):
 # ---- device timing and floor -----------------------------------------------
 
 
+def launch_routes(launches, backend: str = "cuda") -> list[str]:
+    """The formulation each launch runs on ``backend``, as
+    ``dispatch.run_launch`` routes it (``dispatch.effective_backend`` on
+    the launch's max |value|, width and longest scored row)."""
+    from .ops.dispatch import effective_backend
+
+    return [effective_backend(backend, b.maxv, b.state.rows.shape[1], b.max_scored)
+            for b in launches]
+
+
+def route_fields(routes: list[str]) -> dict:
+    """``formulation``: the one route of ``routes``; when they differ,
+    each run of one route with its length, in launch order
+    (``"cuda*2+gather*1"``), beside ``routes`` (the same runs as
+    ``[route, launches]`` pairs) and ``floor_launches`` (the positions of
+    the launches routed to a kernel: those the floor and bound count)."""
+    runs: list[list] = []
+    for route in routes:
+        if runs and runs[-1][0] == route:
+            runs[-1][1] += 1
+        else:
+            runs.append([route, 1])
+    if len({r for r, _ in runs}) <= 1:
+        return {"formulation": runs[0][0] if runs else "cuda"}
+    return {"formulation": "+".join(f"{r}*{n}" for r, n in runs), "routes": runs,
+            "floor_launches": [i for i, r in enumerate(routes) if r == "cuda"]}
+
+
+FLOOR_KEYS = ("floor_us", "floor_by", "wall_vs_floor")
+BOUND_KEYS = ("bound_us", "bound_by", "wall_vs_bound")
+SINGLE_PROGRAM_KEYS = ("wall_us_single_program", "floor_us_single_program",
+                       "floor_by_single_program", "wall_vs_floor_single_program")
+
+
+def kernel_floor_fields(launches, routes, rates: dict, wall_s: float) -> dict:
+    """The floor (at the measured ``rates``) and the bound (at the
+    data-sheet peaks) of the launches ``routes`` sends to a kernel, each
+    with its ratio to ``wall_s``; every field null when no launch is."""
+    from .ops.costs import INT32_OPS_PER_S, SMEM_WORDS_PER_S, binding, floor_terms
+    from .ops.costs import schedule_counts
+
+    kernel = [b for b, route in zip(launches, routes) if route == "cuda"]
+    if not kernel:
+        return dict.fromkeys(FLOOR_KEYS + BOUND_KEYS)
+    counts = schedule_counts(kernel)
+    sec, by = binding(floor_terms(counts, INT32_OPS_PER_S, SMEM_WORDS_PER_S))
+    return {**floor_fields(counts, rates, wall_s),
+            "bound_us": sec * 1e6, "bound_by": by, "wall_vs_bound": wall_s / sec}
+
+
 def schedule_run(launches):
     """One run of the batch on the device as the production path makes
     it: every launch, then the batch's one ``finish_rows`` epilogue and
@@ -309,15 +389,20 @@ def schedule_run(launches):
 
 def single_program(problem, device):
     """The whole batch padded into one fused launch (every row at the
-    widest bucket's L2P)."""
+    widest bucket's L2P), or None when the padded batch is outside the
+    kernels' window (``bounds.kernel_fits``): ``fused_scorer`` checks
+    only its width and shared memory, so it is never asked there."""
+    from .ops.bounds import kernel_fits
     from .ops.cuda_scorer import state_from_numpy
-    from .ops.dispatch import pad_problem
-    from .ops.values import value_table
+    from .ops.dispatch import max_scored, pad_problem
+    from .ops.values import max_abs_value, value_table
 
     batch = pad_problem(problem.seq1_codes, problem.seq2_codes)
+    val_flat = value_table(problem.weights).reshape(-1)
+    if not kernel_fits(max_abs_value(val_flat), max_scored(batch)):
+        return None
     return state_from_numpy(
-        batch.seq1ext, batch.len1, batch.seq2, batch.len2,
-        value_table(problem.weights).reshape(-1), device,
+        batch.seq1ext, batch.len1, batch.seq2, batch.len2, val_flat, device,
     )
 
 
@@ -331,11 +416,10 @@ def floor_fields(counts, rates: dict, wall_s: float, suffix: str = "") -> dict:
             f"wall_vs_floor{suffix}": wall_s / sec}
 
 
-def device_fields(problem, launches, device) -> dict:
+def device_fields(problem, launches, routes, device) -> dict:
     """The on-card fields: the gated device wall, the probes, the floor
-    and the bound."""
-    from .ops.costs import INT32_OPS_PER_S, SMEM_WORDS_PER_S, binding, floor_terms
-    from .ops.costs import schedule_counts, state_counts
+    and the bound (of the launches ``routes`` sends to a kernel)."""
+    from .ops.costs import state_counts
     from .ops.cuda_scorer import score_rows
     from .ops.probe import OPS, issue_probe_gelems
     from .utils.timing import card_line, power_limit_w, time_ms
@@ -371,14 +455,16 @@ def device_fields(problem, launches, device) -> dict:
     rates = {op: issue_probe_gelems(op, device) for op in OPS}
     for op in OPS:
         rec[f"issue_probe_{op}_gelems"] = rates[op] / 1e9
-    counts = schedule_counts(launches)
-    rec.update(floor_fields(counts, rates, wall))
+    fields = kernel_floor_fields(launches, routes, rates, wall)
+    rec.update({k: fields[k] for k in FLOOR_KEYS})
     st = single_program(problem, device)
-    sp_wall = time_ms(lambda: score_rows(st), DEVICE_REPS) / 1e3
-    rec["wall_us_single_program"] = sp_wall * 1e6
-    rec.update(floor_fields(state_counts(st), rates, sp_wall, "_single_program"))
-    sec, by = binding(floor_terms(counts, INT32_OPS_PER_S, SMEM_WORDS_PER_S))
-    rec.update({"bound_us": sec * 1e6, "bound_by": by, "wall_vs_bound": wall / sec})
+    if st is None:
+        rec.update(dict.fromkeys(SINGLE_PROGRAM_KEYS))
+    else:
+        sp_wall = time_ms(lambda: score_rows(st), DEVICE_REPS) / 1e3
+        rec["wall_us_single_program"] = sp_wall * 1e6
+        rec.update(floor_fields(state_counts(st), rates, sp_wall, "_single_program"))
+    rec.update({k: fields[k] for k in BOUND_KEYS})
     return rec
 
 
@@ -502,7 +588,7 @@ def main(argv=None) -> int:
         "e2e_warm_s": statistics.median(walls) if walls else None,
         "cold_start_s": cold_start_s,
         "prewarmed": prewarmed,
-        "formulation": backend if backend == "oracle" or on_card else "plain",
+        "formulation": backend if backend == "oracle" else "plain",
         "launches": len(launches),
         "device": "cpu" if device.type == "cpu" else torch.cuda.get_device_name(device),
         "feed_overlap": feed_overlap_enabled(),
@@ -510,7 +596,9 @@ def main(argv=None) -> int:
     if on_card:
         from .analysis.costmodel import predicted_wall_us
 
-        record.update(device_fields(problem, launches, device))
+        routes = launch_routes(launches, backend)
+        record.update(route_fields(routes))
+        record.update(device_fields(problem, launches, routes, device))
         record["predicted_device_wall_us"] = predicted_wall_us(problem, backend)
         if record["predicted_device_wall_us"] is not None:
             record["predicted_vs_measured"] = (record["predicted_device_wall_us"]
@@ -530,9 +618,10 @@ def main(argv=None) -> int:
     log(f"backend={backend} device={record['device']} workload={workload} "
         f"launches={len(launches)} e2e_first_run={first_run_s:.3f}s "
         f"cold_start={cold_start_s:.3f}s{' (prewarmed)' if prewarmed else ''}"
-        + (f" device_wall={record['device_wall_us']:.3f}us "
-           f"floor={record['floor_us']:.3f}us ({record['floor_by']}) "
-           f"bound={record['bound_us']:.3f}us "
+        + (f" formulation={record['formulation']} "
+           f"device_wall={record['device_wall_us']:.3f}us "
+           f"floor={record['floor_us']}us ({record['floor_by']}) "
+           f"bound={record['bound_us']}us "
            f"predicted={record['predicted_device_wall_us']}us" if on_card else ""))
     return 0
 

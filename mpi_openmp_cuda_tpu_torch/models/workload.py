@@ -1,5 +1,6 @@
 """Canonical synthetic workloads: the deterministic problem factories of
-the bench harness, the ablation and floor scripts and ``chip_smoke.py``.
+the bench harness and its table, the ablation and floor scripts and
+``chip_smoke.py``.
 
 :func:`input3_class_problem` is a copy of the JAX package's
 ``models/workload.py`` factory: the same rng stream, sizes and weights,
@@ -42,6 +43,25 @@ def input3_class_problem():
         seq1_codes=encode_normalized(seq1),
         seq2_codes=[encode_normalized(s) for s in seqs],
     )
+
+
+def input4_problem():
+    """``(seq1_codes, [seq2_codes])`` int8 of the input4-class packed set:
+    the fifth draw of ``scripts/sb_refit.py::workloads()``'s seed-7
+    generator (``'input4-class-packed'``), Seq1 2976 against 30 Seq2 of
+    5..64 chars, every row inside a packing class."""
+    rng = np.random.default_rng(7)
+
+    def mk(len1, lens):
+        s1 = rng.integers(1, 27, size=len1)
+        return s1, [rng.integers(1, 27, size=int(n)) for n in lens]
+
+    mk(1489, rng.integers(56, 1153, size=32))
+    mk(3000, rng.integers(1200, 2000, size=64))
+    mk(1489, rng.integers(1460, 1490, size=64))
+    mk(2976, rng.integers(5, 83, size=30))
+    s1, seqs = mk(2976, rng.integers(5, 65, size=30))
+    return s1.astype(np.int8), [s.astype(np.int8) for s in seqs]
 
 
 def synthetic_codes(len1: int, count: int, lo: int, hi: int, seed: int = 7):

@@ -393,3 +393,125 @@ def test_single_program_pads_the_whole_batch():
     assert st.rows.shape == (32, 1152) and st.len1 == 1489
     assert costs.state_counts(st).cells == costs.needed_cells(
         1489, [c.size for c in prob.seq2_codes])
+
+
+# ---------------------------------------------------------------------------
+# The multi-variant attempt loop, against the root bench's.
+# ---------------------------------------------------------------------------
+
+INTERLEAVED_CASES = {
+    "gated-first": ([200.0, 199.0], [{"x": 1.0}], GATE, 6),
+    "closest-to-quiet": ([170.0, 175.0, 160.0, 150.0], [{"x": "quietest"}, {"x": "later"}],
+                         GATE, 2),
+    "probes-dead": ([None, None], [{"x": 1}], GATE, 6),
+    "no-gate": ([], [{"x": 9}], None, 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INTERLEAVED_CASES))
+def test_interleaved_gated_rounds_match_root_bench(case, monkeypatch):
+    probes, measures, gate, max_attempts = INTERLEAVED_CASES[case]
+    on_card = gate is not None
+    jsleeps, tsleeps = [], []
+    jprobe = Seq(probes)
+    monkeypatch.setattr(jbench, "probe_or_none", lambda feed="bf16": jprobe())
+    jres, ja, jgated = jbench.interleaved_gated_rounds(
+        Seq(measures), on_card, gate, max_attempts, "[t]", sleep=jsleeps.append)
+    tres, ta, tgated = tbench.interleaved_gated_rounds(
+        Seq(measures), Seq(probes) if on_card else None, gate=gate,
+        max_attempts=max_attempts, sleep=tsleeps.append)
+    assert (tres, ta.p0, ta.p1, ta.pmin, tgated, tsleeps) == (
+        jres, ja.p0, ja.p1, ja.pmin, jgated, jsleeps)
+
+
+# ---------------------------------------------------------------------------
+# The record's route: formulation, floor and single-program fields.
+# ---------------------------------------------------------------------------
+
+ROUTE_WEIGHTS = {
+    "1000000,1,1,1": ([1000000, 1, 1, 1], ["gather"]),
+    "2,2,1,10": ([2, 2, 1, 10], ["cuda"]),
+    "40000,7,1,2": ([40000, 7, 1, 2], ["cuda"]),
+}
+RATES = {"arith": costs.INT32_OPS_PER_S / 2, "lookup": costs.SMEM_WORDS_PER_S / 8}
+
+
+def _input3_at(weights):
+    prob = tworkload.input3_class_problem()
+    prob.weights = list(weights)
+    launches = bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights,
+                               torch.device("cpu"))
+    return prob, launches
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_WEIGHTS))
+def test_launch_routes_of_input3_class(name):
+    """At 1000000,1,1,1 the one launch (L2P 1152, longest scored row 1122)
+    is past the kernels' window; the JAX gather-row weights 40000,7,1,2
+    and the workload's own stay on the kernels."""
+    weights, want = ROUTE_WEIGHTS[name]
+    _, launches = _input3_at(weights)
+    assert [(b.state.rows.shape[1], b.max_scored) for b in launches] == [(1152, 1122)]
+    routes = tbench.launch_routes(launches, "cuda")
+    assert routes == want
+    assert tbench.route_fields(routes) == {"formulation": want[0]}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_WEIGHTS))
+def test_floor_and_single_program_null_exactly_off_the_kernels(name):
+    from mpi_openmp_cuda_tpu_torch.ops.bounds import kernel_fits
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import max_scored, pad_problem
+    from mpi_openmp_cuda_tpu_torch.ops.values import max_abs_value, value_table
+
+    weights, _ = ROUTE_WEIGHTS[name]
+    prob, launches = _input3_at(weights)
+    routes = tbench.launch_routes(launches, "cuda")
+    fields = tbench.kernel_floor_fields(launches, routes, RATES, 50e-6)
+    assert set(fields) == set(tbench.FLOOR_KEYS + tbench.BOUND_KEYS)
+    off = "cuda" not in routes
+    assert all((v is None) == off for v in fields.values()), fields
+    if not off:
+        counts = costs.schedule_counts(launches)
+        assert fields == {**tbench.floor_fields(counts, RATES, 50e-6),
+                          "bound_us": fields["bound_us"], "bound_by": "int ops",
+                          "wall_vs_bound": 50e-6 / (fields["bound_us"] / 1e6)}
+        assert fields["bound_us"] == pytest.approx(
+            costs.bound_seconds(counts)[0] * 1e6)
+    batch = pad_problem(prob.seq1_codes, prob.seq2_codes)
+    fits = kernel_fits(max_abs_value(value_table(weights)), max_scored(batch))
+    st = tbench.single_program(prob, torch.device("cpu"))
+    assert (st is None) == (not fits) == off
+
+
+def test_mixed_routes_list_each_route_and_the_floor_launches():
+    """A packed launch of short rows stays on the kernels at 1000000,1,1,1
+    while the long rows' launch routes to gather: the record lists both
+    runs, and the floor counts only the kernel's launch."""
+    rng = np.random.default_rng(5)
+    seq1 = rng.integers(1, 27, size=3000).astype(np.int8)
+    seqs = [rng.integers(1, 27, size=int(n)).astype(np.int8)
+            for n in [*rng.integers(5, 65, size=8), *rng.integers(1921, 2000, size=8)]]
+    launches = bucket_launches(seq1, seqs, [1000000, 1, 1, 1], torch.device("cpu"))
+    routes = tbench.launch_routes(launches, "cuda")
+    assert routes == ["cuda", "gather"] and launches[0].l2s == 64
+    assert tbench.route_fields(routes) == {
+        "formulation": "cuda*1+gather*1", "routes": [["cuda", 1], ["gather", 1]],
+        "floor_launches": [0]}
+    fields = tbench.kernel_floor_fields(launches, routes, RATES, 1e-3)
+    counts = costs.schedule_counts(launches[:1])
+    assert fields["floor_us"] == tbench.floor_fields(counts, RATES, 1e-3)["floor_us"]
+    assert fields["bound_us"] == pytest.approx(costs.bound_seconds(counts)[0] * 1e6)
+    assert tbench.route_fields(["gather", "gather", "cuda", "gather"])["routes"] == [
+        ["gather", 2], ["cuda", 1], ["gather", 1]]
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["gather", "mixed"])
+def test_route_record_validates_under_both_packages(mixed):
+    routes = ["cuda", "gather"] if mixed else ["gather"]
+    rec = _record(**tbench.route_fields(routes),
+                  **dict.fromkeys(tbench.FLOOR_KEYS + tbench.BOUND_KEYS
+                                  + tbench.SINGLE_PROGRAM_KEYS))
+    assert isinstance(rec["formulation"], str)
+    for doc in (rec, json.loads(json.dumps(rec))):
+        tmetrics.validate_report(doc)
+        jmetrics.validate_report(doc)
