@@ -280,7 +280,18 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    ``gather`` with those fields null; (c) ``scripts/torch_stream_bench.py``
    at ``STREAM_BENCH_ROUNDS=1``: its one JSON line parses, with ``e2e_s``
    for batch, ``--stream 32`` and ``--stream 32 --journal`` from
-   byte-identical outputs.
+   byte-identical outputs;
+22. the serve and fleet drills (:data:`DRILL_GROUPS`), each
+   ``scripts/torch_<drill>.py`` at full size in a process of its own, the
+   drills of a group at once and the groups one after the other: the
+   metrics smoke, serve chaos, trace smoke and fleet trace smoke, then
+   fleet chaos (its lease-bound survivors on a quiet host), then the load
+   smoke (its open-loop timings alone on the host); every output line is
+   logged, each drill must exit 0 with every scenario of its JSON record
+   ``ok``, its wall printed with the card line; the records' kernel
+   launches (read from the drills' own run reports) must count both
+   scorers, and the load smoke's plateau, 2x and 5x goodput and p99
+   latency, refit scale and budget and b1/b2 p99 queue wait are printed.
 
 In the kernels JSON line, ``launches`` is each kernel's count from one run
 of its path, with the counts set to 0 just before it: for the two scorers
@@ -347,6 +358,11 @@ SERVE_LOAD = dict(problem_keys=2, seq1_len=3000, len_mix=((1200, 2000, 1.0),),
 SERVE_CAL_N = 256
 SERVE_LOAD_S = 10.0
 SERVE_LOAD_MAX = 8000
+# Phase 22's drills (scripts/torch_<drill>.py): the groups run one after the
+# other, the drills of a group at once.
+DRILL_GROUPS = (("metrics_smoke", "serve_chaos", "trace_smoke", "fleet_trace_smoke"),
+                ("fleet_chaos",), ("load_smoke",))
+DRILL_TIMEOUT_S = 400
 # Span totals phase 13 prints for the warm max-size CLI run.
 SPAN_PATHS = ("parse", "setup", "score", "score.chunk_dispatch", "score.chunk_gather",
               "print")
@@ -752,12 +768,14 @@ def main() -> int:
     bench_counts = bench_phase(probe)
     # -- 21. the measurement scripts ---------------------------------------
     scripts_phase(card)
+    # -- 22. the serve and fleet drills --------------------------------------
+    drill_counts = drills_phase(card)
     paths = {"cli": counts, "serve": serve_counts, "fleet": fleet_counts,
              "rescue": rescue_counts, "robustness": robust_counts,
              "gather route": gather_counts,
              "obs": obs_counts, **{f"mesh, {k}": v for k, v in mesh_counts.items()},
              **warm_counts, "check": check_counts, "analysis": analysis_counts,
-             "installed": installed_counts,
+             "installed": installed_counts, "drills": drill_counts,
              "bench": bench_counts, "ablation": abl_counts}
     log(f"launch counts by path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3624,6 +3642,66 @@ def scripts_phase(card) -> None:
     log(f"stream bench: stream/batch {rec['stream_vs_batch']:.4f}, journal/stream "
         f"{rec['journal_vs_stream']:.4f} over one round [{card}]")
 
+
+
+def drills_phase(card) -> dict[str, int]:
+    """Phase 22: the six serve and fleet drills at full size, each in a
+    process of its own.  Returns the scorers' launches summed over the
+    drills' records (each read from the drill's own run reports)."""
+    t_phase = time.perf_counter()
+    total = {"fused_scorer": 0, "packed_scorer": 0}
+    records = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "TMPDIR": tmp}
+        for group in DRILL_GROUPS:
+            t0 = time.perf_counter()
+            procs, walls = {}, {}
+            for name in group:
+                out = open(Path(tmp) / f"{name}.out", "w+")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, str(REPO / "scripts" / f"torch_{name}.py")], cwd=REPO,
+                    env=env, stdout=out, stderr=subprocess.STDOUT, text=True), out)
+            while len(walls) < len(procs):
+                if time.perf_counter() - t0 > DRILL_TIMEOUT_S:
+                    for proc, _ in procs.values():
+                        proc.kill()
+                    fail(f"drills {sorted(set(procs) - set(walls))} still running after "
+                         f"{DRILL_TIMEOUT_S} s")
+                for name, (proc, _) in procs.items():
+                    if name not in walls and proc.poll() is not None:
+                        walls[name] = time.perf_counter() - t0
+                time.sleep(0.1)
+            for name, (proc, out) in procs.items():
+                out.seek(0)
+                lines = out.read().splitlines()
+                out.close()
+                for line in lines:
+                    if line.strip():
+                        log(f"{name}: {line}")
+                if proc.returncode != 0:
+                    fail(f"scripts/torch_{name}.py exited {proc.returncode}")
+                rec = json.loads(next(x for x in reversed(lines) if x.startswith("{")))
+                bad = {k: v for k, v in rec.get("scenarios", {}).items() if v != "ok"}
+                if not rec.get("scenarios") or bad or rec.get("device") != "cuda":
+                    fail(f"torch_{name}: record {rec}")
+                for k in total:
+                    total[k] += rec["launches"][k]
+                records[name] = rec
+                log(f"{name}: exit 0, {len(rec['scenarios'])} scenarios ok, launches "
+                    f"{rec['launches']}, wall {walls[name]:.1f} s [{card}]")
+    load = records["load_smoke"]
+    log(f"load smoke: plateau {load['plateau_rps']:.3f} req/s (p99 latency "
+        f"{load['plateau_p99_latency_s']} s); 2x {load['2x']['goodput_rps']:.3f} req/s of "
+        f"{load['2x']['rate_rps']:.3f} offered (p99 {load['2x']['p99_latency_s']} s); 5x "
+        f"{load['5x']['goodput_rps']:.3f} of {load['5x']['rate_rps']:.3f} (p99 "
+        f"{load['5x']['p99_latency_s']} s); refit scale {load['refit']['scale']:.6g}, "
+        f"budget {load['refit']['budget_s']:.6g} s; p99 queue wait b1 "
+        f"{load['replay']['b1_p99_queue_wait_s']} s, b2 "
+        f"{load['replay']['b2_p99_queue_wait_s']} s [{card}]")
+    if not all(total.values()):
+        fail(f"the drills launched {total}: both scorers must launch")
+    log(f"drills phase: {time.perf_counter() - t_phase:.1f} s, launches {total} [{card}]")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

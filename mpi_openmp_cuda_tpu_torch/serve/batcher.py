@@ -69,6 +69,21 @@ class SuperBlock:
                 out.append(rid)
         return out
 
+    def link_traces(self) -> list[str]:
+        """The admission-minted trace ids of the same rows, deduplicated
+        (empty ids dropped: batch and stream callers mint none); the fleet
+        propagates them on its offers to the workers' launch rows."""
+        out: list[str] = []
+        seen: set[str] = set()
+        for tag in self.tags:
+            if tag is None:
+                continue
+            tid = str(getattr(tag[0], "trace_id", "") or "")
+            if tid and tid not in seen:
+                seen.add(tid)
+                out.append(tid)
+        return out
+
 
 def plan_blocks(sessions, rows_per_block: int) -> list[SuperBlock]:
     """Plan the tick's superblocks from every popped session's rows."""

@@ -411,6 +411,18 @@ class FleetCoordinator:
         lease = self.leases.get(bid)
         block = self.blocks[bid]
         self._fence_stale(bid, lease.epoch)
+        # The claim first: a worker that claims, scores and posts within
+        # one poll interval (the card scores a block in microseconds) must
+        # still feed its claim echo to the clock-offset estimator before
+        # the block's phase row is written.
+        if lease.holder is None:
+            claim = board_read_json(
+                self.board, claim_key(bid, lease.epoch)
+            )
+            if claim is not None and claim.get("wid"):
+                wid = str(claim["wid"])
+                self.leases.note_claim(bid, wid, tick)
+                self._note_claim_echo(bid, wid, claim)
         post = board_read_json(self.board, result_key(bid, lease.epoch))
         if post is not None:
             rows = self._valid_rows(post, bid, len(block.codes))
@@ -421,15 +433,6 @@ class FleetCoordinator:
                 self.board.delete(offer_key(bid))
                 self._demux(rows, block)
                 self._note_phases(bid, post, block)
-                return
-        if lease.holder is None:
-            claim = board_read_json(
-                self.board, claim_key(bid, lease.epoch)
-            )
-            if claim is not None and claim.get("wid"):
-                wid = str(claim["wid"])
-                self.leases.note_claim(bid, wid, tick)
-                self._note_claim_echo(bid, wid, claim)
 
     def _fence_stale(self, bid: str, current: int) -> None:
         """Probe every PREVIOUS epoch's result key: a post there is a
