@@ -53,6 +53,8 @@ from ..obs import flightrec as obs_flightrec
 from ..obs import trace as obs_trace
 from ..obs.events import log_line
 from ..obs.metrics import gauge as obs_gauge
+from ..obs.spans import activate_spans, deactivate_spans
+from ..obs.spans import span as obs_span
 from ..ops import _build
 from ..ops.dispatch import AlignmentScorer
 from ..resilience.degrade import BackendDegrader, run_degrading, verify_rows_against_oracle
@@ -423,6 +425,13 @@ def _check_on(args) -> bool:
     return bool(args.check) or env_flag("SEQALIGN_CHECK")
 
 
+def _make_run_scorer(args, distributed: bool) -> BackendDegrader:
+    """The run's scorer in its degrade chain, under the ``scorer`` span
+    (``setup.scorer``)."""
+    with obs_span("scorer", detail=True):
+        return _make_degrader(args, _make_scorer(args, distributed))
+
+
 def _make_degrader(args, scorer) -> BackendDegrader:
     """The run's degrade chain state (a pass-through unless --degrade);
     replacement scorers keep the device, the sharding and the check."""
@@ -485,7 +494,7 @@ def _run_batch(args, policy, out, timer, dist=None) -> None:
             problem = dist.broadcast_problem(problem)
     journal = staged = done = None
     with timer.phase("setup"):
-        deg = _make_degrader(args, _make_scorer(args, dist is not None))
+        deg = _make_run_scorer(args, dist is not None)
         if args.journal:
             journal = ResultJournal(args.journal)
             if not multi:
@@ -506,8 +515,9 @@ def _run_batch(args, policy, out, timer, dist=None) -> None:
             # copies again.  Not under --journal, whose resume scores a
             # reduced subset, nor on a mesh (its shards are placed at
             # dispatch).
-            staged = FeedStager(deg).stage(
-                problem.seq1_codes, problem.seq2_codes, problem.weights)
+            with obs_span("stage", detail=True):
+                staged = FeedStager(deg).stage(
+                    problem.seq1_codes, problem.seq2_codes, problem.weights)
     obs_gauge("backend", deg.scorer.backend)
     if dist is None and deg.scorer.sharding is None:
         # The warm set mirrors the single-device dispatch: a mesh's or a
@@ -621,7 +631,7 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
         _run_streaming_worker(args, policy, timer, dist)
         return
     with timer.phase("setup"):
-        deg = _make_degrader(args, _make_scorer(args, dist is not None))
+        deg = _make_run_scorer(args, dist is not None)
     obs_gauge("backend", deg.scorer.backend)
     if dist is None:
         # Replay only (no problem is in hand before the stream starts): a
@@ -790,7 +800,7 @@ def _run_fleet_worker(args, policy, timer) -> int:
     from ..serve import loop as serve_loop
 
     with timer.phase("setup"):
-        deg = _make_degrader(args, _make_scorer(args, False))
+        deg = _make_run_scorer(args, False)
         serve_loop.warm_kernels(deg)
     obs_gauge("backend", deg.scorer.backend)
     _run_prewarm(args, timer, backend=deg.scorer.backend)
@@ -808,7 +818,7 @@ def _run_serve(args, policy, out, timer) -> None:
     if args.journal:
         _check_resume(args)
     with timer.phase("setup"):
-        deg = _make_degrader(args, _make_scorer(args, False))
+        deg = _make_run_scorer(args, False)
         serve_loop.warm_kernels(deg)
     obs_gauge("backend", deg.scorer.backend)
     prewarmed = _run_prewarm(args, timer, backend=deg.scorer.backend)
@@ -858,6 +868,12 @@ def _reject_fleet_combos(args) -> str | None:
 
 
 def run(argv: list[str] | None = None) -> int:
+    # The run's one span recorder exists before anything else, so the
+    # argument parsing is timed too; it records only if something reads
+    # it: --profile, the obs plane (which adopts it) or a close listener.
+    timer = PhaseTimer()
+    recorder = timer.recorder
+    args_t0 = recorder.now()
     try:
         args = build_arg_parser().parse_args(argv)
     except SystemExit as e:
@@ -929,41 +945,50 @@ def run(argv: list[str] | None = None) -> int:
     except ValueError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return EX_USAGE
-    drain = dist = None
-    registry = recorder = prev_usr2 = None
+    timer.enabled = args.profile
+    spans_on = obs_on or timer.read
+    if spans_on:
+        # Armed, the module-level spans (dispatch's, the serve loop's)
+        # nest under the phases.
+        activate_spans(recorder=recorder)
+        recorder.add("run.args", args_t0)
+    drain = dist = stdout = None
+    registry = prev_usr2 = None
     rc: int | None = None
     try:
-        # The obs plane arms before anything that can publish into it
-        # (faults, the watchdog, scoring); the finally below flushes the
-        # report and the trace on every exit path, 65 and 75 included.
-        if obs_on:
-            registry, recorder = arm_observability(
-                with_trace=bool(trace_out) or args.fleet_worker,
-                flightrec_depth=frec_depth)
-            global _usr2
-            _usr2 = _Usr2Dumper()
-            try:
-                prev_usr2 = signal.signal(signal.SIGUSR2, _sigusr2_dump)
-            except (ValueError, AttributeError, OSError):
-                # Not the main thread, or no SIGUSR2 on this platform.
-                prev_usr2 = None
-        # --profile shares the armed span recorder: profile phases and the
-        # run report's spans are one measurement.
-        timer = PhaseTimer(enabled=args.profile, recorder=recorder)
-        activate_faults(fault_spec)
-        if deadline or heartbeat_s:
-            # Heartbeat-only (no deadline) is legal: the monitor then
-            # enforces nothing and only emits the status line.
-            activate_watchdog(
-                deadline or None, heartbeat_s=heartbeat_s,
-                heartbeat=obs_export.heartbeat_callback() if heartbeat_s else None,
-            )
-        drain = drain_guard()
-        drain.__enter__()
-        # Native libraries (the CUDA runtime, nvcc's build, gloo's peer
-        # banners) may write to fd 1; only the result lines reach the real
-        # stdout.  The guard is up before a --distributed job is joined.
-        with guarded_stdout() as out:
+        with obs_span("run.arm"):
+            # The obs plane arms before anything that can publish into it
+            # (faults, the watchdog, scoring); the finally below flushes
+            # the report and the trace on every exit path, 65 and 75
+            # included.
+            if obs_on:
+                registry, _ = arm_observability(
+                    with_trace=bool(trace_out) or args.fleet_worker,
+                    flightrec_depth=frec_depth, recorder=recorder)
+                global _usr2
+                _usr2 = _Usr2Dumper()
+                try:
+                    prev_usr2 = signal.signal(signal.SIGUSR2, _sigusr2_dump)
+                except (ValueError, AttributeError, OSError):
+                    # Not the main thread, or no SIGUSR2 on this platform.
+                    prev_usr2 = None
+            activate_faults(fault_spec)
+            if deadline or heartbeat_s:
+                # Heartbeat-only (no deadline) is legal: the monitor then
+                # enforces nothing and only emits the status line.
+                activate_watchdog(
+                    deadline or None, heartbeat_s=heartbeat_s,
+                    heartbeat=obs_export.heartbeat_callback() if heartbeat_s else None,
+                )
+            drain = drain_guard()
+            drain.__enter__()
+            # Native libraries (the CUDA runtime, nvcc's build, gloo's
+            # peer banners) may write to fd 1; only the result lines reach
+            # the real stdout.  The guard is up before a --distributed job
+            # is joined.
+            stdout = guarded_stdout()
+            out = stdout.__enter__()
+        try:
             if args.distributed:
                 from ..parallel import distributed as dist
 
@@ -977,6 +1002,11 @@ def run(argv: list[str] | None = None) -> int:
                 _run_streaming(args, policy, out, timer, dist)
             else:
                 _run_batch(args, policy, out, timer, dist)
+        finally:
+            # The result lines leave for the real stdout here, and fd 1 is
+            # restored (a reader gone away raises BrokenPipeError: 1).
+            with obs_span("run.flush"):
+                stdout.__exit__(None, None, None)
         rc = worker_rc if args.fleet_worker else EX_OK
         return rc
     except DrainInterrupt as e:
@@ -992,23 +1022,28 @@ def run(argv: list[str] | None = None) -> int:
         rc = EX_TEMPFAIL if _is_resumable(e) else EX_FATAL
         return rc
     finally:
-        kernels = _build.loaded()
-        if kernels and (args.profile or obs_on):
-            # Where this run's kernels were found or built (the checkout's
-            # build/, the cache home, a temporary directory): a report
-            # line like [profile]'s, so the run report counts no log line.
-            print(f"{PROG}: kernels {', '.join(kernels)} in {_build.BUILD_DIR}",
-                  file=sys.stderr)
-        if registry is not None:
-            _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2)
-        # Faults, the watchdog and the drain handlers are armed per run:
-        # library callers after a CLI run see none of them.
-        deactivate_faults()
-        deactivate_watchdog()
-        if drain is not None:
-            drain.__exit__(None, None, None)
-        if dist is not None:
-            dist.shutdown_distributed()
+        with obs_span("run.teardown"):
+            kernels = _build.loaded()
+            if kernels and (args.profile or obs_on):
+                # Where this run's kernels were found or built (the
+                # checkout's build/, the cache home, a temporary
+                # directory): a report line like [profile]'s, so the run
+                # report counts no log line.
+                print(f"{PROG}: kernels {', '.join(kernels)} in {_build.BUILD_DIR}",
+                      file=sys.stderr)
+            if registry is not None:
+                _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2)
+            # Faults, the watchdog, the drain handlers and the span
+            # recorder are armed per run: library callers after a CLI run
+            # see none of them.
+            deactivate_faults()
+            deactivate_watchdog()
+            if drain is not None:
+                drain.__exit__(None, None, None)
+            if dist is not None:
+                dist.shutdown_distributed()
+            if spans_on:
+                deactivate_spans()
 
 
 def _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2) -> None:
@@ -1025,11 +1060,12 @@ def _flush_obs(registry, recorder, rc, metrics_out, trace_out, prev_usr2) -> Non
     except Exception as e:
         # advisory: the run's verdict stands; a lost trace is a warning.
         log_line(f"{PROG}: warning: trace not written ({e})")
+    extra = {"clock_anchor": recorder.anchor()}
+    if tracer is not None:
+        extra["gap_attribution"] = tracer.gap_attribution()
     try:
-        obs_export.flush_run_report(
-            registry, recorder, metrics_out, exit_code=rc,
-            extra={"gap_attribution": tracer.gap_attribution()} if tracer else None,
-        )
+        obs_export.flush_run_report(registry, recorder, metrics_out, exit_code=rc,
+                                    extra=extra)
     except Exception as e:
         # advisory: the run's verdict stands; a lost report is a warning.
         log_line(f"{PROG}: warning: run report not written ({e})")

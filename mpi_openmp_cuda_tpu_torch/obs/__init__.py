@@ -26,19 +26,22 @@ from . import (  # noqa: F401  (re-exports)
 )
 
 
-def arm_observability(clock=None, span_clock=None, *, with_trace=False, flightrec_depth=0):
+def arm_observability(clock=None, span_clock=None, *, with_trace=False, flightrec_depth=0,
+                      recorder=None):
     """Arm the plane for one run: a fresh registry subscribed to a fresh
-    bus, plus a fresh span recorder; returns ``(registry, recorder)``.
-    ``with_trace`` also arms the trace recorder (bus + span-close
-    subscriber); ``flightrec_depth > 0`` arms the flight recorder's ring
-    at that depth.  Kernel builds reach the registry as ``recompile``
-    events, which ``ops/_build.py`` publishes once per nvcc build."""
+    bus, plus the run's span recorder (``recorder``, the CLI's, adopted;
+    a fresh one on ``span_clock`` when None); returns ``(registry,
+    recorder)``.  ``with_trace`` also arms the trace recorder (bus +
+    span-close subscriber, on the span recorder's clock and zero);
+    ``flightrec_depth > 0`` arms the flight recorder's ring at that
+    depth.  Kernel builds reach the registry as ``recompile`` events,
+    which ``ops/_build.py`` publishes once per nvcc build."""
     registry = metrics.activate_metrics(clock)
     bus = events.activate_bus()
     bus.subscribe(registry.record_event)
-    recorder = spans.activate_spans(span_clock)
+    recorder = spans.activate_spans(span_clock, recorder=recorder)
     if with_trace:
-        tracer = trace.activate_trace(span_clock)
+        tracer = trace.activate_trace(spans=recorder)
         bus.subscribe(tracer.record_event)
         recorder.listeners.append(tracer.span_closed)
     if flightrec_depth and flightrec_depth > 0:

@@ -201,6 +201,10 @@ class MetricsRegistry:
             )
         elif event == "serve.batch.dispatch":
             self.inc("serve_batches")
+            if "rows" in fields:
+                # Real rows beside the block count: any window's mean
+                # fill is Δserve_block_rows / Δserve_batches.
+                self.inc("serve_block_rows", int(fields["rows"]))
             self.gauge("batch_fill_ratio", float(fields.get("fill", 0.0)))
             self.gauge("queue_depth", int(fields.get("depth", 0)))
         elif event == "serve.request.failed":
@@ -986,6 +990,7 @@ _METRIC_HELP = {
     "shed_state": "Admission shed state (accept/shed-new/drain-only)",
     "breaker_state": "Circuit breaker state (closed/open/half_open)",
     "batch_fill_ratio": "Real-row fraction of the last dispatched superblock",
+    "serve_block_rows": "Real rows of every dispatched superblock",
     "uptime_seconds": "Seconds since the metrics registry was armed",
 }
 

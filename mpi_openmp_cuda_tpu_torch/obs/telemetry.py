@@ -16,6 +16,11 @@ registry two ways while the loop runs:
   :func:`.metrics.to_prometheus` (the text of ``--metrics-out``'s
   sidecar, live), plus ``/healthz`` and ``/trace`` JSON endpoints.
 
+The ``metrics`` verb's record also carries the span recorder's live
+totals (``spans``: each path's count and seconds), so an operator can
+difference two readings, e.g. the serve loop's ``serve.wait`` and
+``serve.linger`` seconds against ``uptime_s`` for its busy share.
+
 Readers snapshot the registry without pausing the serve loop.  Registry
 mutation is plain dict arithmetic under the GIL, so a concurrent copy can
 only fail transiently (``RuntimeError: dictionary changed size during
@@ -31,6 +36,7 @@ import json
 import threading
 
 from .metrics import active_metrics, fleet_to_prometheus, to_prometheus
+from .spans import active_spans
 from .trace import active_trace
 
 #: Transient-retry budget for lock-free registry snapshots (see module
@@ -41,16 +47,17 @@ _SNAPSHOT_TRIES = 8
 
 def live_snapshot() -> dict:
     """A JSON-ready copy of the armed registry (empty dict when the
-    metrics plane is off), retried across concurrent mutation."""
+    metrics plane is off), retried across concurrent mutation, with a
+    ``spans`` section when a span recorder is armed: each closed span
+    path's ``count`` and ``seconds`` since the recorder was made."""
     reg = active_metrics()
     if reg is None:
         return {}
-    for _ in range(_SNAPSHOT_TRIES - 1):
-        try:
-            return reg.snapshot()
-        except RuntimeError:
-            continue
-    return reg.snapshot()
+    snap = _retried(reg.snapshot)
+    rec = active_spans()
+    if rec is not None:
+        snap["spans"] = rec.snapshot()
+    return snap
 
 
 def live_fleet() -> dict:
@@ -60,12 +67,17 @@ def live_fleet() -> dict:
     reg = active_metrics()
     if reg is None or not reg.fleet:
         return {}
+    return _retried(lambda: dict(reg.fleet))
+
+
+def _retried(read):
+    """``read()``, retried while a concurrent mutation makes it raise."""
     for _ in range(_SNAPSHOT_TRIES - 1):
         try:
-            return dict(reg.fleet)
+            return read()
         except RuntimeError:
             continue
-    return dict(reg.fleet)
+    return read()
 
 
 def render_metrics() -> str:

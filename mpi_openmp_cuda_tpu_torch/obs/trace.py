@@ -17,7 +17,16 @@ plane, which request) paid for it:
 
 Export is Chrome-trace / Perfetto JSON (``traceEvents``) wrapped in the
 versioned run-report envelope as ``kind="trace"``; Perfetto ignores the
-extra envelope keys, so the report file loads directly in the UI.  The
+extra envelope keys, so the report file loads directly in the UI.
+
+Armed by the CLI, the trace is made from the run's span recorder
+(``obs/spans.py``): it reads the recorder's clock, takes its zero from
+the recorder's anchor and carries the anchor as ``clock_anchor``, so an
+event's ``ts`` (microseconds) lies at ``unix_ns + ts * 1000`` on the
+Unix-epoch clock ``torch.profiler`` stamps device events with.  Host
+spans land on the ``spans`` track under the category ``span``, the
+recorder's detail spans under ``detail``; the CLI's ``run.`` plumbing,
+outside every phase, stays off the trace.  The
 fleet methods (board phases, clock offsets, worker tracks) come along
 unchanged for the serve plane.
 
@@ -33,6 +42,7 @@ import threading
 import time
 
 from .metrics import wrap_report
+from .spans import PLUMBING
 
 #: Hard cap on buffered trace events: a long-lived server must not grow
 #: its trace without bound.  Beyond the cap new events are counted in
@@ -140,10 +150,13 @@ class TraceRecorder:
     launch hooks (measured/modelled launch tracks + gap rows).
     """
 
-    def __init__(self, clock=time.perf_counter):
-        self._clock = clock
+    def __init__(self, clock=time.perf_counter, *, spans=None):
+        # ``spans``: the run's span recorder, whose clock and zero the
+        # trace shares (its anchor rides the export).
+        self._spans = spans
+        self._clock = clock if spans is None else spans.now
         self._lock = threading.Lock()
-        self._t0 = clock()
+        self._t0 = self._clock() if spans is None else spans.clock_s
         self._events: list[dict] = []
         self._gaps: list[dict] = []
         self._launches: dict = {}
@@ -161,8 +174,8 @@ class TraceRecorder:
         return round((t - self._t0) * 1e6, 3)
 
     def now_us(self) -> float:
-        """The current trace-timeline timestamp (microseconds since this
-        recorder armed) — the clock-bridge sample a fleet worker posts
+        """The current trace-timeline timestamp (microseconds since the
+        trace's zero) — the clock-bridge sample a fleet worker posts
         next to its board-clock reading so the coordinator can map the
         worker's trace timeline onto its own."""
         return self._us(self._clock())
@@ -213,9 +226,12 @@ class TraceRecorder:
     # -- span-recorder listener --------------------------------------------
 
     def span_closed(self, path: str, start: float, dur: float) -> None:
+        if path.startswith(PLUMBING):
+            return
+        spans = self._spans
         ev = {
             "name": path,
-            "cat": "span",
+            "cat": "detail" if spans is not None and spans.is_detail(path) else "span",
             "ph": "X",
             "ts": self._us(start),
             "dur": round(dur * 1e6, 3),
@@ -444,6 +460,8 @@ class TraceRecorder:
             "gap_attribution": self.gap_attribution(),
             "dropped_events": dropped,
         }
+        if self._spans is not None:
+            body["clock_anchor"] = self._spans.anchor()
         if exit_code is not None:
             body["exit_code"] = int(exit_code)
         return wrap_report("trace", body, meta=meta)
@@ -454,9 +472,11 @@ class TraceRecorder:
 _active: TraceRecorder | None = None
 
 
-def activate_trace(clock=None) -> TraceRecorder:
+def activate_trace(clock=None, *, spans=None) -> TraceRecorder:
+    """Arm a fresh trace; with ``spans`` (the run's span recorder) on its
+    clock and zero, else on ``clock``."""
     global _active
-    _active = TraceRecorder(clock or time.perf_counter)
+    _active = TraceRecorder(clock or time.perf_counter, spans=spans)
     return _active
 
 

@@ -30,8 +30,11 @@ Seq1 ring one for the whole batch, with the caps lifted there.
 
 Obs hooks (each one module-attribute check when the plane is off): the
 ``chunk_dispatch`` span (plan, copies in, launches queued: enqueue time
-only) and the ``chunk_gather`` span (epilogue, copy back and the wait for
-it: the device time), the ``chunks_dispatched``, ``feed_prestages`` and
+only), the ``chunk_prefetch`` detail span (the epilogue and copy back
+enqueued ahead of the gather, by a window of results in flight) and the
+``chunk_gather`` span (the same enqueue when nothing prefetched, then its
+``device_wait`` detail span: the host's block on the copy's event, where
+the wait on the card is measured), the ``chunks_dispatched``, ``feed_prestages`` and
 ``feed_prestage_hits`` counters, the ``config_fused_groups`` and
 ``config_rowpack`` gauges, and one trace launch per launch group, from
 its dispatch to the batch's rows on the host.
@@ -50,7 +53,7 @@ import torch
 
 from ..models.encoding import encode_normalized, pad_to
 from ..obs.metrics import gauge as _obs_gauge, inc as _obs_inc
-from ..obs.spans import fence as _obs_fence, span as _obs_span
+from ..obs.spans import span as _obs_span
 from ..obs.trace import active_trace, trace_launch_begin, trace_launch_end
 from ..resilience import watchdog
 from ..resilience.faults import fire as _fault
@@ -449,7 +452,6 @@ class PendingResult:
         with watchdog.guard("chunk result gather"):
             _fault("chunk_scoring")
             with _obs_span("chunk_gather"):
-                _obs_fence(self.raw)
                 return np.asarray(self.raw).reshape(-1, 3)[: self.count]
 
 
@@ -507,7 +509,8 @@ class BucketedPending:
         site; advisory: a copy not started here starts in ``result``)."""
         _fault("device_transfer")
         if self._host is None:
-            self._start_copy()
+            with _obs_span("chunk_prefetch", detail=True):
+                self._start_copy()
 
     def result(self) -> np.ndarray:
         with watchdog.guard("bucketed result gather"):
@@ -516,7 +519,8 @@ class BucketedPending:
                 if self._host is None:
                     self._start_copy()
                 if self._event is not None:
-                    wait_event(self._event)
+                    with _obs_span("device_wait", detail=True):
+                        wait_event(self._event)
             for key in self.trace_keys:
                 trace_launch_end(key)
             return self._host.numpy()

@@ -14,6 +14,15 @@ next block's copies staged while the current one computes), then flush
 and demux the rows back to their sessions by tag.  Every dispatch rides
 the batch CLI's retry/degrade/watchdog machinery.
 
+A tick's host time lies under detail spans (``obs/spans.py``), at most
+one a tick or a block: the queue's ``serve.wait`` and ``serve.linger``
+(idle), ``serve.intake`` (breaker, fleet pump, queue waits, the SLO
+controller), ``serve.journal`` (the two live-journal checkpoints),
+``serve.plan`` (admission checks, ``plan_blocks``, the superblock build),
+``serve.stage`` (the next block's copies), ``serve.advance``, beside the
+dispatch's ``chunk_dispatch`` / ``chunk_prefetch`` / ``chunk_gather`` and
+the per-request ``serve.request.parse`` / ``serve.request.emit`` spans.
+
 Threads: socket reader threads only ``json.loads`` and enqueue
 (:mod:`.queue`); validation, every host-to-device copy, every launch and
 every wait on a CUDA event run on the main loop thread, as do spans,
@@ -291,11 +300,10 @@ class ServeLoop:
         except Exception as e:
             self._block_failed(block, e)
             return None
-        nstaged = (
-            self.stager.stage(nxt.seq1_codes, nxt.codes, nxt.weights)
-            if nxt is not None
-            else None
-        )
+        nstaged = None
+        if nxt is not None:
+            with span("serve.stage", detail=True):
+                nstaged = self.stager.stage(nxt.seq1_codes, nxt.codes, nxt.weights)
         publish(
             "serve.batch.dispatch",
             rows=block.real_rows,
@@ -491,19 +499,20 @@ class ServeLoop:
             # Popped but unstarted at the drain boundary: nothing was
             # dispatched yet, so these journal as queued.
             self._drain(items)
-        if self.breaker is not None:
-            self.breaker.tick()
-        if self.fleet is not None:
-            self.fleet.pump(idle=not items and self.queue.depth() == 0)
-        now = self.clock.now()
-        if items:
-            for item in items:
-                wait = max(0.0, now - item.admitted_t)
-                self.controller.observe_wait(wait)
-                publish("serve.queue.wait", wait_s=round(wait, 6), trace=item.trace_id)
-        elif self.queue.depth() == 0:
-            self.controller.note_idle()
-        self.controller.update_state(now)
+        with span("serve.intake", detail=True):
+            if self.breaker is not None:
+                self.breaker.tick()
+            if self.fleet is not None:
+                self.fleet.pump(idle=not items and self.queue.depth() == 0)
+            now = self.clock.now()
+            if items:
+                for item in items:
+                    wait = max(0.0, now - item.admitted_t)
+                    self.controller.observe_wait(wait)
+                    publish("serve.queue.wait", wait_s=round(wait, 6), trace=item.trace_id)
+            elif self.queue.depth() == 0:
+                self.controller.note_idle()
+            self.controller.update_state(now)
         sessions = []
         for item in items:
             try:
@@ -522,24 +531,28 @@ class ServeLoop:
             self._inflight.append((sess, item.raw))
         # Journal checkpoint A: popped-but-unanswered requests are now in
         # flight; a death anywhere in this tick keeps them journaled.
-        self._journal_live()
-        live = self._admit_sessions(sessions, now)
+        with span("serve.journal", detail=True):
+            self._journal_live()
+        with span("serve.plan", detail=True):
+            live = self._admit_sessions(sessions, now)
+            blocks = list(plan_blocks(live, self.rows_per_block)) if live else []
         if live:
-            blocks = list(plan_blocks(live, self.rows_per_block))
             staged = None
             for i, block in enumerate(blocks):
                 nxt = blocks[i + 1] if i + 1 < len(blocks) else None
                 staged = self._dispatch(block, staged=staged, nxt=nxt)
             self.window.flush()
-        for sess in sessions:
-            # Emits the done record of an empty (n == 0) request; a no-op
-            # for sessions already completed or failed.
-            sess.advance()
-        # Journal checkpoint B: requests answered this tick leave the
-        # journal, so a kill at the next tick cannot answer them twice.
-        self._journal_live()
-        obs_gauge("queue_depth", self.queue.depth())
-        obs_gauge("shed_state", self.controller.state)
+        with span("serve.advance", detail=True):
+            for sess in sessions:
+                # Emits the done record of an empty (n == 0) request; a
+                # no-op for sessions already completed or failed.
+                sess.advance()
+        with span("serve.journal", detail=True):
+            # Journal checkpoint B: requests answered this tick leave the
+            # journal, so a kill at the next tick cannot answer them twice.
+            self._journal_live()
+            obs_gauge("queue_depth", self.queue.depth())
+            obs_gauge("shed_state", self.controller.state)
         return (
             bool(items)
             or not self.queue.idle()

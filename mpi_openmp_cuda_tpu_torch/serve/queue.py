@@ -18,7 +18,9 @@ enqueue, and never touch a tensor.
 ``pop_ready`` is the continuous-batching seam: it waits (through the
 injectable :class:`.clock.ServeClock`) for a queued request, then lingers
 one gather window so a concurrent burst lands in one superblock plan.
-The window is skipped once every input source has closed.
+The window is skipped once every input source has closed.  The two
+blocks are the detail spans ``serve.wait`` (no work in hand) and
+``serve.linger`` (work in hand, coalescing): the serve loop's idle time.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import dataclasses
 import threading
 
 from ..obs.events import publish
+from ..obs.spans import active_spans
 
 #: Admission verdicts (strings so responders can embed them in errors).
 ADMIT_OK = "ok"
@@ -180,7 +183,13 @@ class RequestQueue:
         def wake_up() -> bool:
             return bool(wake is not None and wake())
 
+        # The blocks' spans are recorded once ``_cond`` is released: span
+        # listeners take the obs recorders' locks, as ``publish`` does.
+        rec = active_spans()
+        marks = []  # the recorder's clock before, between and after the blocks
         with self._cond:
+            if rec is not None:
+                marks.append(rec.now())
             self._clock.block_until(
                 self._cond,
                 lambda: bool(self._items)
@@ -189,6 +198,8 @@ class RequestQueue:
                 or wake_up(),
                 timeout_s,
             )
+            if rec is not None:
+                marks.append(rec.now())
             if self._items and self._sources > 0 and not wake_up():
                 self._clock.block_until(
                     self._cond,
@@ -197,9 +208,13 @@ class RequestQueue:
                     or (0 < limit <= len(self._items)),
                     window_s,
                 )
+                if rec is not None:
+                    marks.append(rec.now())
             take = len(self._items) if limit <= 0 else min(limit, len(self._items))
             popped, self._items[:take] = self._items[:take], []
-            return popped
+        for name, start, end in zip(("serve.wait", "serve.linger"), marks, marks[1:]):
+            rec.add(name, start, end, detail=True)
+        return popped
 
     def snapshot_raws(self) -> list[dict]:
         """Copy of the queued raw dicts in admission order, WITHOUT

@@ -4,13 +4,17 @@
 :class:`PhaseTimer` is a thin shim over :class:`~..obs.spans.SpanRecorder`
 keeping the ``--profile`` contract (the ``[profile]`` stderr report, byte
 for byte the JAX package's, and a ``phases`` list of ``(name, seconds)``).
-The CLI hands it the run's armed recorder, so profile phases and the run
-report's span section are one measurement.
+The CLI builds its timer, and with it the run's one recorder, before
+anything else; the obs plane adopts that recorder, so profile phases and
+the run report's span section are one measurement.  A phase records only
+while something reads the recorder (``--profile``, a close listener, or
+the recorder armed as the active one); otherwise it is the shared no-op
+context.
 
 :func:`device_trace` is ``--trace DIR``: ``torch.profiler`` over the
 scoring phase (CPU activities, and CUDA ones when a card is present),
 written as a Chrome trace into ``DIR``.  :func:`block_until_ready` is
-the CUDA-event wait that closes it (and that ``obs.spans.fence`` uses).
+the CUDA-event wait that closes it.
 """
 
 from __future__ import annotations
@@ -19,23 +23,34 @@ import contextlib
 import os
 import sys
 
-from ..obs.spans import SpanRecorder
+from ..obs.spans import NULL_SPAN, SpanRecorder, active_spans
 
 
 class PhaseTimer:
     """Accumulates named wall-clock phases; reports to stderr when enabled.
-    Pass ``recorder=`` to share the obs plane's armed recorder."""
+    Pass ``recorder=`` to time into a given recorder."""
 
     def __init__(self, enabled: bool = False, recorder: SpanRecorder | None = None):
         self.enabled = bool(enabled)
         self._recorder = recorder if recorder is not None else SpanRecorder()
 
     @property
+    def recorder(self) -> SpanRecorder:
+        return self._recorder
+
+    @property
+    def read(self) -> bool:
+        """Whether anything reads the recorder: the ``[profile]`` report,
+        a close listener, or the recorder armed as the active one."""
+        rec = self._recorder
+        return self.enabled or bool(rec.listeners) or active_spans() is rec
+
+    @property
     def phases(self) -> list[tuple[str, float]]:
         return self._recorder.phases()
 
     def phase(self, name: str):
-        return self._recorder.span(name)
+        return self._recorder.span(name) if self.read else NULL_SPAN
 
     def report(self, out=None) -> None:
         if not self.enabled:

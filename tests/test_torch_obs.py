@@ -228,19 +228,6 @@ def test_arm_and_disarm_cover_every_tier(tmp_path):
     assert tspans.span("x") is tspans.span("y")  # the shared no-op context
 
 
-def test_fence_is_a_no_op_when_off(monkeypatch):
-    def no_event(*a, **k):
-        raise AssertionError("an event was recorded")
-
-    monkeypatch.setattr(torch.cuda, "Event", no_event)
-    tspans.fence(torch.zeros(2))  # off: nothing
-    tspans.activate_spans()
-    try:
-        tspans.fence([torch.zeros(2), None])  # armed, but no CUDA tensor
-    finally:
-        tspans.deactivate_spans()
-
-
 # -- the watchdog's heartbeat ----------------------------------------------
 
 

@@ -291,6 +291,7 @@ class TestServeObservability:
             "serve_rejections": 1,
             "serve_completed": 1,
             "serve_batches": 1,
+            "serve_block_rows": 7,
         }
         assert reg.gauges["queue_depth"] == 1
         assert reg.gauges["batch_fill_ratio"] == 0.875
