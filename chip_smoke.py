@@ -829,7 +829,8 @@ def scatter_rows(np, launches, count, backend="cuda"):
         return np.zeros((0, 3), dtype=np.int32)
     parts = [(b.idx, run_launch(b, backend), b.state.lens) for b in launches]
     len1 = launches[0].state.len1
-    return BucketedPending(parts, count, len1, finish=backend == "cuda").result().copy()
+    return BucketedPending(parts, count, len1, finish=backend == "cuda",
+                           order=launches[0].order).result().copy()
 
 
 def groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card) -> None:
@@ -897,7 +898,8 @@ def groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card) -> 
                 pin.copy_(cs.finish_rows(raw, lens, len1), non_blocking=True)
 
         def batched():
-            BucketedPending(parts, n, len1, finish=True)._start_copy()
+            BucketedPending(parts, n, len1, finish=True,
+                            order=launches[0].order)._start_copy()
 
         a0, b0, b1, a1 = (time_ms(fn, reps=30) for fn in (per_bucket, batched, batched,
                                                             per_bucket))
@@ -3164,9 +3166,9 @@ def analysis_phase(np, torch, cli, cs, fixtures, inputs, time_ms, card) -> dict[
     uploads = []
     real_upload = dispatch._upload
 
-    def counted_upload(val_flat, plans, device):
+    def counted_upload(val_flat, plans, device, ring):
         uploads.append(len(plans))
-        return real_upload(val_flat, plans, device)
+        return real_upload(val_flat, plans, device, ring)
 
     os.environ["TPU_SEQALIGN_FEED_OVERLAP"] = "1"
     dispatch._upload = counted_upload

@@ -235,7 +235,7 @@ def _scaling_rows(cfgs: list, priced: list, total_model_s: float) -> list[dict]:
         for c in cfgs:
             bs, r = ring_plan(c.l1p, c.l2p, n, kernel=True)
             steps.append(r)
-            ring_s += (r * nvlink_collective_wall_s("shift", bs * 4, n)
+            ring_s += (r * nvlink_collective_wall_s("shift", bs, n)  # uint8 codes
                        + nvlink_collective_wall_s("all_gather", c.rows * 4 * 4, n))
         for axis, comms_s, extra in (("batch", gather_s, {}),
                                      ("seq", ring_s + gather_s, {"ring_steps": steps})):

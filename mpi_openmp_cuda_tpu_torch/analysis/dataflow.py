@@ -5,14 +5,15 @@ re-staged on retry (the port's counterpart of
 The JAX pass proves that a donated buffer is dead when XLA deletes it.
 Eager PyTorch donates nothing; the port's hazard of the same kind is the
 **staged feed**.  ``AlignmentScorer.prestage_codes`` (``ops/dispatch.py``)
-starts a dispatch's host-to-device copies early, on a side CUDA stream;
-``StagedFeed.take`` hands them to ONE dispatch, after making the current
-stream wait on the copies' event and recording the stream on every
-operand (so the caching allocator does not reuse a block the side stream
-still writes).  A feed read twice, an operand the stream is not recorded
-on, or a retry that re-reads a taken feed would score stale or reused
-memory, on the card only.  The pass walks the package AST (lockgraph's
-module index and call resolution) and proves three rules:
+starts a dispatch's host-to-device copy (one arena, ``ops/feed.py``)
+early, on a side CUDA stream; ``StagedFeed.take`` hands its launches to
+ONE dispatch, after making the current stream wait on the copy's event
+and recording the stream on every operand (so the caching allocator does
+not reuse a block the side stream still writes).  A feed read twice, an
+operand the stream is not recorded on, or a retry that re-reads a taken
+feed would score stale or reused memory, on the card only.  The pass
+walks the package AST (lockgraph's module index and call resolution) and
+proves three rules:
 
 (a) **single use** — a ``StagedFeed`` is made only in ``prestage_codes``;
     its launches (``feed._launches``) are read only inside ``StagedFeed``;
@@ -22,14 +23,16 @@ module index and call resolution) and proves three rules:
 (b) **stream safety** — ``take`` waits on the feed's event and calls
     ``record_stream`` on every device tensor of a launch's state, the
     tensor list DERIVED from ``dispatch._to_device`` (the ``ScorerState``
-    keywords it fills from ``put(...)`` or a tensor parameter): a fifth
-    operand added there without a ``record_stream`` is a finding.
+    keywords it fills from an upload or from a tensor parameter, such as a
+    view of the arena): a fifth operand added there without a
+    ``record_stream`` is a finding.
 (c) **re-staging on retry** — from every re-dispatch root (the batch
     CLI's and the pipeline's retry ladders with their closures inlined,
     the fleet worker's score path, the rescue), every call path reaches
-    the uploads (``put``) through the dispatch layer and nothing above it
-    uploads; a root hands its attempts the feed object itself or nothing
-    (``staged=`` a name, ``None``, or popped from a single-use holder:
+    the uploads (``put``, and ``put_feed``, the single-device arena's one
+    copy) through the dispatch layer and nothing above it uploads; a root
+    hands its attempts the feed object itself or nothing (``staged=`` a
+    name, ``None``, or popped from a single-use holder:
     never something rebuilt from a feed); and every function that takes a
     feed falls back to ``_upload`` from host numpy when ``take`` returns
     None (a digest mismatch or a spent feed).
@@ -55,6 +58,10 @@ _FEED_CLASS = "StagedFeed"
 _FEED_MAKER = ("ops/dispatch.py", "AlignmentScorer.prestage_codes")
 _FEED_TAKE = ("ops/dispatch.py", "StagedFeed.take")
 _STATE_BUILDER = ("ops/dispatch.py", "_to_device")
+
+#: The calls that copy host arrays to a device: a mesh or ring shard
+#: (``dispatch.put``), a single-device dispatch's arena (``feed.put_feed``).
+_UPLOAD_CALLS = frozenset({"put", "put_feed"})
 
 #: Receivers the AST cannot type: the retry ladders score through
 #: ``degrader.scorer`` and a lambda parameter, the rescue through a local
@@ -168,7 +175,7 @@ class StagingPlan:
 class _FuncNode:
     """One function or method, lambdas and nested defs inlined (their
     bodies run under the enclosing retry machinery).  Its calls, uploads
-    (``put(...)`` lines) and takes (``.take(...)`` lines) are collected at
+    (:data:`_UPLOAD_CALLS` lines) and takes (``.take(...)`` lines) are collected at
     first use: most of the package is never on a re-dispatch path."""
 
     def __init__(self, module: str, qualname: str, node: ast.AST):
@@ -181,7 +188,7 @@ class _FuncNode:
             if not isinstance(sub, ast.Call):
                 continue
             func = sub.func
-            if isinstance(func, ast.Name) and func.id == "put":
+            if isinstance(func, ast.Name) and func.id in _UPLOAD_CALLS:
                 uploads.append(sub.lineno)
             if isinstance(func, ast.Attribute) and func.attr == "take":
                 takes.append(sub.lineno)
@@ -425,7 +432,9 @@ def _empties_feed(node: ast.AST) -> bool:
 
 def state_tensor_fields(pkg: _Package) -> tuple[str, ...]:
     """The ``ScorerState`` keywords ``dispatch._to_device`` fills with a
-    device tensor: ``put(...)`` or a parameter annotated ``torch.Tensor``."""
+    device tensor: an upload call (:data:`_UPLOAD_CALLS`), or an
+    expression of a parameter annotated ``torch.Tensor`` (the arena, whose
+    views the operands are, or the shared value table)."""
     fn = pkg.funcs.get(_STATE_BUILDER)
     if fn is None:
         return ()
@@ -436,10 +445,8 @@ def state_tensor_fields(pkg: _Package) -> tuple[str, ...]:
         if isinstance(sub, ast.Call) and isinstance(sub.func, ast.Name) \
                 and sub.func.id == "ScorerState":
             for kw in sub.keywords:
-                v = kw.value
-                if (isinstance(v, ast.Call) and isinstance(v.func, ast.Name)
-                        and v.func.id == "put") or (
-                        isinstance(v, ast.Name) and v.id in tensor_params):
+                names = {n.id for n in ast.walk(kw.value) if isinstance(n, ast.Name)}
+                if names & (tensor_params | _UPLOAD_CALLS):
                     fields.append(kw.arg)
     return tuple(fields)
 
@@ -511,7 +518,8 @@ def _staged_keywords(node: ast.AST) -> list[tuple[int, str | None]]:
 def _restage(pkg: _Package, roots) -> tuple[list[dict], list[dict], dict]:
     """Rule (c): ``(restage rows, findings, {root: its reachable paths})``."""
     rows, findings, root_paths = [], [], {}
-    uploaders = {k for k, f in pkg.mentioning("put(") if f.uploads}
+    uploaders = {k for k, f in pkg.mentioning(*(f"{c}(" for c in _UPLOAD_CALLS))
+                 if f.uploads}
     unsafe_takers = set()
     for key, fn in pkg.mentioning(".take("):
         if not fn.takes:

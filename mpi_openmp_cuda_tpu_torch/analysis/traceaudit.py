@@ -21,11 +21,12 @@ scripts and tests, not of a serving process.
   same declaration.
 * **The operand inventory**: every tensor operand of every launch (the
   tensor fields of ``cuda_scorer.ScorerState``, as ``dispatch._to_device``
-  fills them), with its dtype, shape, bytes and storage.  Findings: a
-  dtype wider than the kernels read (their C entries take int32), an
-  operand of at least :data:`LARGE_BUFFER_BYTES` uploaded twice in one
-  dispatch (two storages, the same bytes), a second value table in one
-  batch.
+  fills them: views of the dispatch's one arena, ``ops/feed.py``), with
+  its dtype, shape, bytes and address.  Findings: a dtype wider than the
+  kernels read (their C entries take uint8 codes, int32 lengths and
+  table), an operand of at least :data:`LARGE_BUFFER_BYTES` uploaded twice
+  in one dispatch (two addresses, the same bytes), a second value table
+  in one batch.
 * **The entry points** (:func:`audit_entry_points`): every
   ``contracts.ENTRY_CONTRACTS`` entry run at the audit buckets under a
   ``TorchFunctionMode`` that counts its dtype widenings and its device
@@ -50,9 +51,10 @@ LARGE_BUFFER_BYTES = 16 << 10
 #: Why eager PyTorch pins every large operand (the donation section).
 NO_DONATION = "freed when its launch is dropped; no donation in eager torch"
 
-#: The dtype the kernels read every operand as: their C entries take int32
-#: pointers (``cuda_scorer._ARGTYPES``), and the wrappers refuse others.
-KERNEL_ITEMSIZE = 4
+#: The bytes a word of each operand the kernels read: their C entries take
+#: uint8 codes and int32 lengths and table (``cuda_scorer._ARGTYPES``), and
+#: the wrappers refuse others.
+KERNEL_ITEMSIZE = {"seq1ext": 1, "rows": 1, "lens": 4, "val": 4}
 
 #: Conversions the entry-point walk inspects (``Tensor`` methods).
 _CONVERSIONS = frozenset({"to", "long", "int", "float", "double", "half", "short",
@@ -129,29 +131,32 @@ def operand_inventory(launches) -> tuple[list[dict], list[dict]]:
     """``(rows, findings)``: one row per tensor operand of each launch, and
     the operand findings (see the module docstring)."""
     rows, findings = [], []
-    seen: dict[int, dict] = {}  # storage -> first row
+    # Operands are views of one arena: an operand is shared when its
+    # address is an earlier one's (Seq1 and the table, once a dispatch).
+    seen: dict[int, dict] = {}  # address -> first row
     by_bytes: dict[tuple, list[dict]] = {}
     tables = set()
     for i, launch in enumerate(launches):
         for name in operand_fields():
             t = getattr(launch.state, name)
-            storage = t.untyped_storage().data_ptr()
+            addr = t.data_ptr()
             row = {"launch": i, "name": name, "dtype": str(t.dtype).replace("torch.", ""),
                    "shape": list(t.shape), "bytes": t.numel() * t.element_size(),
-                   "shared": storage in seen}
+                   "shared": addr in seen}
             rows.append(row)
             if name == "val":
-                tables.add(storage)
-            if t.element_size() > KERNEL_ITEMSIZE:
+                tables.add(addr)
+            if t.element_size() > KERNEL_ITEMSIZE[name]:
                 findings.append({
                     "kind": "widening", "entry": f"launch {i}",
                     "detail": f"{name} uploads as {row['dtype']} ({t.element_size()} B a "
-                              f"word) where the kernels read int32: {row['bytes']} B "
-                              "moved for half as many used; narrow it before the upload",
+                              f"word) where the kernels read {KERNEL_ITEMSIZE[name]} B: "
+                              f"{row['bytes']} B moved for fewer used; narrow it before "
+                              "the upload",
                 })
-            if storage in seen:
+            if addr in seen:
                 continue
-            seen[storage] = row
+            seen[addr] = row
             if row["bytes"] >= LARGE_BUFFER_BYTES:
                 digest = hashlib.blake2b(t.detach().cpu().contiguous().numpy().tobytes(),
                                          digest_size=16).digest()

@@ -11,8 +11,9 @@ compiles nothing per shape; what a first launch pays on the card is:
 * the fused kernel's shared-memory opt-in at a width past 48 KB:
   ``cuda_scorer.check_smem``;
 * CUDA's lazy load of each kernel function's module at its first launch,
-  the first blocks of the caching allocator and the pinned staging
-  buffers of ``dispatch.put``: one launch at the entry's shape through
+  the first blocks of the caching allocator and the pinned host blocks
+  of the feed's arena (``ops/feed.py``; PyTorch's host allocator keeps
+  them for the scorer's slots): one launch at the entry's shape through
   ``dispatch.run_launch``, synchronized.
 
 :func:`compile_entry` makes exactly those calls on a synthetic bucket of
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_scorer, dispatch
+from ..ops.feed import FeedRing
 from ..ops.values import value_table
 from .warmset import BACKEND_OF
 
@@ -48,21 +50,19 @@ def synthetic_plan(entry) -> dispatch.PlannedLaunch:
     rng = np.random.default_rng(0)
     len1 = entry.l1p
     len2 = max(1, min(entry.l2s or entry.l2p, len1 - 1))
-    seq1ext = np.zeros(entry.l1p + entry.l2p + 1, dtype=np.int32)
-    seq1ext[:len1] = rng.integers(1, 27, size=len1)
-    rows = np.zeros((entry.rows, entry.l2p), dtype=np.int32)
-    rows[:, :len2] = rng.integers(1, 27, size=(entry.rows, len2))
+    seq1 = rng.integers(1, 27, size=len1).astype(np.uint8)
+    rows = tuple(rng.integers(1, 27, size=(entry.rows, len2)).astype(np.uint8))
     lens = np.full(entry.rows, len2, dtype=np.int32)
-    batch = dispatch.PaddedBatch(seq1ext, len1, rows, lens, entry.l1p, entry.l2p)
     return dispatch.PlannedLaunch(
-        (entry.l2s or entry.l2p,), np.arange(entry.rows), batch, entry.l2s)
+        (entry.l2s or entry.l2p,), np.arange(entry.rows), seq1, rows, lens, entry.l2p,
+        entry.l2s)
 
 
 def synthetic_launch(entry, device: torch.device) -> dispatch.BucketLaunch:
     """:func:`synthetic_plan` on ``device``, staged as
-    ``dispatch.bucket_launches`` stages a plan."""
+    ``dispatch.bucket_launches`` stages a plan (one arena, one copy)."""
     return dispatch._upload(value_table(WARM_WEIGHTS).reshape(-1), [synthetic_plan(entry)],
-                            device)[0]
+                            device, FeedRing(device.type == "cuda"))[0]
 
 
 def validate_entry(entry, device: torch.device) -> None:

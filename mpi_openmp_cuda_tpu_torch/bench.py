@@ -382,7 +382,8 @@ def schedule_run(launches):
 
     def run():
         parts = [(b.idx, run_launch(b, "cuda"), b.state.lens) for b in launches]
-        BucketedPending(parts, count, launches[0].state.len1, finish=True)._start_copy()
+        BucketedPending(parts, count, launches[0].state.len1, finish=True,
+                        order=launches[0].order)._start_copy()
 
     return run
 

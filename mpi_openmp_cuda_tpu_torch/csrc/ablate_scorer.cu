@@ -30,8 +30,10 @@
 // partial holds [batch, ntiles, 2] int32 words, or [batch, ntiles, 128, 2]
 // for noreduce.  Returns the first CUDA error of the launches (0 on
 // success).
-extern "C" int ablate_scorer_launch(int var, const int* seq1ext, int len1,
-                                    const int* rows, const int* lens,
+extern "C" int ablate_scorer_launch(int var, const unsigned char* seq1ext,
+                                    int len1,
+                                    const unsigned char* rows,
+                                    const int* lens,
                                     int batch, int l2p, int ntiles,
                                     const int* val, int* partial, int* out,
                                     cudaStream_t stream) {

@@ -45,6 +45,10 @@
 //    staged as bytes, so the lanes' window loads (stride kR chars) fall in
 //    consecutive words.  Codes are staged pre-scaled to byte offsets
 //    (row * 108, char * 4): a lookup address is one add.
+//  * Codes in one byte.  Seq1 and Seq2 arrive as uint8 codes (0..26), read
+//    only by the staging loads and the finish kernel's k recovery: a
+//    quarter of the bytes int32 codes would take over the host link, for
+//    the same int32 arithmetic once staged.
 //  * Offsets x char segments.  One (pair, 128-offset tile) is the work of a
 //    thread block cluster of kCluster blocks, so that a batch of few pairs
 //    still spreads over the card's SMs.  A warp's 32 lanes x kR span the
@@ -164,8 +168,9 @@ __device__ __forceinline__ int look(const char* tab, int row, int col) {
 // for 40 it issues a step's lookups together (8 to 10 % faster).
 template <int VAR>
 __global__ void __launch_bounds__(kMaxSeg * 32, 2)
-tile_kernel(const int* __restrict__ seq1ext, int len1,
-            const int* __restrict__ rows, const int* __restrict__ lens,
+tile_kernel(const unsigned char* __restrict__ seq1ext, int len1,
+            const unsigned char* __restrict__ rows,
+            const int* __restrict__ lens,
             int l2p, const int* __restrict__ val, int* __restrict__ partial,
             int* __restrict__ out, int ntiles) {
   extern __shared__ __align__(16) int smem[];
@@ -200,15 +205,15 @@ tile_kernel(const int* __restrict__ seq1ext, int len1,
   const int per = max(((len2r / 4 + nsegt - 1) / nsegt) * 4, kSegChars);
   const int lo = min(rank * nseg * per, len2r);
   const int hi = min(lo + nseg * per, len2r);
-  const int* row = rows + static_cast<size_t>(b) * l2p;
-  const int* src = seq1ext + n0 + lo;
+  const unsigned char* row = rows + static_cast<size_t>(b) * l2p;
+  const unsigned char* src = seq1ext + n0 + lo;
   if constexpr (VAR != nostage) {
     for (int j = tid; j < kAlpha * kAlpha; j += nthr) sval[j] = val[j];
     for (int j = lo + tid; j < hi; j += nthr)
       s2[j - lo] = j < len2 ? row[j] * kRowBytes : 0;
     unsigned* win32 = reinterpret_cast<unsigned*>(win);
     for (int w = tid; w < (kTile + hi - lo) / 4; w += nthr) {
-      const int* c = src + 4 * w;
+      const unsigned char* c = src + 4 * w;
       win32[w] = (c[0] << 2) | (c[1] << 10) | (c[2] << 18) | (c[3] << 26);
     }
   }
@@ -232,8 +237,8 @@ tile_kernel(const int* __restrict__ seq1ext, int len1,
         reinterpret_cast<const char*>(VAR == nostage ? val : sval);
     const unsigned char* wp = win + kR * lane;
     // nostage: the block's window and Seq2 chars in global memory.
-    const int* gp = src + kR * lane;
-    const int* grow = row + lo;
+    const unsigned char* gp = src + kR * lane;
+    const unsigned char* grow = row + lo;
     int c[kR + 1];
 #pragma unroll
     for (int j = 0; j < kR; ++j)
@@ -367,8 +372,9 @@ tile_kernel(const int* __restrict__ seq1ext, int len1,
 // always; tile t while t * 128 < len1 - len2), then k of that offset.
 template <int VAR>
 __global__ void __launch_bounds__(kFinish)
-finish_kernel(const int* __restrict__ seq1ext, int len1,
-              const int* __restrict__ rows, const int* __restrict__ lens,
+finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
+              const unsigned char* __restrict__ rows,
+              const int* __restrict__ lens,
               int l2p, const int* __restrict__ val,
               const int* __restrict__ partial, int ntiles,
               int* __restrict__ out) {
@@ -389,7 +395,7 @@ finish_kernel(const int* __restrict__ seq1ext, int len1,
   const int chunk = (len2 + kFinish - 1) / kFinish;
   const int i0 = min(tid * chunk, len2);
   const int i1 = min(i0 + chunk, len2);
-  const int* row = rows + static_cast<size_t>(b) * l2p;
+  const unsigned char* row = rows + static_cast<size_t>(b) * l2p;
   for (int j = tid; j < kAlpha * kAlpha; j += kFinish) sval[j] = val[j];
   int rc[kChunk];
 #pragma unroll
@@ -453,7 +459,7 @@ finish_kernel(const int* __restrict__ seq1ext, int len1,
 
   // G[kappa](n) over this thread's chunk of chars: its sum, and the first
   // max of its running prefix over kappa < len2 (kappa = len2 is k = 0).
-  const int* w = seq1ext + n;
+  const unsigned char* w = seq1ext + n;
   int run = 0, bv = INT_MIN, bk = 0;
   auto step = [&](int i, int rowoff) {
     const int* vr = sval + rowoff;
@@ -536,16 +542,16 @@ inline TileShape tile_shape(int l2p) {
   return {nblk, nseg, smem};
 }
 
-// seq1ext: [ntiles * 128 + l2p + 1] int32 codes; rows: [batch, l2p] int32,
-// l2p a multiple of 4; lens: [batch] int32; val: [27 * 27] int32 with
+// seq1ext: [ntiles * 128 + l2p + 1] uint8 codes; rows: [batch, l2p] uint8
+// codes, l2p a multiple of 4; lens: [batch] int32; val: [27 * 27] int32 with
 // row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch ([batch,
 // ntiles, 128, 2] for noreduce); out: [batch, 4] int32.  Returns the first
 // CUDA error of the launches.
 template <int VAR>
-cudaError_t launch(const int* seq1ext, int len1, const int* rows,
-                   const int* lens, int batch, int l2p, int ntiles,
-                   const int* val, int* partial, int* out,
-                   cudaStream_t stream) {
+cudaError_t launch(const unsigned char* seq1ext, int len1,
+                   const unsigned char* rows, const int* lens, int batch,
+                   int l2p, int ntiles, const int* val, int* partial,
+                   int* out, cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
   // The 16-byte Seq2 loads and the packed window need whole groups of 4.
   if (l2p % 4 != 0) return cudaErrorInvalidValue;

@@ -13,8 +13,9 @@
 
 // The operands are those of fused::launch.  Returns the first CUDA error of
 // the launches (0 on success).
-extern "C" int fused_scorer_launch(const int* seq1ext, int len1,
-                                   const int* rows, const int* lens,
+extern "C" int fused_scorer_launch(const unsigned char* seq1ext,
+                                   int len1,
+                                   const unsigned char* rows, const int* lens,
                                    int batch, int l2p, int ntiles,
                                    const int* val, int* partial, int* out,
                                    cudaStream_t stream) {

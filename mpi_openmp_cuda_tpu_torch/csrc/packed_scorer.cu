@@ -37,7 +37,9 @@
 //    Seq1 window of 128 + l2s chars, staged as bytes pre-scaled to word
 //    offsets, so lanes reading at stride 4 chars touch consecutive words.
 //    Seq2 codes are staged pre-scaled to row byte offsets (code * 108): a
-//    lookup address is one add.
+//    lookup address is one add.  Both arrive as uint8 codes, read only by
+//    the staging loads and the finish kernel: a quarter of int32's bytes
+//    over the host link, for the same int32 arithmetic once staged.
 //  * Offset-tile skip: a block whose pairs have no valid offset in its tile
 //    returns before staging, a warp whose pair has none leaves after the
 //    staging barrier.  Tile 0 always runs: it writes eq.
@@ -97,8 +99,9 @@ __device__ __forceinline__ void warp_first_hit(int& s, int& n) {
 // Up to 48 resident warps an SM leave ptxas 40 registers a thread.
 template <int L2S, int W>
 __global__ void __launch_bounds__(W * 32, 48 / W)
-tile_kernel(const int* __restrict__ seq1ext, int len1,
-            const int* __restrict__ rows, const int* __restrict__ lens,
+tile_kernel(const unsigned char* __restrict__ seq1ext, int len1,
+            const unsigned char* __restrict__ rows,
+            const int* __restrict__ lens,
             int batch, int l2p, const int* __restrict__ val,
             int* __restrict__ partial, int* __restrict__ out, int ntiles) {
   constexpr int kWin = kTile + L2S;  // window chars of the tile
@@ -128,7 +131,7 @@ tile_kernel(const int* __restrict__ seq1ext, int len1,
   }
   unsigned* win32 = reinterpret_cast<unsigned*>(win);
   for (int w = tid; w < kWin / 4; w += W * 32) {
-    const int* c = seq1ext + n0 + 4 * w;
+    const unsigned char* c = seq1ext + n0 + 4 * w;
     win32[w] = (c[0] << 2) | (c[1] << 10) | (c[2] << 18) | (c[3] << 26);
   }
   __syncthreads();
@@ -190,8 +193,9 @@ tile_kernel(const int* __restrict__ seq1ext, int len1,
 // offset, lane l holding chars [l * C, l * C + C).
 template <int L2S, int F>
 __global__ void __launch_bounds__(F * 32)
-finish_kernel(const int* __restrict__ seq1ext, int len1,
-              const int* __restrict__ rows, const int* __restrict__ lens,
+finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
+              const unsigned char* __restrict__ rows,
+              const int* __restrict__ lens,
               int batch, int l2p, const int* __restrict__ val,
               const int* __restrict__ partial, int ntiles,
               int* __restrict__ out) {
@@ -240,7 +244,7 @@ finish_kernel(const int* __restrict__ seq1ext, int len1,
 
   // G[kappa](n) over this lane's chars: their sum, and the first max of the
   // running prefix over kappa < len2 (kappa = len2 is k = 0).
-  const int* w = seq1ext + n;
+  const unsigned char* w = seq1ext + n;
   int run = 0, bv = INT_MIN, bk = 0;
 #pragma unroll
   for (int u = 0; u < C; ++u) {
@@ -271,8 +275,8 @@ finish_kernel(const int* __restrict__ seq1ext, int len1,
 }
 
 template <int L2S>
-cudaError_t launch(const int* seq1ext, int len1, const int* rows,
-                   const int* lens, int batch, int l2p, int ntiles,
+cudaError_t launch(const unsigned char* seq1ext, int len1,
+                   const unsigned char* rows, const int* lens, int batch, int l2p, int ntiles,
                    const int* val, int* partial, int* out,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -301,13 +305,14 @@ cudaError_t launch(const int* seq1ext, int len1, const int* rows,
 
 }  // namespace
 
-// seq1ext: [ntiles * 128 + l2p + 1] int32 codes; rows: [batch, l2p] int32,
-// every len2 <= l2s <= l2p; lens: [batch] int32; val: [27 * 27] int32 with
-// row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch; out:
+// seq1ext: [ntiles * 128 + l2p + 1] uint8 codes; rows: [batch, l2p] uint8
+// codes, every len2 <= l2s <= l2p; lens: [batch] int32; val: [27 * 27]
+// int32 with row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch; out:
 // [batch, 4] int32.  Returns the first CUDA error of the launches (0 on
 // success), or cudaErrorInvalidValue for an l2s outside {8, 16, 32, 64}.
-extern "C" int packed_scorer_launch(const int* seq1ext, int len1,
-                                    const int* rows, const int* lens,
+extern "C" int packed_scorer_launch(const unsigned char* seq1ext,
+                                    int len1, const unsigned char* rows,
+                                    const int* lens,
                                     int batch, int l2p, int l2s, int ntiles,
                                     const int* val, int* partial, int* out,
                                     cudaStream_t stream) {

@@ -76,10 +76,10 @@ def shape_counts(len1: int, lens, l1p: int, l2p: int) -> WorkCounts:
     """The work of one launch of ``len(lens)`` rows padded to ``l2p``
     against a Seq1 of ``len1`` chars padded to ``l1p``: the needed cells
     over ``n < l1p`` and the bytes of its operands (``[L1P + L2P + 1]``
-    Seq1, ``[B, L2P]`` rows, ``[B]`` lens, the ``[27, 27]`` table) and its
-    ``[B, 4]`` output, all int32."""
+    Seq1 and ``[B, L2P]`` rows as uint8 codes; ``[B]`` lens and the
+    ``[27, 27]`` table as int32) and its ``[B, 4]`` int32 output."""
     b = len(lens)
-    nbytes = 4 * ((l1p + l2p + 1) + b * l2p + b + 27 * 27 + 4 * b)
+    nbytes = (l1p + l2p + 1) + b * l2p + 4 * (b + 27 * 27 + 4 * b)
     cells = needed_cells(len1, lens, l1p)
     return WorkCounts(cells, INT_OPS_PER_CELL * cells, LOOKUPS_PER_CELL * cells, nbytes)
 

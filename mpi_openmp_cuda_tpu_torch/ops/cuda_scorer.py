@@ -26,7 +26,8 @@ card gives a block.
 
 Each wrapper runs its kernel on CUDA tensors and its plain version
 (:func:`fused_scorer_plain`, :func:`packed_scorer_plain`) on CPU tensors
-only; on any other device it raises.  ``launch_counts`` counts the kernel
+only; on any other device it raises, as it does for codes that are not
+uint8 (it never converts them).  ``launch_counts`` counts the kernel
 launches, so a run can show which kernels its main path went through;
 with the obs plane armed the run report counts them too
 (``fused_scorer_launches``, ``packed_scorer_launches``).
@@ -68,13 +69,15 @@ def reset_launch_counts() -> None:
 
 @dataclass(frozen=True)
 class ScorerState:
-    """The operands of one padded bucket, as int32 tensors on one device.
+    """The operands of one padded bucket, as tensors on one device.
 
-    ``seq1ext`` [L1P + L2P + 1] Seq1 codes, zero-padded; ``rows`` [B, L2P]
-    Seq2 codes, zero-padded; ``lens`` [B]; ``val`` [27, 27] value table
-    with row and column 0 (the pad code) zeroed, so padded positions add
-    nothing and no kernel needs a per-char mask.  ``max_len2`` is the
-    longest row, known on the host (the packed kernel's class check)."""
+    ``seq1ext`` [L1P + L2P + 1] uint8 Seq1 codes, zero-padded; ``rows``
+    [B, L2P] uint8 Seq2 codes, zero-padded; ``lens`` [B] int32; ``val``
+    [27, 27] int32 value table with row and column 0 (the pad code)
+    zeroed, so padded positions add nothing and no kernel needs a per-char
+    mask.  Codes are 0..26, exact in a byte; every sum is int32.
+    ``max_len2`` is the longest row, known on the host (the packed
+    kernel's class check)."""
 
     seq1ext: torch.Tensor
     len1: int
@@ -116,8 +119,8 @@ def window_state(win_k, len1_eff, rows, lens, val_flat, device) -> ScorerState:
 
 
 def _numpy_state(seq1ext, len1, rows, lens, val_flat, device, *, window) -> ScorerState:
-    seq1ext = np.asarray(seq1ext, dtype=np.int32)
-    rows = np.asarray(rows, dtype=np.int32)
+    seq1ext = np.asarray(seq1ext)
+    rows = np.asarray(rows)
     lens = np.asarray(lens, dtype=np.int32)
     val = kernel_table(val_flat)
     b, l2p = rows.shape
@@ -136,9 +139,9 @@ def _numpy_state(seq1ext, len1, rows, lens, val_flat, device, *, window) -> Scor
             raise ValueError(f"{name} holds codes outside 0..{ALPHABET_SIZE - 1}")
     dev = torch.device(device)
     return ScorerState(
-        seq1ext=torch.from_numpy(seq1ext).to(dev),
+        seq1ext=torch.from_numpy(seq1ext.astype(np.uint8)).to(dev),
         len1=int(len1),
-        rows=torch.from_numpy(rows).to(dev),
+        rows=torch.from_numpy(rows.astype(np.uint8)).to(dev),
         lens=torch.from_numpy(lens).to(dev),
         val=torch.from_numpy(val).to(dev),
         max_len2=int(lens.max()) if b else 0,
@@ -266,10 +269,20 @@ def _device_of(state: ScorerState) -> str:
     kind = devs.pop().type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"scorer operands must be on cpu or cuda, got {kind}")
-    for t in (state.seq1ext, state.rows, state.lens, state.val):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("scorer operands must be contiguous int32 tensors")
+    _check_dtypes(state)
     return kind
+
+
+def _check_dtypes(state: ScorerState) -> None:
+    """The kernels' operand types: uint8 codes, int32 lengths and table,
+    all contiguous; anything else is refused, never converted."""
+    for name in ("seq1ext", "rows", "lens", "val"):
+        t = getattr(state, name)
+        want = torch.uint8 if name in ("seq1ext", "rows") else torch.int32
+        if t.dtype != want or not t.is_contiguous():
+            raise ValueError(
+                f"scorer operand {name} must be a contiguous {want} tensor, got "
+                f"{t.dtype}{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -284,11 +297,12 @@ _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 # int32 words of one (pair, tile) partial of either kernel: [score, n].
 _PARTIAL_WORDS = 2
 _ARGTYPES = {
-    # seq1ext, len1, rows, lens, batch, l2p, ntiles, val, partial, out, stream
+    # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, ntiles, val,
+    # partial, out, stream
     "fused_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
                      _POINTER, _POINTER, _POINTER, _POINTER),
-    # seq1ext, len1, rows, lens, batch, l2p, l2s, ntiles, val, partial, out,
-    # stream
+    # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, l2s, ntiles,
+    # val, partial, out, stream
     "packed_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
                       _INT, _POINTER, _POINTER, _POINTER, _POINTER),
 }
@@ -328,6 +342,7 @@ def call_entry(fn, state: ScorerState, *extra: int) -> torch.Tensor:
     """One launch of a typed scorer entry on the state's CUDA device: [B, 4]
     rows.  ``extra`` are the kernel's own int arguments after ``l2p``.  It
     counts nothing: the sweep scripts call their own builds through it."""
+    _check_dtypes(state)
     b, l2p = state.rows.shape
     ntiles = state.l1p // TILE
     dev = state.rows.device
@@ -461,17 +476,18 @@ def score_chunks_cuda_body(
 ):
     """Chunked-batch entry, the contract of ``score_chunks_pallas_body``:
     int32 tensors ``[NC, CB, L2P]`` rows and ``[NC, CB]`` lens on one
-    device -> ``[NC, CB, 3]`` int32.  The chunks are scored in one launch.
-    ``val_flat`` is the [729] spec value table (pad row/col zeroed here);
-    ``max_len2`` (host int) defaults to ``L2P``."""
+    device -> ``[NC, CB, 3]`` int32.  The chunks are scored in one launch,
+    their codes (0..26) cast to the kernels' uint8 here.  ``val_flat`` is
+    the [729] spec value table (pad row/col zeroed here); ``max_len2``
+    (host int) defaults to ``L2P``."""
     nc, cb, l2p = seq2_chunks.shape
     val = val_flat.reshape(ALPHABET_SIZE, ALPHABET_SIZE).clone()
     val[0, :] = 0
     val[:, 0] = 0
     state = ScorerState(
-        seq1ext=seq1ext.contiguous(),
+        seq1ext=seq1ext.to(torch.uint8).contiguous(),
         len1=int(len1),
-        rows=seq2_chunks.reshape(nc * cb, l2p).contiguous(),
+        rows=seq2_chunks.reshape(nc * cb, l2p).to(torch.uint8).contiguous(),
         lens=len2_chunks.reshape(nc * cb).contiguous(),
         val=val.contiguous(),
         max_len2=l2p if max_len2 is None else int(max_len2),

@@ -4,10 +4,11 @@ asynchronous results.
 The port of ``mpi_openmp_cuda_tpu/ops/dispatch.py``'s single-device path.
 Rows are grouped by their 128-wide L2P bucket (rows of at most 64 chars
 by their packing class 8/16/32/64, on the ``cuda`` backend), the fused
-buckets are partitioned into launch groups (``ops/schedule.py``), each
-group is padded into rectangular int32 operands on the scorer's device
-and scored by one launch, and the whole batch comes back to the host in
-one copy, in input order.
+buckets are partitioned into launch groups (``ops/schedule.py``), every
+group's operands go to the scorer's device in one byte arena and one
+copy (``ops/feed.py``: codes as uint8, padded to rectangles in the
+arena), each group is scored by one launch, and the whole batch comes
+back to the host in one copy, in input order.
 
 Backends:
 
@@ -34,8 +35,9 @@ only), the ``chunk_prefetch`` detail span (the epilogue and copy back
 enqueued ahead of the gather, by a window of results in flight) and the
 ``chunk_gather`` span (the same enqueue when nothing prefetched, then its
 ``device_wait`` detail span: the host's block on the copy's event, where
-the wait on the card is measured), the ``chunks_dispatched``, ``feed_prestages`` and
-``feed_prestage_hits`` counters, the ``config_fused_groups`` and
+the wait on the card is measured), the ``chunks_dispatched``,
+``feed_prestages``, ``feed_prestage_hits``, ``feed_h2d_copies`` and
+``feed_h2d_bytes`` counters, the ``config_fused_groups`` and
 ``config_rowpack`` gauges, and one trace launch per launch group, from
 its dispatch to the batch's rows on the host.
 """
@@ -51,7 +53,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.encoding import encode_normalized, pad_to
+from ..models.encoding import encode_normalized
 from ..obs.metrics import gauge as _obs_gauge, inc as _obs_inc
 from ..obs.spans import span as _obs_span
 from ..obs.trace import active_trace, trace_launch_begin, trace_launch_end
@@ -62,6 +64,7 @@ from .bounds import check_int32_window, kernel_fits, mm_max_exact_value
 from .cuda_scorer import (
     PACK_CLASSES, ScorerState, finish_rows, fused_scorer, kernel_table, packed_scorer,
 )
+from .feed import FeedLayout, FeedRing, put_feed, view, write_rows
 from .gather_scorer import gather_rows
 from .matmul_scorer import mm_rows
 from .oracle import score_batch_oracle
@@ -87,9 +90,9 @@ def round_up(x: int, mult: int) -> int:
 class PaddedBatch:
     """A rectangular, bucket-padded encoding of one scoring problem."""
 
-    seq1ext: np.ndarray  # [L1P + L2P + 1] int32
+    seq1ext: np.ndarray  # [L1P + L2P + 1] uint8 codes
     len1: int
-    seq2: np.ndarray  # [B, L2P] int32
+    seq2: np.ndarray  # [B, L2P] uint8 codes
     len2: np.ndarray  # [B] int32
     l1p: int
     l2p: int
@@ -117,21 +120,20 @@ def pad_problem(seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], *,
                 enforce_caps: bool = True) -> PaddedBatch:
     """Encode a ragged problem into bucket-padded rectangular arrays; the
     caps give way (``enforce_caps=False``) only on the Seq1 ring."""
-    len1 = int(seq1_codes.size)
     if enforce_caps:
         check_caps(seq1_codes, seq2_codes)
-    l1p = round_up(len1, _LANE)
-    max_l2 = max((c.size for c in seq2_codes), default=1)
-    l2p = round_up(max_l2, _LANE)
-    seq1ext = np.zeros(l1p + l2p + 1, dtype=np.int32)
-    seq1ext[:len1] = seq1_codes
-    rows = (
-        np.stack([pad_to(c, l2p).astype(np.int32) for c in seq2_codes])
-        if seq2_codes
-        else np.zeros((0, l2p), dtype=np.int32)
-    )
     lens = np.array([c.size for c in seq2_codes], dtype=np.int32)
-    return PaddedBatch(seq1ext, len1, rows, lens, l1p, l2p)
+    l2p = round_up(int(lens.max()) if lens.size else 1, _LANE)
+    return _padded(seq1_codes, seq2_codes, lens, round_up(seq1_codes.size, _LANE), l2p)
+
+
+def _padded(seq1_codes, seq2_codes, lens: np.ndarray, l1p: int, l2p: int) -> PaddedBatch:
+    """The padded uint8 host arrays of a problem at the widths given."""
+    seq1ext = np.zeros(l1p + l2p + 1, dtype=np.uint8)
+    seq1ext[: seq1_codes.size] = seq1_codes
+    rows = np.empty((lens.size, l2p), dtype=np.uint8)
+    write_rows(rows, seq2_codes, lens)
+    return PaddedBatch(seq1ext, int(seq1_codes.size), rows, lens, l1p, l2p)
 
 
 def pack_classes() -> tuple[int, ...]:
@@ -199,7 +201,7 @@ def effective_backend(backend: str, maxv: int, l2p: int, max_len2: int = 0) -> s
 def pad_batch_rows(batch: PaddedBatch, bp: int) -> tuple[np.ndarray, np.ndarray]:
     """Zero-pad the batch rows/lengths to ``bp`` rows (zero rows are len-0
     pairs, dropped on output)."""
-    rows = np.zeros((bp, batch.l2p), dtype=np.int32)
+    rows = np.zeros((bp, batch.l2p), dtype=batch.seq2.dtype)
     rows[: batch.batch_size] = batch.seq2
     lens = np.zeros(bp, dtype=np.int32)
     lens[: batch.batch_size] = batch.len2
@@ -223,12 +225,31 @@ def admit(seq1_codes, seq2_codes, weights, *, caps: bool = True) -> np.ndarray:
 @dataclass(frozen=True)
 class PlannedLaunch:
     """One launch planned on the host: its bucket keys, the input rows it
-    scores (ascending), its padded operands and its packing class."""
+    scores (ascending), their codes and lengths, its row width and its
+    packing class.  The feed writes the codes straight into its arena
+    (``ops/feed.py``); :attr:`batch` pads them into host arrays for the
+    readers that want those (``--check``, the warm plane)."""
 
     keys: tuple
     idx: np.ndarray
-    batch: PaddedBatch
+    seq1: np.ndarray  # the batch's Seq1 codes
+    rows: tuple  # the launch's Seq2 codes, in ``idx`` order
+    len2: np.ndarray  # [B] int32
+    l2p: int
     l2s: int | None
+
+    @property
+    def len1(self) -> int:
+        return int(self.seq1.size)
+
+    @property
+    def l1p(self) -> int:
+        return round_up(self.len1, _LANE)
+
+    @property
+    def batch(self) -> PaddedBatch:
+        """The launch's padded uint8 host arrays (made on each read)."""
+        return _padded(self.seq1, self.rows, self.len2, self.l1p, self.l2p)
 
 
 def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
@@ -240,7 +261,7 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     :func:`plan_buckets`, fused buckets partitioned into launch groups by
     ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
     one launch a bucket, the schedule the groups are held against), each
-    group padded by :func:`pad_problem` and its kernel chosen by
+    group's row width that of its longest row and its kernel chosen by
     :func:`choose_rowpack`.  Records nothing: the warm plane plans
     launches it does not dispatch (``aot/warmset.py``)."""
     from .schedule import plan_fusion_groups
@@ -249,6 +270,7 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     if not seq2_codes:
         return val_flat, []
     sizes = [int(c.size) for c in seq2_codes]
+    lens = np.asarray(sizes, dtype=np.int32)
     cuda = backend == "cuda"
     groups = plan_buckets(sizes, packable=cuda)
     group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
@@ -256,9 +278,11 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     plans = []
     for keys in group_keys:
         idx = np.asarray(sorted(i for k in keys for i in groups[k]), dtype=np.int64)
-        batch = pad_problem(seq1_codes, [seq2_codes[i] for i in idx])
-        l2s = choose_rowpack(batch.l2p, batch.len2) if cuda else None
-        plans.append(PlannedLaunch(tuple(keys), idx, batch, l2s))
+        len2 = lens[idx]
+        l2p = round_up(int(len2.max()), _LANE)
+        l2s = choose_rowpack(l2p, len2) if cuda else None
+        plans.append(PlannedLaunch(tuple(keys), idx, seq1_codes,
+                                   tuple(seq2_codes[i] for i in idx), len2, l2p, l2s))
     return val_flat, plans
 
 
@@ -281,7 +305,9 @@ class BucketLaunch:
     its operands on the device, its packing class (None: the fused
     kernel), the bucket keys of its launch group, the table's max |value|
     and the longest scored row (``0 < len2 <= len1``), both known on the
-    host."""
+    host, and ``order``, the batch's scatter index into input order on
+    the device (the same on every launch of the batch; None when its
+    launches are in input order)."""
 
     idx: np.ndarray
     state: ScorerState
@@ -289,36 +315,40 @@ class BucketLaunch:
     keys: tuple = ()
     maxv: int = 0  # max |table value|
     max_scored: int = 0
+    order: torch.Tensor | None = None
 
 
 def put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: on a CUDA device copied from pinned
-    memory without blocking the host."""
+    memory without blocking the host (the mesh and ring place each shard
+    with it; a dispatch on one device sends one arena, :func:`_upload`)."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def max_scored(batch: PaddedBatch) -> int:
-    """The longest scored row (``0 < len2 <= len1``) of a padded batch."""
+def max_scored(batch: PaddedBatch | PlannedLaunch) -> int:
+    """The longest scored row (``0 < len2 <= len1``) of a padded batch or
+    a planned launch."""
     live = batch.len2[(batch.len2 > 0) & (batch.len2 <= batch.len1)]
     return int(live.max()) if live.size else 0
 
 
-def _to_device(plan: PlannedLaunch, val: torch.Tensor, maxv: int,
-               device: torch.device) -> BucketLaunch:
-    """The plan's operands on ``device`` (:func:`put`)."""
-    b = plan.batch
+def _to_device(plan: PlannedLaunch, feed: torch.Tensor, layout: FeedLayout, i: int,
+               val: torch.Tensor, maxv: int, order) -> BucketLaunch:
+    """Launch ``i`` of a dispatch, its operands views of the dispatch's
+    arena ``feed`` on the device (``ops/feed.py``)."""
+    b, l2p = plan.len2.size, plan.l2p
     state = ScorerState(
-        seq1ext=put(b.seq1ext, device),
-        len1=b.len1,
-        rows=put(b.seq2, device),
-        lens=put(b.len2, device),
+        seq1ext=view(feed, layout.seq1, plan.l1p + l2p + 1, torch.uint8),
+        len1=plan.len1,
+        rows=view(feed, layout.rows[i], b * l2p, torch.uint8).view(b, l2p),
+        lens=view(feed, layout.lens[i], b, torch.int32),
         val=val,
-        max_len2=int(b.len2.max()),
+        max_len2=int(plan.len2.max()),
     )
-    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(b))
+    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(plan), order)
 
 
 def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
@@ -367,22 +397,33 @@ class StagedFeed:
         return launches
 
 
-def _upload(val_flat, plans, device: torch.device) -> list[BucketLaunch]:
-    """The plans' operands on ``device`` (one value table for all)."""
-    val = put(kernel_table(val_flat), device)
+def _upload(val_flat, plans, device: torch.device, ring: FeedRing) -> list[BucketLaunch]:
+    """The plans' operands on ``device``: one arena written into a slot of
+    ``ring`` and sent in one copy (:func:`feed.put_feed`), every launch's
+    operands, the one value table and the scatter index into input order
+    (when the launches are not in it) views of it."""
+    order = np.concatenate([p.idx for p in plans])
+    if np.array_equal(order, np.arange(order.size)):
+        order = None
+    layout = FeedLayout.of(plans, order)
+    feed = put_feed(ring, layout, plans, kernel_table(val_flat), order, device)
+    val = view(feed, layout.val, 27 * 27, torch.int32).view(27, 27)
+    scatter = None if order is None else view(feed, layout.order, order.size, torch.int64)
     maxv = max_abs_value(val_flat)
-    return [_to_device(plan, val, maxv, device) for plan in plans]
+    return [_to_device(plan, feed, layout, i, val, maxv, scatter)
+            for i, plan in enumerate(plans)]
 
 
 def bucket_launches(
     seq1_codes: np.ndarray, seq2_codes: list[np.ndarray], weights, device: torch.device,
     *, backend: str = "cuda", staged: StagedFeed | None = None, fuse: bool = True,
-    check: bool = False,
+    check: bool = False, ring: FeedRing | None = None,
 ) -> list[BucketLaunch]:
     """The launches that score one batch on ``device``: the plans of
-    :func:`plan_launches` with their operands on the device, or those of
-    ``staged`` when it was staged for the same operands (checked by
-    :func:`operand_digest`; the production schedule only).
+    :func:`plan_launches` with their operands on the device, sent through
+    a slot of ``ring`` (the scorer's; a ring of its own when None), or
+    those of ``staged`` when it was staged for the same operands (checked
+    by :func:`operand_digest`; the production schedule only).
     :class:`AlignmentScorer` launches exactly these.  With ``check``
     (``--check``) every plan is validated on its host arrays
     (``analysis/contracts.py::validate_plans``) before any is uploaded; a
@@ -394,7 +435,9 @@ def bucket_launches(
     val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, backend, fuse=fuse)
     if check:
         _validate(val_flat, plans, backend, device)
-    return _upload(val_flat, plans, device) if plans else []
+    if not plans:
+        return []
+    return _upload(val_flat, plans, device, ring or FeedRing(device.type == "cuda"))
 
 
 def _validate(val_flat, plans, backend: str, device) -> None:
@@ -460,18 +503,24 @@ class BucketedPending:
 
     ``parts`` are ``(input rows, [B, 4] raw kernel rows or [B, 3] finished
     rows, lens)`` on the scorer's device; every launch was queued before
-    any is fetched.  Materialising concatenates the parts on the device,
+    any is fetched.  ``order`` is the launches' scatter index into input
+    order on the device (``BucketLaunch.order``), None when the parts are
+    in input order.  Materialising concatenates the parts on the device,
     runs ``finish_rows`` once over all raw rows, scatters them into input
     order and copies the [count, 3] result to the host once:
     :meth:`prefetch` starts that copy into pinned memory
     (``non_blocking``) and records a CUDA event, :meth:`result` waits for
     the event under the deadline guard."""
 
-    def __init__(self, parts: list, count: int, len1: int, finish: bool):
+    def __init__(self, parts: list, count: int, len1: int, finish: bool, order=None):
+        if order is None and parts and not np.array_equal(
+                np.concatenate([p[0] for p in parts]), np.arange(count)):
+            raise ValueError("parts out of input order need their scatter index (order)")
         self.parts = parts
         self.count = count
         self.len1 = len1
         self.finish = finish
+        self.order = order
         self.trace_keys = ()  # the trace launches this result closes
         self._host = None
         self._event = None
@@ -486,15 +535,11 @@ class BucketedPending:
             rows = finish_rows(rows, cat(2), self.len1)
         dev = rows.device
         cuda = dev.type == "cuda"
-        order = np.concatenate([p[0] for p in self.parts])
-        if np.array_equal(order, np.arange(self.count)):
+        if self.order is None:
             out = rows  # already in input order (one launch, or sorted parts)
         else:
-            # The scatter's index goes up from pinned memory: a pageable
-            # copy would wait for the device.
-            idx = put(order, dev)
             out = torch.empty((self.count, 3), dtype=torch.int32, device=dev)
-            out[idx] = rows
+            out[self.order] = rows
         if cuda:
             host = torch.empty((self.count, 3), dtype=torch.int32, pin_memory=True)
             host.copy_(out, non_blocking=True)
@@ -566,6 +611,8 @@ class AlignmentScorer:
         self.device = None if backend == "oracle" else resolve_device(device)
         self.sharding = sharding
         self._side = None  # the staging stream (CUDA, made at first use)
+        # The feed's host slots (ops/feed.py), pinned on a CUDA device.
+        self._ring = None if self.device is None else FeedRing(self.device.type == "cuda")
         if check is None:
             from ..utils.env import env_flag
 
@@ -606,11 +653,12 @@ class AlignmentScorer:
         with _obs_span("chunk_dispatch"):
             launches = bucket_launches(
                 seq1_codes, seq2_codes, weights, self.device, backend=self.backend,
-                staged=staged, check=self.check,
+                staged=staged, check=self.check, ring=self._ring,
             )
             parts = [(b.idx, run_launch(b, self.backend), b.state.lens) for b in launches]
             pending = BucketedPending(parts, len(seq2_codes), int(seq1_codes.size),
-                                      finish=self.backend == "cuda")
+                                      finish=self.backend == "cuda",
+                                      order=launches[0].order)
         if active_trace() is not None:
             # One trace launch per launch group, keyed by the pending
             # result that closes it.
@@ -658,10 +706,10 @@ class AlignmentScorer:
 
     def prestage_codes(self, seq1_codes, seq2_codes, weights) -> StagedFeed | None:
         """Plan a future :meth:`score_codes_async` of the same operands and
-        start its host-to-device copies, on a side CUDA stream that
-        records one event at their end.  None where staging does not apply
-        (the oracle, an empty batch, a mesh: its shards are placed at
-        dispatch)."""
+        start its host-to-device copy (one arena), on a side CUDA stream
+        that records one event at its end.  None where staging does not
+        apply (the oracle, an empty batch, a mesh: its shards are placed
+        at dispatch)."""
         if self.backend == "oracle" or not seq2_codes or self.sharding is not None:
             return None
         val_flat, plans = plan_launches(seq1_codes, seq2_codes, weights, self.backend)
@@ -672,7 +720,7 @@ class AlignmentScorer:
             self._side = torch.cuda.Stream(self.device)
         event = None
         with torch.cuda.stream(self._side) if cuda else contextlib.nullcontext():
-            launches = _upload(val_flat, plans, self.device)
+            launches = _upload(val_flat, plans, self.device, self._ring)
             if cuda:
                 event = torch.cuda.Event()
                 event.record(self._side)

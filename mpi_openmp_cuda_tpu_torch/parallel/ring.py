@@ -128,7 +128,7 @@ class RingSharding:
         kernel = effective_backend(
             backend, max_abs_value(val_flat), l2p, max_scored(batch)) == "cuda"
         bs, r_steps = ring_plan(batch.l1p, l2p, sp, kernel)
-        seq1pad = np.zeros(sp * bs, dtype=np.int32)
+        seq1pad = np.zeros(sp * bs, dtype=np.uint8)
         take = min(seq1pad.size, batch.seq1ext.size)
         seq1pad[:take] = batch.seq1ext[:take]
         b = batch.batch_size
@@ -139,7 +139,7 @@ class RingSharding:
 
         # -- the windows: R neighbour exchanges round the ring --------------
         blocks = {s: put(seq1pad[(s % sp) * bs : (s % sp + 1) * bs], dev(s)) for s in slots}
-        wins = {s: torch.zeros((r_steps + 1) * bs, dtype=torch.int32, device=dev(s))
+        wins = {s: torch.zeros((r_steps + 1) * bs, dtype=torch.uint8, device=dev(s))
                 for s in slots}
         for s in slots:
             wins[s][:bs] = blocks[s]

@@ -111,7 +111,7 @@ def _replicas(seq1ext, val_flat, devices) -> dict:
     out = {}
     for dev in devices:
         if dev not in out:
-            out[dev] = (put(np.asarray(seq1ext, dtype=np.int32), dev),
+            out[dev] = (put(np.asarray(seq1ext, dtype=np.uint8), dev),
                         put(kernel_table(val_flat), dev))
     return out
 

@@ -342,10 +342,12 @@ def test_probe_gate_reads_the_card_name(monkeypatch):
 
 
 def _old_chip_smoke_counts(state):
-    """The per-launch counts as chip_smoke.py once kept them itself: bytes,
-    and the 3 int ops and 1 lookup the function needs per needed cell."""
-    nbytes = 4 * (state.seq1ext.numel() + state.rows.numel() + state.lens.numel()
-                  + state.val.numel() + 4 * state.rows.shape[0])
+    """The per-launch counts as chip_smoke.py once kept them itself: bytes
+    (each operand at its own dtype, the [B, 4] int32 output), and the 3 int
+    ops and 1 lookup the function needs per needed cell."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (state.seq1ext, state.rows, state.lens, state.val))
+    nbytes += 4 * 4 * state.rows.shape[0]
     len1 = state.len1
     cells = sum(max(len1 - int(n), 0) * int(n) for n in state.lens.tolist()
                 if 0 < int(n) < len1)

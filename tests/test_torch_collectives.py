@@ -87,7 +87,9 @@ class TestRealTree:
         comm = sh.comm
         shifts = sum(1 for s in comm.slot_log.values() for op in s if op[0] == "shift")
         assert shifts == comm.counts["shift"] == len([k for k, _ in comm.log if k == "shift"])
-        assert all(b == 4 * e for s in comm.slot_log.values() for _, e, b in s)
+        # The ring shifts uint8 Seq1 codes; the candidates and rows are int32.
+        assert all(b == (1 if k == "shift" else 4) * e
+                   for s in comm.slot_log.values() for k, e, b in s)
 
     def test_rows_equal_the_one_device_scorer(self):
         from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer

@@ -258,7 +258,8 @@ class TestInterleaveCommitted:
         assert mod.check(report, golden) == []
         assert golden["edges"] == [
             "serve/queue.py:RequestQueue._cond -> serve/slo.py:AdmissionController._lock"]
-        assert len(golden["locks"]) == 10 and golden["findings"] == 0
+        # 11 locks: the feed's FeedRing._lock (ops/feed.py) is a leaf.
+        assert len(golden["locks"]) == 11 and golden["findings"] == 0
 
     def test_seeded_fencing_bug_is_caught(self):
         # The acceptance bug: an `admits` that checks lease EXISTENCE

@@ -10,7 +10,7 @@ JAX tests with no counterpart here, and why:
 need ``jax.jit(donate_argnums)``; eager PyTorch donates nothing, which
 ``test_the_plan_donates_nothing`` names.  ``test_asarray_of_device_local_is_
 aliasing_not_staging`` is about ``jnp.asarray`` aliasing a device array;
-the port's operands go up through ``dispatch.put`` from host numpy, which
+the port's operands go up from host numpy (``feed.put_feed``, ``dispatch.put``), which
 the re-staging rule holds.
 """
 
@@ -137,8 +137,10 @@ def test_feed_taken_twice(tmp_path):
 
 
 def test_fifth_operand_without_record_stream(tmp_path):
-    plan = _seeded(tmp_path, "ops/dispatch.py", "        lens=put(b.len2, device),\n",
-                   "        lens=put(b.len2, device),\n        extra=put(b.len2, device),\n")
+    plan = _seeded(tmp_path, "ops/dispatch.py",
+                   "        lens=view(feed, layout.lens[i], b, torch.int32),\n",
+                   "        lens=view(feed, layout.lens[i], b, torch.int32),\n"
+                   "        extra=view(feed, layout.lens[i], b, torch.int32),\n")
     assert "extra" in plan.state_fields
     (f,) = [f for f in plan.findings if f["kind"] == "missing-record-stream"]
     assert "'extra'" in f["detail"] and f["entry"] == "ops/dispatch.py:StagedFeed.take"
@@ -236,7 +238,8 @@ def test_a_retried_attempt_restages_from_the_host(monkeypatch):
     want = scorer.score_codes(seq1, seqs, w)
     uploads = []
     real = dispatch._upload
-    monkeypatch.setattr(dispatch, "_upload", lambda v, p, d: uploads.append(1) or real(v, p, d))
+    monkeypatch.setattr(dispatch, "_upload",
+                        lambda v, p, d, r: uploads.append(1) or real(v, p, d, r))
     policy = RetryPolicy(retries=1, backoff_base=0.0)
     pipe = ChunkPipeline(policy, BackendDegrader(scorer, None, enabled=False))
     feed = scorer.prestage_codes(seq1, seqs, w)

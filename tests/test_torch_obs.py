@@ -324,11 +324,16 @@ MODES = {
 
 # The counters both CLIs must agree on: all of them but `recompiles`, which
 # counts jit compiles in the JAX CLI and nvcc builds in the port (none on the
-# CPU).  Timings (spans, uptime) and gauges are not compared: the three
-# TPU-only gauges (config_feed, config_superblock, config_chunk) have no
-# counterpart on the card, and `backend` names each package's own chain.
+# CPU), and the port's feed counters (`feed_h2d_copies`, `feed_h2d_bytes`:
+# its one-copy byte arena, which the JAX feed has no counterpart of).
+# Timings (spans, uptime) and gauges are not compared: the three TPU-only
+# gauges (config_feed, config_superblock, config_chunk) have no counterpart
+# on the card, and `backend` names each package's own chain.
+_PORT_ONLY_COUNTERS = frozenset({"recompiles", "feed_h2d_copies", "feed_h2d_bytes"})
+
+
 def _counters(rec) -> dict:
-    return {k: v for k, v in rec["counters"].items() if k != "recompiles"}
+    return {k: v for k, v in rec["counters"].items() if k not in _PORT_ONLY_COUNTERS}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))

@@ -29,7 +29,8 @@ def _rows(launches, count):
     return [tuple(int(v) for v in r)
             for r in tdispatch.BucketedPending(
                 [(b.idx, tdispatch.run_launch(b, "cuda"), b.state.lens) for b in launches],
-                count, launches[0].state.len1, finish=True).result()]
+                count, launches[0].state.len1, finish=True,
+                order=launches[0].order).result()]
 
 
 def _problem(seed, len1, lens, weights=W):

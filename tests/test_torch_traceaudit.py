@@ -134,9 +134,10 @@ def test_inventory_rows_and_shared_table():
     rows, findings = traceaudit.operand_inventory(launches)
     assert findings == []
     assert len(rows) == 4 * len(launches) and len(launches) == 4
-    assert {r["dtype"] for r in rows} == {"int32"}
-    vals = [r for r in rows if r["name"] == "val"]
-    assert [r["shared"] for r in vals] == [False, True, True, True]  # one table
+    assert {(r["name"], r["dtype"]) for r in rows} == {
+        ("seq1ext", "uint8"), ("rows", "uint8"), ("lens", "int32"), ("val", "int32")}
+    for name in ("val", "seq1ext"):  # one table, one Seq1: views of one arena
+        assert [r["shared"] for r in rows if r["name"] == name] == [False, True, True, True]
 
 
 def _replace_state(launch, **kw):
@@ -185,7 +186,8 @@ def test_donation_is_absent_in_eager_torch():
     rep = traceaudit.audit_schedule(PROBLEMS["max-size"]())
     don = rep["donation"]
     assert don["donation_supported"] is False and don["donated_large_buffers"] == 0
-    assert don["large_buffers"] == len(don["pinned_live"]) == 2  # seq1ext and rows
+    # The uint8 rows; the uint8 Seq1 (5 KiB) is under LARGE_BUFFER_BYTES.
+    assert don["large_buffers"] == len(don["pinned_live"]) == 1
     assert all(traceaudit.NO_DONATION in row for row in don["pinned_live"])
     assert don["undonated_large_buffers"] == 0 and don["covered"] is True
     body = {"cost_sheet": {"buckets": []}, "trace_audit": rep, "entry_points": []}
