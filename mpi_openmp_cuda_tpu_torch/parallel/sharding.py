@@ -21,15 +21,31 @@ the results (``MPI_Gather`` x3), with a serial remainder on the root
 In a job of several processes each process scores only the shards of
 its local slots (``comm.ProcessCollectives``), and the gather is a
 collective that every process reaches in the same order.
+
+Obs hooks, the mesh tier's counterparts of the reference's MPI calls
+(detail spans, nested under the dispatch's ``chunk_dispatch`` and
+``chunk_gather``): ``shard_replicate`` (Seq1 and the table to each
+device, ``MPI_Bcast``), ``shard_place`` (each shard's rows and lengths,
+``MPI_Scatter``), ``shard_launch`` (each shard's kernel and epilogue
+enqueued) and ``shard_gather`` (the shards back to the host,
+``MPI_Gather``), after ``device_wait`` (the host's block on the cards,
+as in the single-device gather).  :data:`mesh_counts` counts, in every
+run, each placement (``mesh_h2d_copies``, ``mesh_h2d_bytes``: a
+host-to-device copy on a card), each shard's launch
+(``mesh_shard_launches``, one a slot a dispatch) and the empty rows the
+padding adds (``mesh_pad_rows``); with the obs plane armed the run
+report counts them too.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..obs.metrics import inc as _obs_inc
 from ..obs.spans import span as _obs_span
 from ..ops.cuda_scorer import ScorerState, finish_rows, kernel_table
 from ..ops.dispatch import (
@@ -42,6 +58,26 @@ from .comm import Collectives, collectives_for
 from .mesh import Mesh, make_mesh
 
 BACKENDS = ("cuda", "mm", "gather")
+
+# The batch mesh's placements, launches and padding, in every run (as
+# ``cuda_scorer.launch_counts``); also in the run report when armed.
+mesh_counts = {"mesh_h2d_copies": 0, "mesh_h2d_bytes": 0, "mesh_shard_launches": 0,
+               "mesh_pad_rows": 0}
+_count_lock = threading.Lock()
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _count_lock:  # a served mesh dispatches from the fleet's threads too
+        mesh_counts[name] += n
+    _obs_inc(name, n)
+
+
+def _place(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``put``, counted as one of the mesh's host-to-device copies."""
+    t = put(arr, device)
+    _count("mesh_h2d_copies")
+    _count("mesh_h2d_bytes", t.numel() * t.element_size())
+    return t
 
 
 class ShardedPending:
@@ -90,19 +126,38 @@ class ShardedPending:
             parts.append((idx, host, take, n))
         self.parts, self._events = parts, events
 
+    def _card_events(self) -> list:
+        """Where no :meth:`prefetch` started the copies: in a one-process
+        job, one event at the end of each card's queued work, so the wait
+        on the cards is its own (``device_wait``) and the gather only
+        copies."""
+        if self.comm.world > 1:
+            return []
+        devices = {rows[s].device for _, rows, take, _ in self.parts for s in take}
+        events = []
+        for dev in sorted((d for d in devices if d.type == "cuda"), key=lambda d: d.index):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        return events
+
     def result(self) -> np.ndarray:
         with watchdog.guard("sharded result gather"):
             _fault("chunk_scoring")
             with _obs_span("chunk_gather"):
-                for ev in self._events or ():
-                    wait_event(ev)
+                events = self._events if self._events is not None else self._card_events()
+                if events:
+                    with _obs_span("device_wait", detail=True):
+                        for ev in events:
+                            wait_event(ev)
                 out = np.zeros((self.count, 3), dtype=np.int32)
-                for idx, rows, take, n in self.parts:
-                    host = self.comm.gather(rows, take)[:n]
-                    if idx is None:
-                        out[:n] = host
-                    else:
-                        out[idx] = host
+                with _obs_span("shard_gather", detail=True):
+                    for idx, rows, take, n in self.parts:
+                        host = self.comm.gather(rows, take)[:n]
+                        if idx is None:
+                            out[:n] = host
+                        else:
+                            out[idx] = host
                 return out
 
 
@@ -111,8 +166,8 @@ def _replicas(seq1ext, val_flat, devices) -> dict:
     out = {}
     for dev in devices:
         if dev not in out:
-            out[dev] = (put(np.asarray(seq1ext, dtype=np.uint8), dev),
-                        put(kernel_table(val_flat), dev))
+            out[dev] = (_place(np.asarray(seq1ext, dtype=np.uint8), dev),
+                        _place(kernel_table(val_flat), dev))
     return out
 
 
@@ -157,17 +212,22 @@ class BatchSharding:
         bl = max(1, -(-b // d))  # rows a shard
         rows, lens = pad_batch_rows(batch, bl * d)
         maxv, longest = max_abs_value(val_flat), max_scored(batch)
+        _count("mesh_pad_rows", bl * d - b)
         slots = self.comm.local_slots()
-        reps = _replicas(batch.seq1ext, val_flat, [self.mesh.device(s) for s in slots])
+        with _obs_span("shard_replicate", detail=True):
+            reps = _replicas(batch.seq1ext, val_flat, [self.mesh.device(s) for s in slots])
         out = {}
         for s in slots:
             dev = self.mesh.device(s)
             seq1ext, val = reps[dev]
             shard = slice(s * bl, (s + 1) * bl)
-            st = ScorerState(seq1ext=seq1ext, len1=batch.len1, rows=put(rows[shard], dev),
-                             lens=put(lens[shard], dev), val=val,
-                             max_len2=int(lens[shard].max()))
-            launch = BucketLaunch(np.arange(bl), st, None, maxv=maxv, max_scored=longest)
-            raw = run_launch(launch, backend)
-            out[s] = finish_rows(raw, st.lens, st.len1) if backend == "cuda" else raw
+            with _obs_span("shard_place", detail=True):
+                st = ScorerState(seq1ext=seq1ext, len1=batch.len1,
+                                 rows=_place(rows[shard], dev), lens=_place(lens[shard], dev),
+                                 val=val, max_len2=int(lens[shard].max()))
+            with _obs_span("shard_launch", detail=True):
+                launch = BucketLaunch(np.arange(bl), st, None, maxv=maxv, max_scored=longest)
+                raw = run_launch(launch, backend)
+                out[s] = finish_rows(raw, st.lens, st.len1) if backend == "cuda" else raw
+            _count("mesh_shard_launches")
         return ShardedPending(self.comm, [(None, out, list(range(d)), b)], b)
