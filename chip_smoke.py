@@ -71,7 +71,8 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    small inputs, eight of the large), and, where the plan groups buckets,
    both schedules timed (planned, singletons, singletons, planned), the
    planned one at most ``RULE_SLACK`` slower; then, at input3-class, the
-   one batched ``finish_rows`` epilogue and copy against one a bucket;
+   rows the finish kernels store at their input rows == the raw rows
+   through ``finish_rows`` and a scatter, both timed;
 10. the ``mm`` and ``gather`` backends on the card: TF32 shown to round
    the mm path's value matrix at :data:`TF32_WEIGHTS` while
    ``matmul_scorer.ieee_fp32`` keeps it exact; on max-size, at the
@@ -822,15 +823,30 @@ def main() -> int:
 
 def scatter_rows(np, launches, count, backend="cuda"):
     """The [count, 3] host rows of ``launches`` on ``backend`` in input
-    order, through the production path's one epilogue and one copy."""
-    from mpi_openmp_cuda_tpu_torch.ops.dispatch import BucketedPending, run_launch
+    order, through the production path: every launch's finished rows
+    written at their input rows of one buffer, and one copy."""
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import launch_batch
 
     if not launches:
         return np.zeros((0, 3), dtype=np.int32)
-    parts = [(b.idx, run_launch(b, backend), b.state.lens) for b in launches]
-    len1 = launches[0].state.len1
-    return BucketedPending(parts, count, len1, finish=backend == "cuda",
-                           order=launches[0].order).result().copy()
+    device = launches[0].state.rows.device
+    return launch_batch(launches, backend, count, device).result().copy()
+
+
+def launch_rows(out, state, finished):
+    """A launch's rows: its raw [B, 4] rows, or, in finished mode, its
+    finished rows in the dispatch's buffer (at ``dst``, or from ``row0``)."""
+    if not finished:
+        return out
+    done, dst, row0 = finished
+    return done[dst] if dst is not None else done[row0 : row0 + state.rows.shape[0]]
+
+
+def plain_rows(cs, state, l2s, finished):
+    """What :func:`launch_rows` must equal: the plain version's raw rows,
+    through ``finish_rows`` in finished mode."""
+    raw = cs.fused_scorer_plain(state) if l2s is None else cs.packed_scorer_plain(state, l2s)
+    return cs.finish_rows(raw, state.lens, state.len1) if finished else raw
 
 
 def groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card) -> None:
@@ -838,10 +854,12 @@ def groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card) -> 
     bucket: each group launch == its plain version, the grouped rows ==
     the singleton rows == the oracle (sampled on the large inputs), both
     schedules timed (planned, singletons, singletons, planned) and the
-    planned one at most RULE_SLACK slower; then, at input3-class, the one
-    batched epilogue and copy against one a bucket."""
+    planned one at most RULE_SLACK slower; then, at input3-class, the
+    finished rows the finish kernels store at their input rows against the
+    raw rows, one PyTorch epilogue and a scatter (the path before them):
+    equal, and both timed."""
     from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
-    from mpi_openmp_cuda_tpu_torch.ops.dispatch import BucketedPending, bucket_launches
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import bucket_launches, launch_batch
     from mpi_openmp_cuda_tpu_torch.ops.dispatch import run_launch
 
     dev = torch.device("cuda")
@@ -882,29 +900,33 @@ def groups_phase(np, torch, cs, compare, inputs, prefix_best, time_ms, card) -> 
         if p_ms > (1 + RULE_SLACK) * s_ms:
             fail(f"the planned launch groups are slower: {verdict}")
 
-    # One epilogue and one copy for the batch against one a bucket.
+    # The batch's finished rows: stored by the finish kernels, against the
+    # raw rows, one PyTorch epilogue and a scatter.
     prob = load_problem(str(inputs["input3-class"]))
     n = len(prob.seq2_codes)
     for name, fuse in (("planned", True), ("singletons", False)):
         launches = bucket_launches(prob.seq1_codes, prob.seq2_codes, prob.weights, dev,
                                    fuse=fuse)
-        parts = [(b.idx, run_launch(b, "cuda"), b.state.lens) for b in launches]
+        order = torch.from_numpy(np.concatenate([b.idx for b in launches])).to(dev)
+        lens = torch.cat([b.state.lens for b in launches])
         len1 = launches[0].state.len1
-        pins = [torch.empty((b.idx.size, 3), dtype=torch.int32, pin_memory=True)
-                for b in launches]
 
-        def per_bucket():
-            for (_, raw, lens), pin in zip(parts, pins):
-                pin.copy_(cs.finish_rows(raw, lens, len1), non_blocking=True)
+        def torch_epilogue():
+            raw = torch.cat([cs.fused_scorer(b.state) if b.l2s is None
+                             else cs.packed_scorer(b.state, b.l2s) for b in launches])
+            out = torch.empty((n, 3), dtype=torch.int32, device=dev)
+            out[order] = cs.finish_rows(raw, lens, len1)
+            return out
 
-        def batched():
-            BucketedPending(parts, n, len1, finish=True,
-                            order=launches[0].order)._start_copy()
+        def in_kernel():
+            return launch_batch(launches, "cuda", n, dev).rows
 
-        a0, b0, b1, a1 = (time_ms(fn, reps=30) for fn in (per_bucket, batched, batched,
-                                                            per_bucket))
-        log(f"epilogue input3-class, {name} ({len(launches)} launches): one a bucket "
-            f"{(a0 + a1) / 2:.6f} ms, one batched {(b0 + b1) / 2:.6f} ms [{card}]")
+        compare("fused_scorer", in_kernel(), torch_epilogue())
+        a0, b0, b1, a1 = (time_ms(fn, reps=30) for fn in (torch_epilogue, in_kernel,
+                                                            in_kernel, torch_epilogue))
+        log(f"epilogue input3-class, {name} ({len(launches)} launches): PyTorch epilogue "
+            f"and scatter {(a0 + a1) / 2:.6f} ms, in the finish kernels "
+            f"{(b0 + b1) / 2:.6f} ms [{card}]")
 
 
 # max |v| 4093: above TF32's 11 significant bits, inside the fp32 window at
@@ -1425,14 +1447,15 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
     seen = []
     real = cs.fused_scorer
 
-    def checked(state):
-        raw = real(state)
+    def checked(state, *finished):
+        out = real(state, *finished)
         ws = cs.window_state(state.seq1ext.cpu().numpy(), state.len1,
                              state.rows.cpu().numpy(), state.lens.cpu().numpy(),
                              state.val.cpu().numpy().reshape(-1), state.rows.device)
-        compare("fused_scorer", raw, cs.fused_scorer_plain(ws))
+        compare("fused_scorer", launch_rows(out, state, finished),
+                plain_rows(cs, ws, None, finished))
         seen.append(state)
-        return raw
+        return out
 
     def spy(on: bool):
         dispatch.fused_scorer = ring_mod.fused_scorer = checked if on else real
@@ -1695,17 +1718,19 @@ def serve_phase(np, torch, cli, cs, compare, inputs, time_ms, card):
     seen = []
     real = {"fused_scorer": cs.fused_scorer, "packed_scorer": cs.packed_scorer}
 
-    def fused(state):
-        raw = real["fused_scorer"](state)
-        compare("fused_scorer", raw, cs.fused_scorer_plain(state))
+    def fused(state, *finished):
+        out = real["fused_scorer"](state, *finished)
+        compare("fused_scorer", launch_rows(out, state, finished),
+                plain_rows(cs, state, None, finished))
         seen.append(("fused_scorer", state, None))
-        return raw
+        return out
 
-    def packed(state, l2s):
-        raw = real["packed_scorer"](state, l2s)
-        compare("packed_scorer", raw, cs.packed_scorer_plain(state, l2s))
+    def packed(state, l2s, *finished):
+        out = real["packed_scorer"](state, l2s, *finished)
+        compare("packed_scorer", launch_rows(out, state, finished),
+                plain_rows(cs, state, l2s, finished))
         seen.append(("packed_scorer", state, l2s))
-        return raw
+        return out
 
     policy = RetryPolicy()
     deg = BackendDegrader(AlignmentScorer("cuda", device="cuda"),
@@ -2080,18 +2105,18 @@ def fleet_phase(np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, ti
                                lambda b: AlignmentScorer(b, device="cuda"))
 
     # -- a. an in-process fleet: a ServeLoop coordinator, two worker threads --
-    seen = []  # (kernel, state, class, raw rows), appended from the workers
+    seen = []  # (kernel, state, class, rows, finished), appended from the workers
     real = {"fused_scorer": cs.fused_scorer, "packed_scorer": cs.packed_scorer}
 
-    def fused(state):
-        raw = real["fused_scorer"](state)
-        seen.append(("fused_scorer", state, None, raw))
-        return raw
+    def fused(state, *finished):
+        out = real["fused_scorer"](state, *finished)
+        seen.append(("fused_scorer", state, None, out, finished))
+        return out
 
-    def packed(state, l2s):
-        raw = real["packed_scorer"](state, l2s)
-        seen.append(("packed_scorer", state, l2s, raw))
-        return raw
+    def packed(state, l2s, *finished):
+        out = real["packed_scorer"](state, l2s, *finished)
+        seen.append(("packed_scorer", state, l2s, out, finished))
+        return out
 
     board_dir = Path(tmp.name) / "board-a"
     board = FileBoard(str(board_dir))
@@ -2156,9 +2181,8 @@ def fleet_phase(np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, ti
     c = snap["counters"]
     blocks = c.get("serve_batches", 0)
     steady = snap["gauges"].get("serve_steady_compiles")
-    for name, state, l2s, raw in seen:  # each worker launch == its plain version
-        compare(name, raw, cs.fused_scorer_plain(state) if l2s is None
-                else cs.packed_scorer_plain(state, l2s))
+    for name, state, l2s, out, finished in seen:  # each worker launch == its plain version
+        compare(name, launch_rows(out, state, finished), plain_rows(cs, state, l2s, finished))
     log(f"fleet in process: {len(serve_reqs)} requests in {blocks} superblocks over 2 "
         f"worker threads on a FileBoard, {c.get('fleet_scores_started', 0)} scored by the "
         f"workers, {len(fallback)} on the coordinator; {len(seen)} launches {counts} each "
@@ -2181,7 +2205,7 @@ def fleet_phase(np, torch, cli, cs, compare, inputs, serve_reqs, prefix_best, ti
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "by": {"bytes": 0.0, "operations": 0.0}} for name in counts}
     per_launch = []
-    for name, state, l2s, _ in seen:
+    for name, state, l2s, *_ in seen:
         kern = ((lambda st=state: real["fused_scorer"](st)) if l2s is None
                 else (lambda st=state, k=l2s: real["packed_scorer"](st, k)))
         plain = ((lambda st=state: cs.fused_scorer_plain(st)) if l2s is None
@@ -2798,17 +2822,19 @@ def check_phase(np, torch, cli, cs, compare, fixtures, inputs, card) -> dict[str
     real = {"fused_scorer": dispatch.fused_scorer, "packed_scorer": dispatch.packed_scorer}
     seen = []
 
-    def fused(state):
-        raw = real["fused_scorer"](state)
-        compare("fused_scorer", raw, cs.fused_scorer_plain(state))
+    def fused(state, *finished):
+        out = real["fused_scorer"](state, *finished)
+        compare("fused_scorer", launch_rows(out, state, finished),
+                plain_rows(cs, state, None, finished))
         seen.append("fused_scorer")
-        return raw
+        return out
 
-    def packed(state, l2s):
-        raw = real["packed_scorer"](state, l2s)
-        compare("packed_scorer", raw, cs.packed_scorer_plain(state, l2s))
+    def packed(state, l2s, *finished):
+        out = real["packed_scorer"](state, l2s, *finished)
+        compare("packed_scorer", launch_rows(out, state, finished),
+                plain_rows(cs, state, l2s, finished))
         seen.append("packed_scorer")
-        return raw
+        return out
 
     def spy(on: bool):
         if on:

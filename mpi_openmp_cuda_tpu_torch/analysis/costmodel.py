@@ -31,9 +31,8 @@ Three products, as in the JAX package:
   measured ``device_wall_us``.
 
 Model scope: ``predicted_wall_us`` is the sum of the launches' modelled
-times (they run back to back on one stream); the batch's one epilogue and
-its copy back are not modelled, so the bench's measured wall exceeds it
-by them.  ``launch_overhead_us`` is the ``LAUNCH_US`` part of
+times (they run back to back on one stream); the batch's copy back is
+not modelled, so the bench's measured wall exceeds it by that.  ``launch_overhead_us`` is the ``LAUNCH_US`` part of
 ``model_kernel_us`` (launches x ``LAUNCH_US``), split out, never added a
 second time.  The kernels issue no matrix operation, so the sheet has no
 feed roofline: ``predicted_mfu_vs_feed_roofline`` is null and

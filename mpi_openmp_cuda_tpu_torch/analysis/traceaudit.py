@@ -6,17 +6,20 @@ The JAX audit lowers its entry points and walks the jaxprs.  Eager PyTorch
 has no program to lower, so this audit walks the dispatch itself, on the
 host, with the launches stubbed: :func:`trace_dispatch` runs one
 ``AlignmentScorer`` dispatch with ``dispatch.run_launch`` replaced by a
-stub that records the launch and returns an empty result of its shape
-(no FLOP runs, as none runs in a lowering), and counts the batch's
-``finish_rows`` epilogues and host fetches (``BucketedPending._start_copy``,
-where the card's one device-to-host copy of a batch is made).  The three
-functions are restored when the dispatch ends; the audit is a tool of the
-scripts and tests, not of a serving process.
+stub that records the launch and writes nothing (no FLOP runs, as none
+runs in a lowering), and counts the PyTorch epilogues the dispatch runs
+beside its launches (calls of ``cuda_scorer.finish_rows``) and its host
+fetches (``BucketedPending._start_copy``, where the card's one
+device-to-host copy of a batch is made).  The functions are restored
+when the dispatch ends; the audit is a tool of the scripts and tests,
+not of a serving process.
 
 * **The launch budget** (:func:`audit_schedule`): the launches the
   dispatch makes, by kernel, must equal ``schedule.fused_schedule_config
-  (...).declared_launches``, with exactly one epilogue and one host fetch
-  a batch; a mismatch raises :class:`ScheduleDriftError`.  On the card
+  (...).declared_launches``, with no PyTorch epilogue (the finish kernels
+  write every finished row; an ``mm`` or ``gather`` launch returns them)
+  and one host fetch a batch; a mismatch raises
+  :class:`ScheduleDriftError`.  On the card
   ``chip_smoke.py`` holds the kernels' own ``launch_counts`` deltas to the
   same declaration.
 * **The operand inventory**: every tensor operand of every launch (the
@@ -83,24 +86,25 @@ class DispatchTrace:
 @contextlib.contextmanager
 def trace_dispatch():
     """``with trace_dispatch() as trace:`` around dispatches of this thread:
-    ``run_launch`` stubbed and recorded, ``finish_rows`` and the host
-    fetch counted."""
+    ``run_launch`` stubbed and recorded, ``cuda_scorer.finish_rows`` and
+    the host fetch counted."""
     import torch
 
-    from ..ops import dispatch
+    from ..ops import cuda_scorer, dispatch
 
     trace = DispatchTrace()
-    run_launch, finish_rows = dispatch.run_launch, dispatch.finish_rows
+    run_launch, finish_rows = dispatch.run_launch, cuda_scorer.finish_rows
     start_copy = dispatch.BucketedPending._start_copy
 
-    def stub_launch(launch, backend):
+    def stub_launch(launch, backend, done=None):
         st = launch.state
         route = dispatch.effective_backend(
             backend, launch.maxv, st.rows.shape[1], launch.max_scored)
         trace.launches.append((launch, route))
-        width = 4 if backend == "cuda" else 3
-        return torch.zeros((st.rows.shape[0], width), dtype=torch.int32,
-                           device=st.rows.device)
+        if done is None:
+            done = torch.zeros((st.rows.shape[0], 3), dtype=torch.int32,
+                               device=st.rows.device)
+        return done
 
     def counted_finish(*args, **kwargs):
         trace.epilogues += 1
@@ -110,12 +114,12 @@ def trace_dispatch():
         trace.host_fetches += 1
         return start_copy(self)
 
-    dispatch.run_launch, dispatch.finish_rows = stub_launch, counted_finish
+    dispatch.run_launch, cuda_scorer.finish_rows = stub_launch, counted_finish
     dispatch.BucketedPending._start_copy = counted_copy
     try:
         yield trace
     finally:
-        dispatch.run_launch, dispatch.finish_rows = run_launch, finish_rows
+        dispatch.run_launch, cuda_scorer.finish_rows = run_launch, finish_rows
         dispatch.BucketedPending._start_copy = start_copy
 
 
@@ -200,7 +204,7 @@ def audit_schedule(problem, backend: str = "cuda", device="cpu") -> dict:
     (:func:`trace_dispatch`) and hold it to the planner's declaration:
     raises :class:`ScheduleDriftError` when the launches by kernel differ
     from ``fused_schedule_config(...).declared_launches``, or a batch with
-    launches makes other than one epilogue (``cuda``) and one host fetch.
+    launches runs a PyTorch epilogue or makes other than one host fetch.
     Returns the JSON-ready report (operand findings listed, not raised)."""
     import torch
 
@@ -226,7 +230,7 @@ def audit_schedule(problem, backend: str = "cuda", device="cpu") -> dict:
                         "l2s": launch.l2s, "bucket_keys": list(launch.keys)})
     rows, findings = operand_inventory(launches)
     want_kernels = {k: v for k, v in by_kernel.items() if k in declared.declared_launches}
-    want_epilogues = 1 if backend == "cuda" and launches else 0
+    want_epilogues = 0  # the finish kernels, or mm and gather, finish every row
     want_fetches = 1 if launches else 0
     if (want_kernels != declared.declared_launches or len(launches) != declared.launches
             or trace.epilogues != want_epilogues or trace.host_fetches != want_fetches):
@@ -234,7 +238,7 @@ def audit_schedule(problem, backend: str = "cuda", device="cpu") -> dict:
             f"the dispatch made {len(launches)} launch(es) {by_kernel}, "
             f"{trace.epilogues} epilogue(s) and {trace.host_fetches} host fetch(es); "
             f"the planner declares {declared.launches} launch(es) "
-            f"{declared.declared_launches}, {want_epilogues} epilogue and "
+            f"{declared.declared_launches}, {want_epilogues} epilogues and "
             f"{want_fetches} host fetch: dispatch.bucket_launches and "
             "schedule.kernel_configs have drifted apart (ops/dispatch.py, ops/schedule.py)"
         )

@@ -16,8 +16,9 @@ The record, ``wrap_report("bench", ...)``, exactly one stdout line:
 * ``metric``, ``value`` (elements/s over ``device_wall_us``; null off the
   card), ``unit``;
 * ``device_wall_us``: device time of one run of the batch's launches
-  (``dispatch.bucket_launches``, built once: one a launch group) and the
-  batch's one ``finish_rows`` epilogue and copy back to pinned memory,
+  (``dispatch.bucket_launches``, built once: one a launch group), each
+  writing its finished rows into the batch's one buffer, and the copy
+  back to pinned memory,
   ``DEVICE_REPS`` runs back to back behind a
   sleeping kernel, CUDA events (``utils.timing.time_ms``); the attempt
   recorded is chosen by the GEMM-probe gate below;
@@ -374,16 +375,16 @@ def kernel_floor_fields(launches, routes, rates: dict, wall_s: float) -> dict:
 
 def schedule_run(launches):
     """One run of the batch on the device as the production path makes
-    it: every launch, then the batch's one ``finish_rows`` epilogue and
-    its one copy to pinned host memory (``dispatch.BucketedPending``)."""
-    from .ops.dispatch import BucketedPending, run_launch
+    it: every launch, each writing its finished rows into the batch's one
+    buffer, then its one copy to pinned host memory
+    (``dispatch.launch_batch``)."""
+    from .ops.dispatch import launch_batch
 
     count = sum(b.idx.size for b in launches)
+    device = launches[0].state.rows.device
 
     def run():
-        parts = [(b.idx, run_launch(b, "cuda"), b.state.lens) for b in launches]
-        BucketedPending(parts, count, launches[0].state.len1, finish=True,
-                        order=launches[0].order)._start_copy()
+        launch_batch(launches, "cuda", count, device)._start_copy()
 
     return run
 

@@ -43,7 +43,7 @@ extern "C" int ablate_scorer_launch(int var, const unsigned char* seq1ext,
   case V:                                                                \
     return static_cast<int>(launch<V>(seq1ext, len1, rows, lens, batch,  \
                                       l2p, ntiles, val, partial, out,    \
-                                      stream));
+                                      nullptr, nullptr, 0, stream));
     ABLATE_CASE(base)
     ABLATE_CASE(nostage)
     ABLATE_CASE(nolookup)

@@ -109,6 +109,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "finish_rows.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace fused {
@@ -369,7 +371,8 @@ tile_kernel(const unsigned char* __restrict__ seq1ext, int len1,
 }
 
 // One block per pair: the best partial over the pair's live tiles (tile 0
-// always; tile t while t * 128 < len1 - len2), then k of that offset.
+// always; tile t while t * 128 < len1 - len2), then k of that offset, stored
+// raw or finished (finish_rows.cuh).
 template <int VAR>
 __global__ void __launch_bounds__(kFinish)
 finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
@@ -377,7 +380,8 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
               const int* __restrict__ lens,
               int l2p, const int* __restrict__ val,
               const int* __restrict__ partial, int ntiles,
-              int* __restrict__ out) {
+              int* __restrict__ out, int* __restrict__ done,
+              const long long* __restrict__ dst, int row0) {
   constexpr int kWarps = kFinish / 32;
   __shared__ int sval[kAlpha * kAlpha];
   __shared__ int best[2];
@@ -440,20 +444,13 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
   const int s = best[0];
   const int n = best[1];
   if (s == INT_MIN) {  // no valid offset (block-uniform)
-    if (tid == 0) {
-      out[4 * b] = INT_MIN;
-      out[4 * b + 1] = 0;
-      out[4 * b + 2] = 0;
-    }
+    if (tid == 0)
+      finish_rows::store(out, done, dst, row0, b, len1, len2, INT_MIN, 0, 0);
     return;
   }
 
   if constexpr (VAR == nok) {
-    if (tid == 0) {
-      out[4 * b] = s;
-      out[4 * b + 1] = n;
-      out[4 * b + 2] = 0;
-    }
+    if (tid == 0) finish_rows::store(out, done, dst, row0, b, len1, len2, s, n, 0);
     return;
   }
 
@@ -509,9 +506,9 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
         bk = wk[v];
       }
     }
-    out[4 * b] = s;
-    out[4 * b + 1] = n;
-    out[4 * b + 2] = bv > gend ? bk : 0;  // k = 0 wins ties
+    // k = 0 wins ties
+    finish_rows::store(out, done, dst, row0, b, len1, len2, s, n,
+                       bv > gend ? bk : 0);
   }
 }
 
@@ -545,13 +542,17 @@ inline TileShape tile_shape(int l2p) {
 // seq1ext: [ntiles * 128 + l2p + 1] uint8 codes; rows: [batch, l2p] uint8
 // codes, l2p a multiple of 4; lens: [batch] int32; val: [27 * 27] int32 with
 // row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch ([batch,
-// ntiles, 128, 2] for noreduce); out: [batch, 4] int32.  Returns the first
-// CUDA error of the launches.
+// ntiles, 128, 2] for noreduce); out: [batch, 4] int32, the raw rows (with
+// done, the tile kernel's eq alone).  done: nullptr, or int32 [count, 3]
+// that takes each pair's finished row at dst[b] (int64 [batch]) or, with
+// dst nullptr, at row0 + b (finish_rows.cuh).  Returns the first CUDA error
+// of the launches.
 template <int VAR>
 cudaError_t launch(const unsigned char* seq1ext, int len1,
                    const unsigned char* rows, const int* lens, int batch,
                    int l2p, int ntiles, const int* val, int* partial,
-                   int* out, cudaStream_t stream) {
+                   int* out, int* done, const long long* dst, int row0,
+                   cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
   // The 16-byte Seq2 loads and the packed window need whole groups of 4.
   if (l2p % 4 != 0) return cudaErrorInvalidValue;
@@ -594,7 +595,8 @@ cudaError_t launch(const unsigned char* seq1ext, int len1,
   cfg.dynamicSmemBytes = 0;
   const int* scored = partial;
   err = cudaLaunchKernelEx(&cfg, finish_kernel<VAR>, seq1ext, len1, rows,
-                           lens, l2p, val, scored, ntiles, out);
+                           lens, l2p, val, scored, ntiles, out, done, dst,
+                           row0);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -6,7 +6,9 @@
 // len2 <= l2s, l2s in {8, 16, 32, 64} (dispatch.choose_rowpack), with the
 // output row contract of fused_scorer.cu: [score, n, k, eq] per pair,
 // first hit in offset-major, k-ascending order with k = 0 first, eq the
-// k = 0 score at n = 0; unsearchable pairs carry (INT32_MIN, 0, 0).
+// k = 0 score at n = 0; unsearchable pairs carry (INT32_MIN, 0, 0).  Asked
+// for finished rows, it stores the answer row (score, n, k) at the pair's
+// input position instead (finish_rows.cuh), as the fused scorer does.
 //
 // Math: that of fused_kernels.cuh.  With e(n, i) = val[s2[i]][s1[n + i]]
 // and A(n, kappa) its prefix over i < kappa, G[kappa](n) = A(n, kappa) -
@@ -54,6 +56,8 @@
 
 #include <climits>
 #include <cuda_runtime.h>
+
+#include "finish_rows.cuh"
 
 // Warps (pairs) a block of the tile kernel: found with
 // scripts/torch_packed_sweep.py, which sets it with -D.
@@ -190,7 +194,8 @@ tile_kernel(const unsigned char* __restrict__ seq1ext, int len1,
 
 // A warp per pair, F pairs a block: the best partial over the pair's live
 // tiles (tile 0 always; tile t while t * 128 < len1 - len2), then k of that
-// offset, lane l holding chars [l * C, l * C + C).
+// offset, lane l holding chars [l * C, l * C + C), stored raw or finished
+// (finish_rows.cuh).
 template <int L2S, int F>
 __global__ void __launch_bounds__(F * 32)
 finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
@@ -198,7 +203,8 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
               const int* __restrict__ lens,
               int batch, int l2p, const int* __restrict__ val,
               const int* __restrict__ partial, int ntiles,
-              int* __restrict__ out) {
+              int* __restrict__ out, int* __restrict__ done,
+              const long long* __restrict__ dst, int row0) {
   constexpr int C = (L2S + 31) / 32;  // chars a lane
   __shared__ int sval[kAlpha * kAlpha];
   const int tid = threadIdx.x;
@@ -234,11 +240,8 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
   }
   warp_first_hit(s, n);
   if (s == INT_MIN) {  // no valid offset
-    if (lane == 0) {
-      out[4 * b] = INT_MIN;
-      out[4 * b + 1] = 0;
-      out[4 * b + 2] = 0;
-    }
+    if (lane == 0)
+      finish_rows::store(out, done, dst, row0, b, len1, len2, INT_MIN, 0, 0);
     return;
   }
 
@@ -267,18 +270,16 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
   if (bk > 0) bv += incl - run;
   // First hit over kappa: the larger G, then the smaller kappa.
   warp_first_hit(bv, bk);
-  if (lane == 0) {
-    out[4 * b] = s;
-    out[4 * b + 1] = n;
-    out[4 * b + 2] = bv > gend ? bk : 0;  // k = 0 wins ties
-  }
+  if (lane == 0)  // k = 0 wins ties
+    finish_rows::store(out, done, dst, row0, b, len1, len2, s, n,
+                       bv > gend ? bk : 0);
 }
 
 template <int L2S>
 cudaError_t launch(const unsigned char* seq1ext, int len1,
                    const unsigned char* rows, const int* lens, int batch, int l2p, int ntiles,
-                   const int* val, int* partial, int* out,
-                   cudaStream_t stream) {
+                   const int* val, int* partial, int* out, int* done,
+                   const long long* dst, int row0, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((batch + kWarps - 1) / kWarps, ntiles);
   cfg.blockDim = dim3(kWarps * 32);
@@ -298,7 +299,7 @@ cudaError_t launch(const unsigned char* seq1ext, int len1,
   cfg.blockDim = dim3(kFinishPairs * 32);
   err = cudaLaunchKernelEx(&cfg, finish_kernel<L2S, kFinishPairs>, seq1ext,
                            len1, rows, lens, batch, l2p, val, scored, ntiles,
-                           out);
+                           out, done, dst, row0);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -308,32 +309,36 @@ cudaError_t launch(const unsigned char* seq1ext, int len1,
 // seq1ext: [ntiles * 128 + l2p + 1] uint8 codes; rows: [batch, l2p] uint8
 // codes, every len2 <= l2s <= l2p; lens: [batch] int32; val: [27 * 27]
 // int32 with row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch; out:
-// [batch, 4] int32.  Returns the first CUDA error of the launches (0 on
-// success), or cudaErrorInvalidValue for an l2s outside {8, 16, 32, 64}.
+// [batch, 4] int32, the raw rows (with done, the tile kernel's eq alone);
+// done: nullptr, or int32 [count, 3] that takes each pair's finished row at
+// dst[b] (int64 [batch]) or, with dst nullptr, at row0 + b (finish_rows.cuh).
+// Returns the first CUDA error of the launches (0 on success), or
+// cudaErrorInvalidValue for an l2s outside {8, 16, 32, 64}.
 extern "C" int packed_scorer_launch(const unsigned char* seq1ext,
                                     int len1, const unsigned char* rows,
                                     const int* lens,
                                     int batch, int l2p, int l2s, int ntiles,
                                     const int* val, int* partial, int* out,
+                                    int* done, const long long* dst, int row0,
                                     cudaStream_t stream) {
   if (batch == 0) return 0;
   cudaError_t err;
   switch (l2s) {
     case 8:
       err = launch<8>(seq1ext, len1, rows, lens, batch, l2p, ntiles, val,
-                      partial, out, stream);
+                      partial, out, done, dst, row0, stream);
       break;
     case 16:
       err = launch<16>(seq1ext, len1, rows, lens, batch, l2p, ntiles, val,
-                       partial, out, stream);
+                       partial, out, done, dst, row0, stream);
       break;
     case 32:
       err = launch<32>(seq1ext, len1, rows, lens, batch, l2p, ntiles, val,
-                       partial, out, stream);
+                       partial, out, done, dst, row0, stream);
       break;
     case 64:
       err = launch<64>(seq1ext, len1, rows, lens, batch, l2p, ntiles, val,
-                       partial, out, stream);
+                       partial, out, done, dst, row0, stream);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -53,7 +53,7 @@ Honest device time: a CUDA launch is asynchronous, so a span around a
 dispatch measures enqueue, not compute.  The wait on the card is the
 ``device_wait`` span ``dispatch.BucketedPending.result`` opens around
 its block on the result copy's event, inside ``chunk_gather``; the rest
-of the gather is the host's epilogue and copy enqueue.  The wait is
+of the gather is the host's copy enqueue.  The wait is
 ``dispatch.wait_event``'s poll, never ``torch.cuda.synchronize()``, so
 an armed deadline can still interrupt it.
 """

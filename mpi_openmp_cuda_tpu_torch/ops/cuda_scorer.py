@@ -8,8 +8,19 @@ and hyphen positions ``k`` (k = 0: hyphen after the end) with the
 reference's first-hit tie-break (offset-major, k ascending with k = 0
 first), and ``eq``, the k = 0 score at n = 0.  Pairs without a valid
 offset carry ``(INT32_MIN, 0, 0)``.  The O(B) epilogue
-(:func:`finish_rows`) then applies the equal-length and unsearchable
-rules, as ``_pallas_rows`` does.
+(:func:`finish_rows`) applies the equal-length and unsearchable rules, as
+``_pallas_rows`` does.
+
+Each wrapper has two modes.  Raw (``done`` None): the ``[B, 4]`` rows, for
+callers whose rows are candidates (the Seq1 ring, the sweep scripts).
+Finished (``done`` an int32 ``[count, 3]`` tensor): each pair's answer
+row, ``finish_rows`` of its raw row, written at ``done[dst[b]]`` (``dst``
+int64 ``[B]``) or, with ``dst`` None, at ``done[row0 + b]``: on the card
+by the kernels' finish kernels themselves (``csrc/finish_rows.cuh``), so a
+dispatch runs no PyTorch epilogue; in the plain versions by
+:func:`finish_rows` and a scatter.  Rows finished by a kernel count in
+``epilogue_kernel_rows``, rows finished by :func:`finish_rows` in
+``epilogue_torch_rows`` (obs counters).
 
 * :func:`fused_scorer` — ``csrc/fused_scorer.cu`` (kernels in
   ``csrc/fused_kernels.cuh``), for every bucket the packed one does not
@@ -230,24 +241,46 @@ def _kernel_rows(seq1ext, len1, rows, lens, val, noff) -> torch.Tensor:
     return out
 
 
-def fused_scorer_plain(state: ScorerState) -> torch.Tensor:
+def fused_scorer_plain(state: ScorerState, done=None, dst=None, row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/fused_scorer.cu``, in the kernel's
     own formulation (:func:`_kernel_rows`) over every char of the padded
-    rows and the offsets ``n < L1P``: [B, 4] int32."""
-    return _kernel_rows(
+    rows and the offsets ``n < L1P``: [B, 4] int32, or with ``done`` the
+    finished rows written there (:func:`_store_finished`)."""
+    raw = _kernel_rows(
         state.seq1ext, state.len1, state.rows, state.lens, state.val, state.l1p)
+    return raw if done is None else _store_finished(raw, state, done, dst, row0)
 
 
-def packed_scorer_plain(state: ScorerState, l2s: int) -> torch.Tensor:
+def packed_scorer_plain(state: ScorerState, l2s: int, done=None, dst=None,
+                        row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/packed_scorer.cu``, in the kernel's
     own formulation (:func:`_kernel_rows`) over the first ``l2s`` chars of
     each row (every len2 <= l2s) and the offsets ``n < L1P``: [B, 4]
-    int32."""
+    int32, or with ``done`` the finished rows written there."""
     _check_pack(state, l2s)
-    return _kernel_rows(
+    raw = _kernel_rows(
         state.seq1ext, state.len1, state.rows[:, :l2s], state.lens, state.val,
         state.l1p,
     )
+    return raw if done is None else _store_finished(raw, state, done, dst, row0)
+
+
+def _store_finished(raw, state: ScorerState, done, dst=None, row0: int = 0) -> torch.Tensor:
+    """The finished mode of the plain versions: ``finish_rows`` of the raw
+    rows, written into ``done`` at ``dst`` (or from ``row0`` on, in order),
+    the finish kernels' contract (``csrc/finish_rows.cuh``).  Returns
+    ``done``."""
+    put_rows(done, finish_rows(raw, state.lens, state.len1), dst, row0)
+    return done
+
+
+def put_rows(done, rows, dst=None, row0: int = 0) -> None:
+    """``[B, 3]`` finished rows into ``done`` at ``dst`` (int64 [B]), or
+    at ``row0 ..`` when ``dst`` is None."""
+    if dst is None:
+        done[row0 : row0 + rows.shape[0]] = rows
+    else:
+        done.index_copy_(0, dst, rows)
 
 
 # ---- kernel wrappers --------------------------------------------------------
@@ -298,13 +331,15 @@ _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 _PARTIAL_WORDS = 2
 _ARGTYPES = {
     # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, ntiles, val,
-    # partial, out, stream
+    # partial, out, done, dst (int64), row0, stream
     "fused_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
-                     _POINTER, _POINTER, _POINTER, _POINTER),
+                     _POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _INT,
+                     _POINTER),
     # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, l2s, ntiles,
-    # val, partial, out, stream
+    # val, partial, out, done, dst (int64), row0, stream
     "packed_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
-                      _INT, _POINTER, _POINTER, _POINTER, _POINTER),
+                      _INT, _POINTER, _POINTER, _POINTER, _POINTER, _POINTER,
+                      _INT, _POINTER),
 }
 
 
@@ -338,33 +373,55 @@ def launch_error(name: str, err: int) -> RuntimeError:
     return cls(f"{name} failed: CUDA error {err}")
 
 
-def call_entry(fn, state: ScorerState, *extra: int) -> torch.Tensor:
+def _check_finished(state: ScorerState, done, dst) -> None:
+    """The finished mode's buffers: ``done`` a contiguous int32 [count, 3]
+    and ``dst`` None or a contiguous int64 [B], on the state's device."""
+    dev = state.rows.device
+    if (done.dtype != torch.int32 or done.dim() != 2 or done.shape[1] != 3
+            or not done.is_contiguous() or done.device != dev):
+        raise ValueError(f"done must be a contiguous int32 [count, 3] tensor on {dev}")
+    if dst is not None and (dst.dtype != torch.int64 or dst.shape != state.lens.shape
+                            or not dst.is_contiguous() or dst.device != dev):
+        raise ValueError(f"dst must be a contiguous int64 [B] tensor on {dev}")
+
+
+def call_entry(fn, state: ScorerState, *extra: int, done=None, dst=None,
+               row0: int = 0) -> torch.Tensor:
     """One launch of a typed scorer entry on the state's CUDA device: [B, 4]
-    rows.  ``extra`` are the kernel's own int arguments after ``l2p``.  It
-    counts nothing: the sweep scripts call their own builds through it."""
+    rows, or with ``done`` the finished rows written at ``dst`` (or from
+    ``row0`` on) and ``done`` returned.  ``extra`` are the kernel's own int
+    arguments after ``l2p``.  It counts nothing: the sweep scripts call
+    their own builds through it."""
     _check_dtypes(state)
+    if done is not None:
+        _check_finished(state, done, dst)
     b, l2p = state.rows.shape
     ntiles = state.l1p // TILE
     dev = state.rows.device
     out = torch.empty((b, 4), dtype=torch.int32, device=dev)
     partial = torch.empty((b, ntiles, _PARTIAL_WORDS), dtype=torch.int32, device=dev)
+    null = ctypes.c_void_p(None)
     with torch.cuda.device(dev):
         err = fn(
             _ptr(state.seq1ext), state.len1, _ptr(state.rows), _ptr(state.lens),
             b, l2p, *extra, ntiles, _ptr(state.val), _ptr(partial), _ptr(out),
-            _stream(),
+            null if done is None else _ptr(done), null if dst is None else _ptr(dst),
+            row0, _stream(),
         )
     if err != 0:
         raise launch_error(fn.__name__, err)
-    return out
+    return out if done is None else done
 
 
-def _launch(name: str, state: ScorerState, *extra: int) -> torch.Tensor:
+def _launch(name: str, state: ScorerState, *extra: int, done=None, dst=None,
+            row0: int = 0) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on the state's CUDA device and count it."""
-    out = call_entry(_entry(name), state, *extra)
+    out = call_entry(_entry(name), state, *extra, done=done, dst=dst, row0=row0)
     with _count_lock:  # an in-process fleet launches from several threads
         launch_counts[name] += 1
     _obs_inc(_REPORT_COUNTERS[name])
+    if done is not None:
+        _obs_inc("epilogue_kernel_rows", state.rows.shape[0])
     return out
 
 
@@ -426,25 +483,28 @@ def load_kernels() -> None:
     _smem_entries()
 
 
-def fused_scorer(state: ScorerState) -> torch.Tensor:
+def fused_scorer(state: ScorerState, done=None, dst=None, row0: int = 0) -> torch.Tensor:
     """[B, 4] int32 rows from ``csrc/fused_scorer.cu`` (CUDA tensors) or
-    :func:`fused_scorer_plain` (CPU tensors)."""
+    :func:`fused_scorer_plain` (CPU tensors); with ``done``, the finished
+    rows written there (the module's note) and ``done`` returned."""
     if _device_of(state) == "cpu":
-        return fused_scorer_plain(state)
+        return fused_scorer_plain(state, done, dst, row0)
     if state.rows.shape[1] % 4:
         raise ValueError(
             f"fused_scorer needs L2P a multiple of 4, got {state.rows.shape[1]}")
     check_smem(state)
-    return _launch("fused_scorer", state)
+    return _launch("fused_scorer", state, done=done, dst=dst, row0=row0)
 
 
-def packed_scorer(state: ScorerState, l2s: int) -> torch.Tensor:
+def packed_scorer(state: ScorerState, l2s: int, done=None, dst=None,
+                  row0: int = 0) -> torch.Tensor:
     """[B, 4] int32 rows from ``csrc/packed_scorer.cu`` (CUDA tensors) or
-    :func:`packed_scorer_plain` (CPU tensors); every len2 <= ``l2s``."""
+    :func:`packed_scorer_plain` (CPU tensors); every len2 <= ``l2s``; with
+    ``done``, the finished rows written there."""
     if _device_of(state) == "cpu":
-        return packed_scorer_plain(state, l2s)
+        return packed_scorer_plain(state, l2s, done, dst, row0)
     _check_pack(state, l2s)
-    return _launch("packed_scorer", state, l2s)
+    return _launch("packed_scorer", state, l2s, done=done, dst=dst, row0=row0)
 
 
 # ---- epilogue and chunked entry ---------------------------------------------
@@ -453,7 +513,10 @@ def packed_scorer(state: ScorerState, l2s: int) -> torch.Tensor:
 def finish_rows(raw: torch.Tensor, lens: torch.Tensor, len1: int) -> torch.Tensor:
     """O(B) epilogue on [B, 4] kernel rows -> [B, 3] (score, n, k): the
     positional ``eq`` score when len2 == len1, ``(INT32_MIN, 0, 0)`` when
-    len2 > len1 or len2 == 0 (``_pallas_rows`` in the JAX package)."""
+    len2 > len1 or len2 == 0 (``_pallas_rows`` in the JAX package).  The
+    referee of the finish kernels' finished mode; counted in
+    ``epilogue_torch_rows``."""
+    _obs_inc("epilogue_torch_rows", raw.shape[0])
     searchable = (lens < len1) & (lens > 0)
     equal = lens == len1
     score = torch.where(equal, raw[:, 3], raw[:, 0])
@@ -465,10 +528,12 @@ def finish_rows(raw: torch.Tensor, lens: torch.Tensor, len1: int) -> torch.Tenso
 
 
 def score_rows(state: ScorerState, l2s: int | None = None) -> torch.Tensor:
-    """[B, 3] int32 rows of one padded bucket: the packed kernel when the
-    dispatch chose a class ``l2s``, else the fused kernel."""
-    raw = fused_scorer(state) if l2s is None else packed_scorer(state, l2s)
-    return finish_rows(raw, state.lens, state.len1)
+    """[B, 3] int32 finished rows of one padded bucket: the packed kernel
+    when the dispatch chose a class ``l2s``, else the fused kernel."""
+    done = torch.empty((state.rows.shape[0], 3), dtype=torch.int32, device=state.rows.device)
+    if l2s is None:
+        return fused_scorer(state, done)
+    return packed_scorer(state, l2s, done)
 
 
 def score_chunks_cuda_body(

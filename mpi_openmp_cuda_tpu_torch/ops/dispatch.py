@@ -7,8 +7,10 @@ by their packing class 8/16/32/64, on the ``cuda`` backend), the fused
 buckets are partitioned into launch groups (``ops/schedule.py``), every
 group's operands go to the scorer's device in one byte arena and one
 copy (``ops/feed.py``: codes as uint8, padded to rectangles in the
-arena), each group is scored by one launch, and the whole batch comes
-back to the host in one copy, in input order.
+arena), each group is scored by one launch whose finish kernel writes
+its finished rows straight into the batch's one ``[count, 3]`` buffer at
+their input positions (no PyTorch epilogue, no scatter), and the whole
+batch comes back to the host in one copy, in input order.
 
 Backends:
 
@@ -31,15 +33,17 @@ Seq1 ring one for the whole batch, with the caps lifted there.
 
 Obs hooks (each one module-attribute check when the plane is off): the
 ``chunk_dispatch`` span (plan, copies in, launches queued: enqueue time
-only), the ``chunk_prefetch`` detail span (the epilogue and copy back
-enqueued ahead of the gather, by a window of results in flight) and the
-``chunk_gather`` span (the same enqueue when nothing prefetched, then its
-``device_wait`` detail span: the host's block on the copy's event, where
-the wait on the card is measured), the ``chunks_dispatched``,
-``feed_prestages``, ``feed_prestage_hits``, ``feed_h2d_copies`` and
-``feed_h2d_bytes`` counters, the ``config_fused_groups`` and
-``config_rowpack`` gauges, and one trace launch per launch group, from
-its dispatch to the batch's rows on the host.
+only), the ``chunk_prefetch`` detail span (the copy back enqueued ahead of
+the gather, by a window of results in flight) and the ``chunk_gather``
+span (the same enqueue when nothing prefetched, then its ``device_wait``
+detail span: the host's block on the copy's event, where the wait on the
+card is measured), the ``chunks_dispatched``, ``feed_prestages``,
+``feed_prestage_hits``, ``feed_h2d_copies``, ``feed_h2d_bytes`` and
+``epilogue_torch_rows`` (the rows of an ``mm`` or ``gather`` route;
+``ops/cuda_scorer.py`` counts the others) counters, the
+``config_fused_groups`` and ``config_rowpack`` gauges, and one trace
+launch per launch group, from its dispatch to the batch's rows on the
+host.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ from ..resilience.faults import fire as _fault
 from ..utils.constants import BUF_SIZE_SEQ1, BUF_SIZE_SEQ2
 from .bounds import check_int32_window, kernel_fits, mm_max_exact_value
 from .cuda_scorer import (
-    PACK_CLASSES, ScorerState, finish_rows, fused_scorer, kernel_table, packed_scorer,
+    PACK_CLASSES, ScorerState, fused_scorer, kernel_table, packed_scorer, put_rows,
 )
 from .feed import FeedLayout, FeedRing, put_feed, view, write_rows
 from .gather_scorer import gather_rows
@@ -305,9 +309,10 @@ class BucketLaunch:
     its operands on the device, its packing class (None: the fused
     kernel), the bucket keys of its launch group, the table's max |value|
     and the longest scored row (``0 < len2 <= len1``), both known on the
-    host, and ``order``, the batch's scatter index into input order on
-    the device (the same on every launch of the batch; None when its
-    launches are in input order)."""
+    host, and where its finished rows go in the batch's ``[count, 3]``
+    buffer: ``dst``, its input rows on the device (int64 [B], a view of
+    the dispatch's scatter index into input order), or, when None, the
+    rows ``row0 ..`` (the dispatch's launches are in input order)."""
 
     idx: np.ndarray
     state: ScorerState
@@ -315,7 +320,8 @@ class BucketLaunch:
     keys: tuple = ()
     maxv: int = 0  # max |table value|
     max_scored: int = 0
-    order: torch.Tensor | None = None
+    dst: torch.Tensor | None = None
+    row0: int = 0
 
 
 def put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -336,9 +342,10 @@ def max_scored(batch: PaddedBatch | PlannedLaunch) -> int:
 
 
 def _to_device(plan: PlannedLaunch, feed: torch.Tensor, layout: FeedLayout, i: int,
-               val: torch.Tensor, maxv: int, order) -> BucketLaunch:
+               val: torch.Tensor, maxv: int, order, row0: int) -> BucketLaunch:
     """Launch ``i`` of a dispatch, its operands views of the dispatch's
-    arena ``feed`` on the device (``ops/feed.py``)."""
+    arena ``feed`` on the device (``ops/feed.py``), its rows ``row0 ..``
+    of the dispatch's ``order`` (the scatter index; None: input order)."""
     b, l2p = plan.len2.size, plan.l2p
     state = ScorerState(
         seq1ext=view(feed, layout.seq1, plan.l1p + l2p + 1, torch.uint8),
@@ -348,7 +355,9 @@ def _to_device(plan: PlannedLaunch, feed: torch.Tensor, layout: FeedLayout, i: i
         val=val,
         max_len2=int(plan.len2.max()),
     )
-    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(plan), order)
+    dst = None if order is None else order.narrow(0, row0, b)
+    return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(plan), dst,
+                        row0)
 
 
 def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
@@ -401,7 +410,8 @@ def _upload(val_flat, plans, device: torch.device, ring: FeedRing) -> list[Bucke
     """The plans' operands on ``device``: one arena written into a slot of
     ``ring`` and sent in one copy (:func:`feed.put_feed`), every launch's
     operands, the one value table and the scatter index into input order
-    (when the launches are not in it) views of it."""
+    (when the launches are not in it; each launch's ``dst`` its slice)
+    views of it."""
     order = np.concatenate([p.idx for p in plans])
     if np.array_equal(order, np.arange(order.size)):
         order = None
@@ -410,7 +420,8 @@ def _upload(val_flat, plans, device: torch.device, ring: FeedRing) -> list[Bucke
     val = view(feed, layout.val, 27 * 27, torch.int32).view(27, 27)
     scatter = None if order is None else view(feed, layout.order, order.size, torch.int64)
     maxv = max_abs_value(val_flat)
-    return [_to_device(plan, feed, layout, i, val, maxv, scatter)
+    row0 = np.cumsum([0] + [p.idx.size for p in plans])
+    return [_to_device(plan, feed, layout, i, val, maxv, scatter, int(row0[i]))
             for i, plan in enumerate(plans)]
 
 
@@ -448,23 +459,47 @@ def _validate(val_flat, plans, backend: str, device) -> None:
     validate_plans(val_flat, plans, backend, device)
 
 
-def run_launch(launch: BucketLaunch, backend: str) -> torch.Tensor:
-    """One launch on ``backend``: the kernels' raw [B, 4] rows for
-    ``cuda`` (``finish_rows`` runs once for the whole batch), finished
-    [B, 3] rows for ``mm`` and ``gather``.  A ``cuda`` launch past the
-    kernels' window runs ``gather`` and hands back its rows in the raw
-    layout, the score repeated as ``eq``: ``finish_rows`` maps them back
-    unchanged, since gather already applied the equal-length and
-    unsearchable rules."""
+def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
+    """One launch on ``backend``, its finished [B, 3] rows written into
+    ``done``, the batch's int32 [count, 3] buffer on the launch's device,
+    at the launch's input rows (``launch.dst``, or ``launch.row0 ..``);
+    returns ``done``.  With ``done`` None the rows go, in launch order,
+    into a buffer of the launch's own B rows (a mesh shard, the warm
+    plane).  On ``cuda`` the kernels' finish kernels write them
+    (``ops/cuda_scorer.py``'s finished mode); a ``cuda`` launch past the
+    kernels' window runs ``gather`` (:func:`effective_backend`), whose
+    rows, like ``mm``'s, are finished already and are put in place by one
+    copy (``epilogue_torch_rows``)."""
     st = launch.state
+    b = st.rows.shape[0]
+    if done is None:
+        done, dst, row0 = torch.empty((b, 3), dtype=torch.int32, device=st.rows.device), None, 0
+    else:
+        dst, row0 = launch.dst, launch.row0
     route = effective_backend(backend, launch.maxv, st.rows.shape[1], launch.max_scored)
     if route == "cuda":
-        return fused_scorer(st) if launch.l2s is None else packed_scorer(st, launch.l2s)
+        if launch.l2s is None:
+            return fused_scorer(st, done, dst, row0)
+        return packed_scorer(st, launch.l2s, done, dst, row0)
     val_flat = st.val.reshape(-1)
     if route == "mm":
-        return mm_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
-    rows = gather_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
-    return torch.cat([rows, rows[:, :1]], dim=1) if backend == "cuda" else rows
+        rows = mm_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
+    else:
+        rows = gather_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
+    _obs_inc("epilogue_torch_rows", b)
+    put_rows(done, rows, dst, row0)
+    return done
+
+
+def launch_batch(launches: list[BucketLaunch], backend: str, count: int,
+                 device: torch.device) -> "BucketedPending":
+    """Every launch of one batch of ``count`` rows queued on ``backend``
+    (:func:`run_launch`), each writing its finished rows into the batch's
+    one [count, 3] buffer at their input rows: its pending result."""
+    done = torch.empty((count, 3), dtype=torch.int32, device=device)
+    for b in launches:
+        run_launch(b, backend, done)
+    return BucketedPending(done)
 
 
 def wait_event(event) -> None:
@@ -501,52 +536,29 @@ class PendingResult:
 class BucketedPending:
     """The launched, not yet fetched result of a batch.
 
-    ``parts`` are ``(input rows, [B, 4] raw kernel rows or [B, 3] finished
-    rows, lens)`` on the scorer's device; every launch was queued before
-    any is fetched.  ``order`` is the launches' scatter index into input
-    order on the device (``BucketLaunch.order``), None when the parts are
-    in input order.  Materialising concatenates the parts on the device,
-    runs ``finish_rows`` once over all raw rows, scatters them into input
-    order and copies the [count, 3] result to the host once:
-    :meth:`prefetch` starts that copy into pinned memory
-    (``non_blocking``) and records a CUDA event, :meth:`result` waits for
-    the event under the deadline guard."""
+    ``rows`` is the batch's int32 [count, 3] buffer on the scorer's device,
+    into which every launch of the batch, all queued before any is
+    fetched, writes its finished rows at their input positions
+    (:func:`launch_batch`).  Materialising is one copy to the host:
+    :meth:`prefetch` starts it into pinned memory (``non_blocking``) and
+    records a CUDA event, :meth:`result` waits for the event under the
+    deadline guard."""
 
-    def __init__(self, parts: list, count: int, len1: int, finish: bool, order=None):
-        if order is None and parts and not np.array_equal(
-                np.concatenate([p[0] for p in parts]), np.arange(count)):
-            raise ValueError("parts out of input order need their scatter index (order)")
-        self.parts = parts
-        self.count = count
-        self.len1 = len1
-        self.finish = finish
-        self.order = order
+    def __init__(self, rows: torch.Tensor):
+        self.rows = rows
+        self.count = rows.shape[0]
         self.trace_keys = ()  # the trace launches this result closes
         self._host = None
         self._event = None
 
     def _start_copy(self) -> None:
-        def cat(k):
-            return self.parts[0][k] if len(self.parts) == 1 else torch.cat(
-                [p[k] for p in self.parts])
-
-        rows = cat(1)
-        if self.finish:
-            rows = finish_rows(rows, cat(2), self.len1)
-        dev = rows.device
-        cuda = dev.type == "cuda"
-        if self.order is None:
-            out = rows  # already in input order (one launch, or sorted parts)
-        else:
-            out = torch.empty((self.count, 3), dtype=torch.int32, device=dev)
-            out[self.order] = rows
-        if cuda:
+        if self.rows.device.type == "cuda":
             host = torch.empty((self.count, 3), dtype=torch.int32, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+            host.copy_(self.rows, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            host = out
+            host = self.rows
         self._host = host
 
     def prefetch(self) -> None:
@@ -655,10 +667,7 @@ class AlignmentScorer:
                 seq1_codes, seq2_codes, weights, self.device, backend=self.backend,
                 staged=staged, check=self.check, ring=self._ring,
             )
-            parts = [(b.idx, run_launch(b, self.backend), b.state.lens) for b in launches]
-            pending = BucketedPending(parts, len(seq2_codes), int(seq1_codes.size),
-                                      finish=self.backend == "cuda",
-                                      order=launches[0].order)
+            pending = launch_batch(launches, self.backend, len(seq2_codes), self.device)
         if active_trace() is not None:
             # One trace launch per launch group, keyed by the pending
             # result that closes it.

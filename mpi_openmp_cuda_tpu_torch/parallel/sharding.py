@@ -26,9 +26,9 @@ Obs hooks, the mesh tier's counterparts of the reference's MPI calls
 (detail spans, nested under the dispatch's ``chunk_dispatch`` and
 ``chunk_gather``): ``shard_replicate`` (Seq1 and the table to each
 device, ``MPI_Bcast``), ``shard_place`` (each shard's rows and lengths,
-``MPI_Scatter``), ``shard_launch`` (each shard's kernel and epilogue
-enqueued) and ``shard_gather`` (the shards back to the host,
-``MPI_Gather``), after ``device_wait`` (the host's block on the cards,
+``MPI_Scatter``), ``shard_launch`` (each shard's kernels enqueued, the
+finish kernel writing the shard's finished rows) and ``shard_gather``
+(the shards back to the host, ``MPI_Gather``), after ``device_wait`` (the host's block on the cards,
 as in the single-device gather).  :data:`mesh_counts` counts, in every
 run, each placement (``mesh_h2d_copies``, ``mesh_h2d_bytes``: a
 host-to-device copy on a card), each shard's launch
@@ -47,7 +47,7 @@ import torch
 
 from ..obs.metrics import inc as _obs_inc
 from ..obs.spans import span as _obs_span
-from ..ops.cuda_scorer import ScorerState, finish_rows, kernel_table
+from ..ops.cuda_scorer import ScorerState, kernel_table
 from ..ops.dispatch import (
     BucketLaunch, PaddedBatch, max_scored, pad_batch_rows, put, run_launch, wait_event,
 )
@@ -227,7 +227,6 @@ class BatchSharding:
                                  val=val, max_len2=int(lens[shard].max()))
             with _obs_span("shard_launch", detail=True):
                 launch = BucketLaunch(np.arange(bl), st, None, maxv=maxv, max_scored=longest)
-                raw = run_launch(launch, backend)
-                out[s] = finish_rows(raw, st.lens, st.len1) if backend == "cuda" else raw
+                out[s] = run_launch(launch, backend)  # [bl, 3] finished rows on its card
             _count("mesh_shard_launches")
         return ShardedPending(self.comm, [(None, out, list(range(d)), b)], b)

@@ -114,7 +114,8 @@ def _traceaudit():
     r = traceaudit.run_or_raise(input3_class_problem())
     rows = traceaudit.audit_entry_points()
     return (f"input3-class {r['launches_by_kernel']} == declared, {r['epilogues']} "
-            f"epilogue, {r['host_fetches']} host fetch, {len(rows)} entry rows, 0 findings")
+            f"PyTorch epilogues, {r['host_fetches']} host fetch, {len(rows)} entry rows, "
+            "0 findings")
 
 
 def _collectives():

@@ -12,14 +12,14 @@ issue rates.
    ``dispatch.bucket_launches``) and prints each floor term (int ops over
    the ``arith`` rate, table lookups over the ``lookup`` rate, bytes over
    HBM) at its measured rate and at its data-sheet peak, beside the
-   measured time of one run of the launches with their epilogues (device
+   measured time of one run of the launches storing finished rows (device
    time, ``utils.timing.time_ms``).  One more line prices what the fused
    kernel's char loop issues per cell (``csrc/fused_kernels.cuh``; counted
    in its SASS, per pass of 4 steps x 4 offsets: 25 shared loads, i.e.
    20 lookups, 4 window chars and one 16-byte Seq2 load, and 57 int ops,
    i.e. 20 address adds, 21 prefix adds and 16 fused difference-max) at
    the measured rates; the bound counts the 1 lookup and 3 int ops a cell
-   needs.  The scorer kernels alone (no epilogue) are timed too, with each
+   needs.  The scorer kernels alone (raw rows) are timed too, with each
    fused launch's live (pair, offset tile) clusters, those with a valid
    offset, beside the blocks the card holds at once
    (``probe.resident_blocks``).

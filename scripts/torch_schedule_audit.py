@@ -8,7 +8,7 @@ input3-class workload (the bench's) and the max-size workload.
 For each workload: the cost sheet (every launch priced with the launch
 model and the bound, totals, hot configs, declared launches by kernel,
 comms rows) and the launch audit (the launches a traced dispatch makes,
-held to the declaration, one epilogue and one host fetch a batch, the
+held to the declaration, no PyTorch epilogue and one host fetch a batch, the
 operand inventory and the donation section); then every entry point's
 widenings, the sweep of every plannable launch shape, and the warm set of
 max-size held against its hot configs (``aot/warmset.crosscheck_hot_configs``).

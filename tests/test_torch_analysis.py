@@ -308,8 +308,8 @@ class TestSmemAudit:
         for c in smem.PACK_CLASSES:
             attrs[f"packed_tile_{c}"] = {"registers": 40, "max_threads": 128,
                                          "static_bytes": smem.packed_static_bytes(c)}
-            attrs[f"packed_finish_{c}"] = {"registers": 32, "static_bytes": 2916,
-                                           "max_threads": 256}
+            attrs[f"packed_finish_{c}"] = {"registers": 31 if c == 64 else 32,
+                                           "static_bytes": 2916, "max_threads": 256}
         rows = smem.audit_attributes(attrs)
         assert len(rows) == 10
         assert {r["kernel"]: r["register_cap"] for r in rows}["fused_tile"] == 128
@@ -444,9 +444,9 @@ def _spy_launches(monkeypatch):
     calls = []
     real_f, real_p = dispatch.fused_scorer, dispatch.packed_scorer
     monkeypatch.setattr(dispatch, "fused_scorer",
-                        lambda st: calls.append("fused") or real_f(st))
+                        lambda st, *done: calls.append("fused") or real_f(st, *done))
     monkeypatch.setattr(dispatch, "packed_scorer",
-                        lambda st, c: calls.append("packed") or real_p(st, c))
+                        lambda st, c, *done: calls.append("packed") or real_p(st, c, *done))
     return calls
 
 

@@ -328,9 +328,9 @@ def _dispatch_launches(prob):
     seen = []
     real = dispatch.run_launch
 
-    def spy(launch, backend):
+    def spy(launch, backend, done=None):
         seen.append((launch.state.rows.shape[1], launch.l2s, launch.state.rows.shape[0]))
-        return real(launch, backend)
+        return real(launch, backend, done)
 
     mp = pytest.MonkeyPatch()
     mp.setattr(dispatch, "run_launch", spy)
@@ -367,10 +367,10 @@ def test_compile_entry_calls_what_dispatch_calls(form, monkeypatch):
     monkeypatch.setattr(cuda_scorer, "check_smem",
                         lambda st: calls.append(("smem", st.rows.shape[1])))
 
-    def run_spy(launch, backend):
+    def run_spy(launch, backend, done=None):
         calls.append(("launch", backend, launch.state.rows.shape[1], launch.l2s,
                       launch.state.rows.shape[0]))
-        return real_run(launch, backend)
+        return real_run(launch, backend, done)
 
     monkeypatch.setattr(dispatch, "run_launch", run_spy)
     wall, nbytes = aot_compile.compile_entry(entry, "cpu")

@@ -71,12 +71,18 @@ def test_views_alias_one_buffer_at_segment_offsets(shape):
     launches = dispatch.bucket_launches(seq1, seqs, W, CPU)
     assert len(launches) == n_launches
     tensors = [t for b in launches for t in _operands(b.state)]
-    if launches[0].order is not None:
-        tensors.append(launches[0].order)
+    if launches[0].dst is not None:  # the scatter index: launch 0's rows first
+        tensors.append(launches[0].dst)
     base = tensors[0].untyped_storage().data_ptr()
     assert {t.untyped_storage().data_ptr() for t in tensors} == {base}
     assert all((t.data_ptr() - base) % feed.SEGMENT_BYTES == 0 for t in tensors)
-    assert all(b.order is launches[0].order for b in launches)
+    # Every launch's destination rows: its slice of the one scatter index.
+    if launches[0].dst is None:
+        assert all(b.dst is None for b in launches)
+    else:
+        assert [b.dst.data_ptr() for b in launches] == [
+            launches[0].dst.data_ptr() + 8 * b.row0 for b in launches]
+        assert all(b.dst.untyped_storage().data_ptr() == base for b in launches)
     assert [t.dtype for t in _operands(launches[0].state)] == [
         torch.uint8, torch.uint8, torch.int32, torch.int32]
 
@@ -110,9 +116,9 @@ def test_views_read_back_the_int32_operands(shape):
         assert st.len1 == seq1.size
     order = np.concatenate([b.idx for b in launches])
     if shape == "batch-long":
-        assert launches[0].order is None and np.array_equal(order, np.arange(len(seqs)))
+        assert launches[0].dst is None and np.array_equal(order, np.arange(len(seqs)))
     else:
-        assert np.array_equal(launches[0].order.numpy(), order)
+        assert np.array_equal(torch.cat([b.dst for b in launches]).numpy(), order)
         assert not np.array_equal(order, np.arange(len(seqs)))
 
 

@@ -1176,11 +1176,13 @@ def test_fleet_worker_on_a_card_launches_the_fused_kernel():
     seen = []
     real = cs.fused_scorer
 
-    def fused(state):
-        raw = real(state)
-        assert torch.equal(raw, cs.fused_scorer_plain(state))
+    def fused(state, *finished):
+        fresh = (finished[0].clone(), *finished[1:]) if finished else ()
+        want = cs.fused_scorer_plain(state, *fresh)
+        got = real(state, *finished)
+        assert torch.equal(got, want)
         seen.append(state)
-        return raw
+        return got
 
     rng = np.random.default_rng(5)
     block = Block(n_rows=8)

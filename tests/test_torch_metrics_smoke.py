@@ -43,7 +43,9 @@ def test_report_counters_are_the_jax_reports(drill, tmp_path):
     for ``recompiles``: XLA compiles the JAX CLI's program in every cold
     process, the port on the CPU compiles nothing (its counter counts nvcc
     builds on the card); and beside them the port's own feed counters
-    (``feed_h2d_copies``, ``feed_h2d_bytes``: its one-copy byte arena)."""
+    (``feed_h2d_copies``, ``feed_h2d_bytes``: its one-copy byte arena) and
+    ``epilogue_torch_rows`` (the rows its plain versions finish on the
+    CPU; on the card ``epilogue_kernel_rows`` counts the finish kernels')."""
     report = tmp_path / "jax.json"
     with open(FIXTURE, "rb") as fh:
         proc = subprocess.run([sys.executable, "-m", "mpi_openmp_cuda_tpu", "--metrics",
@@ -54,7 +56,7 @@ def test_report_counters_are_the_jax_reports(drill, tmp_path):
     jax_counters = set(json.loads(report.read_text())["counters"]) - {"recompiles"}
     rec = json.loads(drill[1][-2])
     port = set(rec["runs"]["tiny"]["counters"])
-    feed = {"feed_h2d_copies", "feed_h2d_bytes"}
+    feed = {"feed_h2d_copies", "feed_h2d_bytes", "epilogue_torch_rows"}
     assert feed <= port and port - feed == jax_counters
 
 

@@ -324,12 +324,15 @@ MODES = {
 
 # The counters both CLIs must agree on: all of them but `recompiles`, which
 # counts jit compiles in the JAX CLI and nvcc builds in the port (none on the
-# CPU), and the port's feed counters (`feed_h2d_copies`, `feed_h2d_bytes`:
-# its one-copy byte arena, which the JAX feed has no counterpart of).
+# CPU), the port's feed counters (`feed_h2d_copies`, `feed_h2d_bytes`:
+# its one-copy byte arena, which the JAX feed has no counterpart of) and
+# its epilogue counters (`epilogue_kernel_rows`, `epilogue_torch_rows`: where
+# each row was finished).
 # Timings (spans, uptime) and gauges are not compared: the three TPU-only
 # gauges (config_feed, config_superblock, config_chunk) have no counterpart
 # on the card, and `backend` names each package's own chain.
-_PORT_ONLY_COUNTERS = frozenset({"recompiles", "feed_h2d_copies", "feed_h2d_bytes"})
+_PORT_ONLY_COUNTERS = frozenset({"recompiles", "feed_h2d_copies", "feed_h2d_bytes",
+                                 "epilogue_kernel_rows", "epilogue_torch_rows"})
 
 
 def _counters(rec) -> dict:

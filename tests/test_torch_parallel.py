@@ -203,9 +203,9 @@ def test_each_shard_is_one_launch_of_its_own_rows(monkeypatch):
     seen = []
     real = dispatch.fused_scorer
 
-    def spy(state):
+    def spy(state, *finished):
         seen.append(state.lens.tolist())
-        return real(state)
+        return real(state, *finished)
 
     monkeypatch.setattr(dispatch, "fused_scorer", spy)
     seq1 = encode("HELLOWORLDHELLOWORLD")

@@ -459,7 +459,7 @@ def test_polled_device_wait_gives_up_at_the_deadline():
         def synchronize(self):  # pragma: no cover - must not be called
             raise AssertionError("blocking wait under a deadline")
 
-    pend = tdispatch.BucketedPending([], 0, 10, finish=True)
+    pend = tdispatch.BucketedPending(torch.zeros((0, 3), dtype=torch.int32))
     pend._host, pend._event = torch.zeros((0, 3), dtype=torch.int32), NeverDone()
     wd = activate_watchdog(0.05)
     try:

@@ -27,10 +27,7 @@ W = [10, 2, 3, 4]
 
 def _rows(launches, count):
     return [tuple(int(v) for v in r)
-            for r in tdispatch.BucketedPending(
-                [(b.idx, tdispatch.run_launch(b, "cuda"), b.state.lens) for b in launches],
-                count, launches[0].state.len1, finish=True,
-                order=launches[0].order).result()]
+            for r in tdispatch.launch_batch(launches, "cuda", count, CPU).result()]
 
 
 def _problem(seed, len1, lens, weights=W):
@@ -54,7 +51,8 @@ def test_forced_group_equals_singletons_and_oracle(seed):
     batch = tdispatch.pad_problem(s1, [seqs[i] for i in sorted(fused)])
     st = cs.state_from_numpy(batch.seq1ext, batch.len1, batch.seq2, batch.len2,
                              tdispatch.value_table(W).reshape(-1), CPU)
-    group = tdispatch.BucketLaunch(np.asarray(sorted(fused)), st, None)
+    idx = np.asarray(sorted(fused))
+    group = tdispatch.BucketLaunch(idx, st, None, dst=torch.from_numpy(idx))
     packed = [b for b in singles if b.l2s is not None]
     want = _rows(singles, len(seqs))
     assert _rows(packed + [group], len(seqs)) == want

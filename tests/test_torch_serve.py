@@ -904,17 +904,22 @@ def test_serve_blocks_launch_both_kernels_on_card(tmp_path, capfd):
     seen = []
     real = {"fused": cs.fused_scorer, "packed": cs.packed_scorer}
 
-    def fused(state):
-        raw = real["fused"](state)
-        assert torch.equal(raw, cs.fused_scorer_plain(state))
-        seen.append("fused_scorer")
-        return raw
+    def fresh(finished):
+        return (finished[0].clone(), *finished[1:]) if finished else ()
 
-    def packed(state, l2s):
-        raw = real["packed"](state, l2s)
-        assert torch.equal(raw, cs.packed_scorer_plain(state, l2s))
+    def fused(state, *finished):
+        want = cs.fused_scorer_plain(state, *fresh(finished))
+        got = real["fused"](state, *finished)
+        assert torch.equal(got, want)
+        seen.append("fused_scorer")
+        return got
+
+    def packed(state, l2s, *finished):
+        want = cs.packed_scorer_plain(state, l2s, *fresh(finished))
+        got = real["packed"](state, l2s, *finished)
+        assert torch.equal(got, want)
         seen.append("packed_scorer")
-        return raw
+        return got
 
     cs.reset_launch_counts()
     with pytest.MonkeyPatch.context() as mp:

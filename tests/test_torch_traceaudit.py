@@ -57,7 +57,7 @@ def test_traced_launches_equal_the_declaration(name):
         declared.declared_launches == rep["declared_launches"]
     assert rep["launches"] == declared.launches == len(rep["buckets"])
     has = rep["launches"] > 0
-    assert (rep["epilogues"], rep["host_fetches"]) == ((1, 1) if has else (0, 0))
+    assert (rep["epilogues"], rep["host_fetches"]) == ((0, 1) if has else (0, 0))
     assert rep["findings"] == []
 
 
@@ -69,12 +69,15 @@ def test_mm_backend_has_no_epilogue_and_no_kernel_launch():
 
 
 def test_trace_restores_the_dispatch():
-    saved = (dispatch.run_launch, dispatch.finish_rows, dispatch.BucketedPending._start_copy)
+    from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer
+
+    saved = (dispatch.run_launch, cuda_scorer.finish_rows,
+             dispatch.BucketedPending._start_copy)
     with pytest.raises(ZeroDivisionError):
         with traceaudit.trace_dispatch():
             assert dispatch.run_launch is not saved[0]
             raise ZeroDivisionError
-    assert (dispatch.run_launch, dispatch.finish_rows,
+    assert (dispatch.run_launch, cuda_scorer.finish_rows,
             dispatch.BucketedPending._start_copy) == saved
 
 
@@ -106,14 +109,19 @@ def test_drift_raises_schedule_drift_error(monkeypatch):
 
 
 def test_a_second_epilogue_is_drift(monkeypatch):
+    """The finish kernels write every finished row: a PyTorch epilogue
+    beside them (here at the fetch, as the dispatch once ran one) is drift."""
+    from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer
+
     real = dispatch.BucketedPending._start_copy
 
     def twice(self):
         real(self)
-        dispatch.finish_rows(self.parts[0][1], self.parts[0][2], self.len1)
+        raw = torch.zeros((self.count, 4), dtype=torch.int32)
+        cuda_scorer.finish_rows(raw, torch.ones(self.count, dtype=torch.int32), 5)
 
     monkeypatch.setattr(dispatch.BucketedPending, "_start_copy", twice)
-    with pytest.raises(ScheduleDriftError, match="2 epilogue"):
+    with pytest.raises(ScheduleDriftError, match="1 epilogue"):
         traceaudit.audit_schedule(input3_class_problem())
 
 
