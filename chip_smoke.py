@@ -114,7 +114,8 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    from its operands: ``BatchSharding`` over ``[cuda:0] x 4`` on every
    fixture and max-size (launch counts set to 0 first: 4 launches a
    bucket, no collective counted inside the compute, one gather a
-   bucket, rows == the single-device rows == the golden), ``--mesh 1``
+   dispatch, one arena a dispatch (the slots share the card), rows ==
+   the single-device rows == the golden), ``--mesh 1``
    through ``io.cli.run`` on the fixtures and a mesh one larger than the
    card count refused (65, the JAX CLI's message); ``RingSharding`` over
    ``[cuda:0] x 8`` as ``seq:8`` (the fixtures, max-size and
@@ -1423,6 +1424,7 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
     from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, bucket_launches
     from mpi_openmp_cuda_tpu_torch.parallel import ring as ring_mod
     from mpi_openmp_cuda_tpu_torch.parallel.ring import RingSharding, ring_plan
+    from mpi_openmp_cuda_tpu_torch.parallel import sharding as sharding_mod
     from mpi_openmp_cuda_tpu_torch.parallel.sharding import BatchSharding
 
     dev0 = torch.device("cuda:0")
@@ -1477,22 +1479,25 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
                 continue
             b4.comm.reset_counts()
             first = len(seen)
+            arenas = sharding_mod.mesh_counts["mesh_h2d_copies"]
             pend = sc4.score_codes_async(s1, seqs, w)
             if b4.comm.counts:
                 fail(f"batch mesh {tag}: collectives inside the compute: {dict(b4.comm.counts)}")
             rows = pend.result()
             batch_states[tag] = seen[first:]
-            parts = len(pend.parts)
+            parts = len(dispatch.launch_plans(s1, seqs, w, fuse=False, packable=False,
+                                              min_rows=b4.min_rows)[1])
             want_launches += 4 * parts
-            if dict(b4.comm.counts) != {"gather": parts}:
-                fail(f"batch mesh {tag}: collectives {dict(b4.comm.counts)}, want "
-                     f"{parts} gathers and nothing else")
+            arenas = sharding_mod.mesh_counts["mesh_h2d_copies"] - arenas
+            if dict(b4.comm.counts) != {"gather": 1} or arenas != 1:
+                fail(f"batch mesh {tag}: collectives {dict(b4.comm.counts)}, {arenas} arenas, "
+                     "want one gather, nothing else, and one arena")
             if rows_text(rows) != want_rows(tag, s1, seqs, w) or not np.array_equal(
                     rows, single_rows[tag]):
                 fail(f"batch mesh {tag}: rows differ from the single-device rows or the golden")
             log(f"batch mesh [cuda:0]x4 {tag}: {len(seqs)} rows == single device == "
-                f"golden, {parts} buckets x 4 shard launches == plain, collectives "
-                f"{dict(b4.comm.counts)} (none in the compute)")
+                f"golden, {parts} buckets x 4 shard launches == plain, one arena, "
+                f"collectives {dict(b4.comm.counts)} (none in the compute)")
     finally:
         spy(False)
     batch_counts = dict(cs.launch_counts)

@@ -13,7 +13,7 @@ representative batch (:func:`representative_problem`), and a fifth for a
 job's logs:
 
 1. **The inventory**, per slot and in program order: the batch mesh makes
-   no collective in the compute and one ``gather`` a dispatched bucket;
+   no collective in the compute and one ``gather`` a dispatch;
    the Seq1 ring ``R`` ``shift``s, one ``all_gather`` of the candidates
    and one ``gather`` a dispatch (PERF.md §3).
 2. **Ordering consistency**: every slot's sequence is the same
@@ -107,10 +107,10 @@ def _placement_spy():
 
         return {t.device for t in tensors if isinstance(t, torch.Tensor)}
 
-    def run_launch(launch, backend):
+    def run_launch(launch, backend, done=None):
         st = launch.state
-        calls.append(devices_of(st.seq1ext, st.rows, st.lens, st.val))
-        return saved[0](launch, backend)
+        calls.append(devices_of(st.seq1ext, st.rows, st.lens, st.val, done))
+        return saved[0](launch, backend, done)
 
     def fused_scorer(st):
         calls.append(devices_of(st.seq1ext, st.rows, st.lens, st.val))
@@ -141,8 +141,8 @@ def operand_placement(entry: str, calls, mesh, slots) -> list[dict]:
             findings.append({
                 "kind": "unsharded-operand", "entry": entry,
                 "detail": f"launch {k} of slot {slot} reads operands on {off}, not on "
-                          f"the slot's device {want}: place them with "
-                          "dispatch.put(..., mesh.device(slot))",
+                          f"the slot's device {want}: send them in the "
+                          "arena of mesh.device(slot) (feed.put_feed)",
             })
     return findings
 
@@ -168,16 +168,13 @@ def run_spec(spec: str, devices=None, device="cpu"):
 def _expected(sharding, batch) -> list[tuple[str, int]]:
     """The kinds and counts of one slot's sequence that the plan says, in
     order: a ring slot's ``R`` shifts, its ``all_gather`` and the gather;
-    a batch slot's one gather a dispatched bucket."""
-    from ..ops.dispatch import MIN_BUCKET_ROWS, plan_buckets
+    a batch slot's one gather a dispatch, whatever its buckets."""
     from ..parallel.ring import RingSharding, ring_plan
 
     if isinstance(sharding, RingSharding):
         _, r = ring_plan(batch.l1p, batch.l2p, sharding.sp, kernel=True)
         return [("shift", r), ("all_gather", 1), ("gather", 1)]
-    buckets = plan_buckets([int(n) for n in batch.len2], packable=False,
-                           min_rows=MIN_BUCKET_ROWS * sharding.n_devices)
-    return [("gather", len(buckets))]
+    return [("gather", 1)]
 
 
 def _runs(seq) -> list[tuple[str, int]]:
@@ -402,8 +399,9 @@ def divergent_branches(package_root: str | Path | None = None) -> list[dict]:
 def device_crossings(package_root: str | Path | None = None) -> list[dict]:
     """``device-crossing`` findings: a ``.to``, ``.cuda``, ``.cpu`` or
     ``.copy_`` call in ``parallel/*.py`` outside ``comm.py`` and the
-    allowed host-fetch sites (operands go up through ``dispatch.put`` from
-    host numpy, and between devices only through ``comm.py``)."""
+    allowed host-fetch sites (operands go up from host numpy only through
+    the feed's arena, ``feed.put_feed``, and between devices only through
+    ``comm.py``)."""
     findings = []
     for rel, tree in _parallel_trees(package_root):
         if rel == "parallel/comm.py":

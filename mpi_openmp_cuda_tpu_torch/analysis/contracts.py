@@ -326,52 +326,42 @@ def validate_plans(val_flat, plans, backend: str, device=None) -> None:
         )
 
 
-def validate_sharded(sharding, batches, val_flat, backend: str, device=None) -> None:
-    """The ``--check`` hook of ``AlignmentScorer._dispatch_sharded``: each
-    padded batch's launches as the sharding makes them, before any is
-    made.  A batch mesh launches one shard of ``ceil(B / devices)`` rows a
-    device, each checked as a launch; the ring launches one window a Seq1
-    shard (L1P = Bs, ``len1_eff = len1 - d * Bs``) on the fused kernel, or
-    the gather window body.  Every slot of the mesh is checked on every
-    process, its local slots and the others' alike, so in a job of
-    several processes a violation stops every rank before any upload and
-    no rank is left waiting in a collective."""
+def validate_sharded(sharding, val_flat, plans, backend: str, device=None) -> None:
+    """The ``--check`` hook of ``AlignmentScorer._dispatch_sharded``: the
+    launches the sharding makes of ``plans``, before any is made.  A batch
+    mesh launches each bucket's shards (``sharding.shard_plans``), each
+    validated as :func:`validate_plans` validates a launch; the ring
+    launches one window a Seq1 shard (L1P = Bs, ``len1_eff = len1 - d *
+    Bs``) on the fused kernel, or the gather window body.  Every slot of
+    the mesh is checked on every process, its local slots and the others'
+    alike, so in a job of several processes a violation stops every rank
+    before any upload and no rank is left waiting in a collective."""
     from ..ops import dispatch
     from ..ops.values import max_abs_value
+    from ..parallel.ring import RingSharding, ring_plan
+    from ..parallel.sharding import shard_plans
     from .smem import card_budget
 
+    if not isinstance(sharding, RingSharding):
+        n = sharding.n_devices
+        validate_plans(val_flat, [s for p in plans for s in shard_plans(p, n)], backend, device)
+        return
     maxv = max_abs_value(val_flat)
     budget = card_budget(device)
-    ring = not getattr(sharding, "bucketed", False)
-    for batch in batches:
-        longest = dispatch.max_scored(batch)
-        route = dispatch.effective_backend(backend, maxv, batch.l2p, longest)
+    for plan in plans:
+        b = plan.batch
+        longest = dispatch.max_scored(plan)
+        route = dispatch.effective_backend(backend, maxv, b.l2p, longest)
         check_formulation(route, backend, maxv, longest)
-        check_exactness(route, maxv, longest, batch.l2p)
-        if ring:
-            from ..parallel.ring import ring_plan
+        check_exactness(route, maxv, longest, b.l2p)
+        check_operands(b.seq1ext, b.len1, b.seq2, b.len2, b.l1p, b.l2p)
+        bs, _ = ring_plan(b.l1p, b.l2p, sharding.sp, route == "cuda")
+        if route == "cuda":
+            for d in range(sharding.sp):
+                check_ring_window(b.len1 - d * bs, bs, b.l2p)
+            from . import smem
 
-            check_operands(batch.seq1ext, batch.len1, batch.seq2, batch.len2,
-                           batch.l1p, batch.l2p)
-            bs, _ = ring_plan(batch.l1p, batch.l2p, sharding.sp, route == "cuda")
-            if route == "cuda":
-                for d in range(sharding.sp):
-                    check_ring_window(batch.len1 - d * bs, bs, batch.l2p)
-                from . import smem
-
-                smem.check_launch(batch.l2p, None, budget=budget)
-            continue
-        n = sharding.n_devices
-        bl = max(1, -(-batch.batch_size // n))
-        rows, lens = dispatch.pad_batch_rows(batch, bl * n)
-        for s in range(n):
-            shard = slice(s * bl, (s + 1) * bl)
-            validate_launch(
-                backend=backend, route=route, maxv=maxv, keys=(batch.l2p,),
-                l1p=batch.l1p, l2s=None, seq1ext=batch.seq1ext, len1=batch.len1,
-                rows=rows[shard], lens=lens[shard], max_scored=longest,
-                smem_budget=budget,
-            )
+            smem.check_launch(b.l2p, None, budget=budget)
 
 
 # --------------------------------------------------------------------------

@@ -29,8 +29,8 @@ proves three rules:
 (c) **re-staging on retry** — from every re-dispatch root (the batch
     CLI's and the pipeline's retry ladders with their closures inlined,
     the fleet worker's score path, the rescue), every call path reaches
-    the uploads (``put``, and ``put_feed``, the single-device arena's one
-    copy) through the dispatch layer and nothing above it uploads; a root
+    the upload (``put_feed``, an arena's one copy) through the dispatch
+    layer and nothing above it uploads; a root
     hands its attempts the feed object itself or nothing (``staged=`` a
     name, ``None``, or popped from a single-use holder:
     never something rebuilt from a feed); and every function that takes a
@@ -59,9 +59,10 @@ _FEED_MAKER = ("ops/dispatch.py", "AlignmentScorer.prestage_codes")
 _FEED_TAKE = ("ops/dispatch.py", "StagedFeed.take")
 _STATE_BUILDER = ("ops/dispatch.py", "_to_device")
 
-#: The calls that copy host arrays to a device: a mesh or ring shard
-#: (``dispatch.put``), a single-device dispatch's arena (``feed.put_feed``).
-_UPLOAD_CALLS = frozenset({"put", "put_feed"})
+#: The calls that copy host arrays to a device: the feed's arena
+#: (``feed.put_feed``), of a single-device dispatch, a mesh device or a
+#: ring slot alike.
+_UPLOAD_CALLS = frozenset({"put_feed"})
 
 #: Receivers the AST cannot type: the retry ladders score through
 #: ``degrader.scorer`` and a lambda parameter, the rescue through a local

@@ -300,7 +300,7 @@ class _Scope:
 _DEVICE_CALLS = {
     "fused_scorer", "packed_scorer", "call_entry", "_launch", "gather_rows",
     "mm_rows", "fused_scorer_plain", "packed_scorer_plain", "finish_rows",
-    "score_rows", "put", "ring_window_rows",
+    "score_rows", "put_feed", "ring_window_rows",
 }
 #: ScorerState's tensor fields.
 _TENSOR_FIELDS = {"seq1ext", "rows", "lens", "val"}

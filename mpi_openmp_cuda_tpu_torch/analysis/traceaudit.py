@@ -305,7 +305,7 @@ def audit_entry_points(buckets=None) -> list[dict]:
                 raise TraceAuditError(
                     f"{contract.name} at bucket (b={b}, l1p={l1p}, l2p={l2p}) moved "
                     f"{counter.transfers} tensor(s) between devices: an entry point's "
-                    "operands arrive on its device (ops/dispatch.py::put)")
+                    "operands arrive on its device (ops/feed.py::put_feed)")
             rows.append({"entry": contract.name, "bucket": [b, l1p, l2p],
                          "widenings": counter.widenings, "transfers": counter.transfers,
                          "out_shape": list(out.shape),

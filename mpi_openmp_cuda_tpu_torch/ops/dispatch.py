@@ -27,9 +27,10 @@ Backends:
 an error (``KernelUnavailableError``), never a quiet move to another
 backend; the CLI's ``--degrade`` is the opt-in chain.
 
-A scorer given a sharding (``parallel/``) hands each dispatch to it
-instead: on a batch mesh one sharded dispatch a length bucket, on the
-Seq1 ring one for the whole batch, with the caps lifted there.
+A scorer given a sharding (``parallel/``) plans each dispatch as above,
+with no packing classes and no launch groups, and hands the plans to it:
+a batch mesh scores every length bucket in one sharded dispatch, the
+Seq1 ring the whole batch as one launch, with the caps lifted there.
 
 Obs hooks (each one module-attribute check when the plane is off): the
 ``chunk_dispatch`` span (plan, copies in, launches queued: enqueue time
@@ -202,16 +203,6 @@ def effective_backend(backend: str, maxv: int, l2p: int, max_len2: int = 0) -> s
     return backend
 
 
-def pad_batch_rows(batch: PaddedBatch, bp: int) -> tuple[np.ndarray, np.ndarray]:
-    """Zero-pad the batch rows/lengths to ``bp`` rows (zero rows are len-0
-    pairs, dropped on output)."""
-    rows = np.zeros((bp, batch.l2p), dtype=batch.seq2.dtype)
-    rows[: batch.batch_size] = batch.seq2
-    lens = np.zeros(bp, dtype=np.int32)
-    lens[: batch.batch_size] = batch.len2
-    return rows, lens
-
-
 def admit(seq1_codes, seq2_codes, weights, *, caps: bool = True) -> np.ndarray:
     """The batch's [729] int32 value table, once the batch has passed the
     caps (unless ``caps=False``: the Seq1 ring) and the int32 admission
@@ -231,8 +222,10 @@ class PlannedLaunch:
     """One launch planned on the host: its bucket keys, the input rows it
     scores (ascending), their codes and lengths, its row width and its
     packing class.  The feed writes the codes straight into its arena
-    (``ops/feed.py``); :attr:`batch` pads them into host arrays for the
-    readers that want those (``--check``, the warm plane)."""
+    (``ops/feed.py``); :attr:`batch` pads them into host arrays for
+    ``--check``.  A mesh shard's plan (``parallel/sharding.py::shard_plans``)
+    ends in padding rows of length 0, which have no input row: its ``idx``
+    holds its real rows only."""
 
     keys: tuple
     idx: np.ndarray
@@ -257,26 +250,31 @@ class PlannedLaunch:
 
 
 def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
-                 fuse: bool = True):
-    """``(val_flat, [PlannedLaunch])`` of one batch: caps and the int32
-    admission gate checked on the whole batch, over its scored rows (an
-    error names the caller's input index before anything is launched),
-    rows grouped by
-    :func:`plan_buckets`, fused buckets partitioned into launch groups by
+                 fuse: bool = True, packable: bool = True,
+                 min_rows: int = MIN_BUCKET_ROWS, caps: bool = True):
+    """``(val_flat, [PlannedLaunch])`` of one batch: caps (unless
+    ``caps=False``: the Seq1 ring) and the int32 admission gate checked on
+    the whole batch, over its scored rows (an error names the caller's
+    input index before anything is launched), rows grouped by
+    :func:`plan_buckets` (``packable`` and ``min_rows`` passed on), fused
+    buckets partitioned into launch groups by
     ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
     one launch a bucket, the schedule the groups are held against), each
     group's row width that of its longest row and its kernel chosen by
-    :func:`choose_rowpack`.  Records nothing: the warm plane plans
-    launches it does not dispatch (``aot/warmset.py``)."""
+    :func:`choose_rowpack` (``cuda`` and ``packable`` only).  A mesh plans
+    with ``fuse=False, packable=False`` and its sharding's ``min_rows``.
+    Records nothing: the warm plane plans launches it does not dispatch
+    (``aot/warmset.py``)."""
     from .schedule import plan_fusion_groups
 
-    val_flat = admit(seq1_codes, seq2_codes, weights)
+    val_flat = admit(seq1_codes, seq2_codes, weights, caps=caps)
     if not seq2_codes:
         return val_flat, []
     sizes = [int(c.size) for c in seq2_codes]
     lens = np.asarray(sizes, dtype=np.int32)
     cuda = backend == "cuda"
-    groups = plan_buckets(sizes, packable=cuda)
+    pack = cuda and packable
+    groups = plan_buckets(sizes, packable=pack, min_rows=min_rows)
     group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
                   if cuda and fuse else [(k,) for k in sorted(groups)])
     plans = []
@@ -284,17 +282,16 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
         idx = np.asarray(sorted(i for k in keys for i in groups[k]), dtype=np.int64)
         len2 = lens[idx]
         l2p = round_up(int(len2.max()), _LANE)
-        l2s = choose_rowpack(l2p, len2) if cuda else None
+        l2s = choose_rowpack(l2p, len2) if pack else None
         plans.append(PlannedLaunch(tuple(keys), idx, seq1_codes,
                                    tuple(seq2_codes[i] for i in idx), len2, l2p, l2s))
     return val_flat, plans
 
 
-def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
-                  fuse: bool = True):
+def plan_launches(seq1_codes, seq2_codes, weights, backend: str = "cuda", **kw):
     """:func:`launch_plans` of a batch about to be dispatched, recorded
     in the ``config_fused_groups`` and ``config_rowpack`` gauges."""
-    val_flat, plans = launch_plans(seq1_codes, seq2_codes, weights, backend, fuse=fuse)
+    val_flat, plans = launch_plans(seq1_codes, seq2_codes, weights, backend, **kw)
     if plans:
         _obs_gauge("config_fused_groups", len(plans))
     if backend == "cuda":
@@ -322,16 +319,6 @@ class BucketLaunch:
     max_scored: int = 0
     dst: torch.Tensor | None = None
     row0: int = 0
-
-
-def put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: on a CUDA device copied from pinned
-    memory without blocking the host (the mesh and ring place each shard
-    with it; a dispatch on one device sends one arena, :func:`_upload`)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def max_scored(batch: PaddedBatch | PlannedLaunch) -> int:
@@ -406,21 +393,28 @@ class StagedFeed:
         return launches
 
 
-def _upload(val_flat, plans, device: torch.device, ring: FeedRing) -> list[BucketLaunch]:
+def _upload(val_flat, plans, device: torch.device, ring: FeedRing, row0=None,
+            table=None) -> list[BucketLaunch]:
     """The plans' operands on ``device``: one arena written into a slot of
     ``ring`` and sent in one copy (:func:`feed.put_feed`), every launch's
-    operands, the one value table and the scatter index into input order
-    (when the launches are not in it; each launch's ``dst`` its slice)
-    views of it."""
-    order = np.concatenate([p.idx for p in plans])
-    if np.array_equal(order, np.arange(order.size)):
-        order = None
+    operands and the one table (``table``, by default the kernels') views
+    of it.  ``row0`` gives each launch's first row in its result buffer (a
+    mesh slot's, or a ring window's own); when None the launches fill the
+    batch's one buffer, and the arena carries the scatter index into
+    input order (when the launches are not in it; each launch's ``dst``
+    its slice)."""
+    order = None
+    if row0 is None:
+        order = np.concatenate([p.idx for p in plans])
+        if np.array_equal(order, np.arange(order.size)):
+            order = None
+        row0 = np.cumsum([0] + [p.idx.size for p in plans])
     layout = FeedLayout.of(plans, order)
-    feed = put_feed(ring, layout, plans, kernel_table(val_flat), order, device)
+    feed = put_feed(ring, layout, plans, kernel_table(val_flat) if table is None else table,
+                    order, device)
     val = view(feed, layout.val, 27 * 27, torch.int32).view(27, 27)
     scatter = None if order is None else view(feed, layout.order, order.size, torch.int64)
     maxv = max_abs_value(val_flat)
-    row0 = np.cumsum([0] + [p.idx.size for p in plans])
     return [_to_device(plan, feed, layout, i, val, maxv, scatter, int(row0[i]))
             for i, plan in enumerate(plans)]
 
@@ -679,39 +673,21 @@ class AlignmentScorer:
         return pending
 
     def _dispatch_sharded(self, seq1_codes, seq2_codes, weights):
-        """A dispatch over the sharding's mesh: on a batch mesh one
-        sharded dispatch a length bucket (at least :data:`MIN_BUCKET_ROWS`
-        rows a device), in key order, as in the JAX package; on the ring
-        one for the whole batch.  Returns a ``ShardedPending``."""
-        from ..parallel.sharding import ShardedPending
-
+        """A dispatch over the sharding's mesh, planned by
+        :func:`plan_launches` as the sharding asks (no packing classes, no
+        launch groups, buckets of fewer than its ``min_rows`` merged; the
+        caps lifted on the ring, which takes the batch as one launch),
+        validated under ``--check`` before anything is sent, and scored by
+        the sharding.  Returns a ``ShardedPending``."""
         sharding = self.sharding
-        unbounded = bool(getattr(sharding, "unbounded", False))
-        val_flat = admit(seq1_codes, seq2_codes, weights, caps=not unbounded)
-        if not getattr(sharding, "bucketed", False):
-            batch = pad_problem(seq1_codes, seq2_codes, enforce_caps=not unbounded)
-            if self.check:
-                self._validate_sharded([batch], val_flat)
-            return sharding.score_async(batch, val_flat, backend=self.backend)
-        groups = plan_buckets([c.size for c in seq2_codes], packable=False,
-                              min_rows=MIN_BUCKET_ROWS * sharding.n_devices)
-        _obs_gauge("config_fused_groups", len(groups))
-        subs = []
-        for key in sorted(groups):
-            idx = np.asarray(groups[key], dtype=np.int64)
-            subs.append((idx, pad_problem(seq1_codes, [seq2_codes[i] for i in idx])))
+        val_flat, plans = plan_launches(
+            seq1_codes, seq2_codes, weights, self.backend, fuse=False, packable=False,
+            min_rows=sharding.min_rows, caps=not sharding.unbounded)
         if self.check:
-            self._validate_sharded([sub for _, sub in subs], val_flat)
-        parts = [(idx, sharding.score_async(sub, val_flat, backend=self.backend))
-                 for idx, sub in subs]
-        return ShardedPending.merge(parts, len(seq2_codes))
+            from ..analysis.contracts import validate_sharded
 
-    def _validate_sharded(self, batches, val_flat) -> None:
-        """The ``--check`` hook of a sharded dispatch: every mesh shard's
-        and ring window's launch validated before any is made."""
-        from ..analysis.contracts import validate_sharded
-
-        validate_sharded(self.sharding, batches, val_flat, self.backend, self.device)
+            validate_sharded(sharding, val_flat, plans, self.backend, self.device)
+        return sharding.score_async(plans, val_flat, backend=self.backend)
 
     def prestage_codes(self, seq1_codes, seq2_codes, weights) -> StagedFeed | None:
         """Plan a future :meth:`score_codes_async` of the same operands and

@@ -1,12 +1,15 @@
 """The feed: one dispatch's operands in one byte arena, sent to the device
-in one copy.
+in one copy; the port's only way of moving host operands onto a device.
 
 A dispatch on one device (``dispatch.bucket_launches``,
 ``AlignmentScorer.prestage_codes``) writes every launch's operands into one
 host buffer, a slot of the scorer's :class:`FeedRing`, and
 :func:`put_feed` moves the whole slot to the device in one non-blocking
-copy.  Each operand of each launch is then a view of that one device
-buffer.  The arena holds, each segment at a :data:`SEGMENT_BYTES` offset:
+copy.  A batch mesh sends one arena a device a dispatch, every shard its
+slots take, and the Seq1 ring one a slot, each from a ring of that
+device (``parallel/``).  Each operand of each launch is then a view of
+that one device buffer.  The arena holds, each segment at a
+:data:`SEGMENT_BYTES` offset:
 
 * ``seq1`` — [L1P + L2P + 1] uint8 Seq1 codes, zero-padded, for the widest
   launch (every launch shares its L1P; a narrower launch reads a prefix);
@@ -183,8 +186,8 @@ def put_feed(ring: FeedRing, layout: FeedLayout, plans, table: np.ndarray,
              order: np.ndarray | None, device: torch.device) -> torch.Tensor:
     """The dispatch's arena on ``device``: written into a slot of ``ring``
     (:func:`write_feed`) and sent in one copy, non-blocking on a CUDA
-    device (on the current stream, which an event marks for the slot's
-    reuse).  Counted in ``feed_h2d_copies`` and ``feed_h2d_bytes``."""
+    device (on the device's current stream, which an event marks for the
+    slot's reuse).  Counted in ``feed_h2d_copies`` and ``feed_h2d_bytes``."""
     nbytes = layout.nbytes
     slot = ring.acquire(nbytes)
     event = None
@@ -195,7 +198,7 @@ def put_feed(ring: FeedRing, layout: FeedLayout, plans, table: np.ndarray,
         if device.type == "cuda":
             feed.copy_(host, non_blocking=True)
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(device))
         else:
             feed.copy_(host)
     finally:

@@ -233,17 +233,16 @@ def launch_configs(seq1_codes, seq2_codes, weights, backend: str = "cuda") -> li
     maxv = max_abs_value(val_flat)
     out = []
     for plan in plans:
-        b = plan.batch
-        route = effective_backend(backend, maxv, b.l2p, max_scored(b))
+        route = effective_backend(backend, maxv, plan.l2p, max_scored(plan))
         if route == "cuda":
             form = "cuda-fused" if plan.l2s is None else "cuda-packed"
         else:
             form = route
         out.append(LaunchConfig(
-            formulation=form, l1p=int(b.l1p), l2p=int(b.l2p), len1=int(b.len1),
-            rows=int(b.batch_size), l2s=plan.l2s if form == "cuda-packed" else None,
-            cluster=cluster_shape(int(b.l2p)) if form == "cuda-fused" else None,
-            lens=tuple(int(x) for x in b.len2), bucket_keys=tuple(plan.keys),
+            formulation=form, l1p=plan.l1p, l2p=plan.l2p, len1=plan.len1,
+            rows=int(plan.len2.size), l2s=plan.l2s if form == "cuda-packed" else None,
+            cluster=cluster_shape(plan.l2p) if form == "cuda-fused" else None,
+            lens=tuple(int(x) for x in plan.len2), bucket_keys=tuple(plan.keys),
         ))
     return out
 

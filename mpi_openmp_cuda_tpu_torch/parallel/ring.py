@@ -6,7 +6,10 @@ removes that ceiling the way ring attention does for KV blocks:
 
 * Seq1 is split into ``sp`` contiguous blocks of ``Bs`` chars, one per
   device along the ``'seq'`` mesh axis; each device owns the candidate
-  offsets that start inside its block.
+  offsets that start inside its block.  Each slot receives its block,
+  the table its body reads, and its ``batch`` row's rows and lengths as
+  one arena (``ops/feed.py``, one copy from a pinned slot of the device's
+  ring).
 * Scoring offset ``n`` needs the Seq1 window ``[n, n + L2 + 1]``, which
   spills into the next blocks.  Each device assembles its window from
   ``R = ceil((L2P + 1) / Bs)`` ``shift``s of the blocks round the ring,
@@ -33,22 +36,23 @@ same ``(score, n, k)`` rows, bit for bit, as the single-device paths.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from ..ops.cuda_scorer import ScorerState, fused_scorer, kernel_table
-from ..ops.dispatch import (
-    PaddedBatch, effective_backend, max_scored, pad_batch_rows, put, round_up,
-)
+from ..ops.cuda_scorer import fused_scorer, kernel_table
+from ..ops.dispatch import _upload, effective_backend, max_scored, round_up
+from ..ops.feed import FeedRing
 from ..ops.gather_scorer import ring_window_rows
 from ..ops.values import max_abs_value
 from ..utils.constants import INT32_MIN
 from .comm import Collectives, collectives_for
 from .mesh import BATCH_AXIS, SEQ_AXIS, Mesh, make_2d_mesh
-from .sharding import ShardedPending
+from .sharding import ShardedPending, shard_plans
 
 BACKENDS = ("cuda", "gather")
 
@@ -79,14 +83,18 @@ def combine(gathered: torch.Tensor, lens: torch.Tensor, len1: int) -> torch.Tens
 
 @dataclass
 class RingSharding:
-    """Scores a PaddedBatch with Seq1 ring-sharded over the 'seq' axis."""
+    """Scores a batch with Seq1 ring-sharded over the 'seq' axis."""
 
     mesh: Mesh  # axes (BATCH_AXIS, SEQ_AXIS)
     comm: Collectives = field(default=None)
+    feeds: dict = field(default_factory=dict, repr=False)  # device -> FeedRing
 
     # Sharded Seq1 has no single-buffer ceiling: AlignmentScorer lifts the
     # reference's BUF_SIZE caps when scoring through this.
     unbounded = True
+    # The ring scores the whole batch as one launch: every length bucket
+    # merges into the widest.
+    min_rows = sys.maxsize
 
     def __post_init__(self):
         if self.comm is None:
@@ -109,36 +117,42 @@ class RingSharding:
     def n_devices(self) -> int:
         return self.mesh.size
 
-    def score(self, batch: PaddedBatch, val_flat, backend: str = "cuda") -> np.ndarray:
-        """[B, 3] int32 host array, input order."""
-        return self.score_async(batch, val_flat, backend=backend).result()
-
-    def score_async(self, batch: PaddedBatch, val_flat, backend: str = "cuda") -> ShardedPending:
-        """``score`` without the gather: the windows built, every shard's
-        candidates computed and combined on its device, a
-        :class:`ShardedPending` returned (its gather takes shard 0's rows
-        of each ``seq`` row)."""
+    def score_async(self, plans, val_flat, backend: str = "cuda") -> ShardedPending:
+        """The batch's one plan (``dispatch.launch_plans`` at
+        :attr:`min_rows`) scored without the gather: each local slot's
+        arena sent, the windows built, every shard's candidates computed
+        and combined on its device, a :class:`ShardedPending` returned
+        (its gather takes shard 0's rows of each ``seq`` row)."""
         backend = "cuda" if backend == "auto" else backend
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend {backend!r} is not available on the sequence-parallel "
                 "ring path; drop --backend or use a batch-only mesh"
             )
-        sp, dp, l2p = self.sp, self.dp, batch.l2p
+        (plan,) = plans
+        sp, dp, l2p, len1 = self.sp, self.dp, plan.l2p, plan.len1
         kernel = effective_backend(
-            backend, max_abs_value(val_flat), l2p, max_scored(batch)) == "cuda"
-        bs, r_steps = ring_plan(batch.l1p, l2p, sp, kernel)
+            backend, max_abs_value(val_flat), l2p, max_scored(plan)) == "cuda"
+        bs, r_steps = ring_plan(plan.l1p, l2p, sp, kernel)
         seq1pad = np.zeros(sp * bs, dtype=np.uint8)
-        take = min(seq1pad.size, batch.seq1ext.size)
-        seq1pad[:take] = batch.seq1ext[:take]
-        b = batch.batch_size
-        bl = max(1, -(-b // dp))  # rows a seq row
-        rows, lens = pad_batch_rows(batch, bl * dp)
+        seq1pad[:len1] = plan.seq1
+        # The table the body reads: the kernel's, or the gather body's [729].
+        table = kernel_table(val_flat) if kernel else np.asarray(val_flat, dtype=np.int32)
+        shards = shard_plans(plan, dp)  # one a ``batch`` row
         slots = self.comm.local_slots()
         dev = self.mesh.device
 
+        # -- one arena a slot: its block, the table, its rows and lengths ----
+        states = {}
+        for s in slots:
+            row, d = divmod(s, sp)
+            block = dataclasses.replace(shards[row], seq1=seq1pad[d * bs : (d + 1) * bs])
+            ring = self.feeds.setdefault(dev(s), FeedRing(dev(s).type == "cuda"))
+            (launch,) = _upload(val_flat, [block], dev(s), ring, row0=(0,), table=table)
+            states[s] = launch.state
+
         # -- the windows: R neighbour exchanges round the ring --------------
-        blocks = {s: put(seq1pad[(s % sp) * bs : (s % sp + 1) * bs], dev(s)) for s in slots}
+        blocks = {s: states[s].seq1ext[:bs] for s in slots}
         wins = {s: torch.zeros((r_steps + 1) * bs, dtype=torch.uint8, device=dev(s))
                 for s in slots}
         for s in slots:
@@ -149,26 +163,19 @@ class RingSharding:
                 wins[s][r * bs : (r + 1) * bs] = blocks[s]
 
         # -- each shard's best candidate a pair ------------------------------
-        devs = {dev(s) for s in slots}
-        tabs = {d: put(kernel_table(val_flat), d) for d in devs}  # the kernel's
-        vals = {d: put(np.asarray(val_flat, dtype=np.int32), d) for d in devs}
-        cands, lens_d = {}, {}
+        cands = {}
         for s in slots:
-            row, d = divmod(s, sp)
-            part = slice(row * bl, (row + 1) * bl)
-            rws, lens_d[s] = put(rows[part], dev(s)), put(lens[part], dev(s))
+            d, st = s % sp, states[s]
             if kernel:
-                st = ScorerState(seq1ext=wins[s][: bs + l2p + 1], len1=batch.len1 - d * bs,
-                                 rows=rws, lens=lens_d[s], val=tabs[dev(s)],
-                                 max_len2=int(lens[part].max()))
-                raw = fused_scorer(st)
+                raw = fused_scorer(dataclasses.replace(
+                    st, seq1ext=wins[s][: bs + l2p + 1], len1=len1 - d * bs))
                 raw[:, 1] += d * bs  # block-local offset -> global
                 cands[s] = raw
             else:
-                cands[s] = ring_window_rows(wins[s], d, bs, batch.len1, rws, lens_d[s],
-                                            vals[dev(s)])
+                cands[s] = ring_window_rows(wins[s], d, bs, len1, st.rows, st.lens, st.val)
 
         # -- global combine: one all_gather of the [bl, 4] candidates --------
         gathered = self.comm.all_gather(cands)
-        out = {s: combine(gathered[s], lens_d[s], batch.len1) for s in slots}
-        return ShardedPending(self.comm, [(None, out, [r * sp for r in range(dp)], b)], b)
+        out = {s: combine(gathered[s], states[s].lens, len1) for s in slots}
+        return ShardedPending(self.comm, out, [r * sp for r in range(dp)],
+                              np.arange(plan.idx.size))

@@ -6,17 +6,22 @@ fixed-stride buffer), scores each rank's share independently, and gathers
 the results (``MPI_Gather`` x3), with a serial remainder on the root
 (main.c:110-121,174,184-185,195-197).  Here:
 
-* the batch is padded to a multiple of the device count with empty rows
-  (``pad_batch_rows``): no remainder rank, a padded row costs one row of
-  a launch and is dropped on output;
-* each device of the mesh takes one contiguous shard of rows, and Seq1
-  and the value table are copied to every device (the ``MPI_Bcast`` /
-  constant-memory tier);
+* the dispatch plans the batch's length buckets once
+  (``dispatch.launch_plans``), and each bucket's plan splits into one
+  shard a slot of ``ceil(B / devices)`` rows (:func:`shard_plans`), the
+  last shards padded with empty rows of length 0: no remainder rank, a
+  padding row costs one row of a launch and is dropped on output;
+* each device receives one arena a dispatch (``ops/feed.py``, one copy
+  from a pinned slot of the device's own ring): Seq1 and the kernels'
+  value table once (the ``MPI_Bcast`` / constant-memory tier), then the
+  rows and lengths of every shard of every bucket its slots take;
 * each shard is scored by one launch on its own device, the fused kernel
   (or the formulation ``dispatch.effective_backend`` routes the launch
-  to), with **no collective inside the compute**;
-* :meth:`ShardedPending.result` gathers the shards' rows to the host, the
-  ``MPI_Gather`` analogue: one ``gather`` a length bucket.
+  to), with **no collective inside the compute**, its finished rows
+  written, in launch order, into its slot's one ``[sum of shard rows,
+  3]`` buffer;
+* :meth:`ShardedPending.result` gathers those buffers to the host once a
+  dispatch, the ``MPI_Gather`` analogue, and puts the rows in input order.
 
 In a job of several processes each process scores only the shards of
 its local slots (``comm.ProcessCollectives``), and the gather is a
@@ -24,21 +29,23 @@ collective that every process reaches in the same order.
 
 Obs hooks, the mesh tier's counterparts of the reference's MPI calls
 (detail spans, nested under the dispatch's ``chunk_dispatch`` and
-``chunk_gather``): ``shard_replicate`` (Seq1 and the table to each
-device, ``MPI_Bcast``), ``shard_place`` (each shard's rows and lengths,
+``chunk_gather``): ``shard_replicate`` (what every device's arena
+shares, made once: the kernel table, and the buckets' shards,
+``MPI_Bcast``), ``shard_place`` (each device's arena written and sent,
 ``MPI_Scatter``), ``shard_launch`` (each shard's kernels enqueued, the
 finish kernel writing the shard's finished rows) and ``shard_gather``
-(the shards back to the host, ``MPI_Gather``), after ``device_wait`` (the host's block on the cards,
-as in the single-device gather).  :data:`mesh_counts` counts, in every
-run, each placement (``mesh_h2d_copies``, ``mesh_h2d_bytes``: a
-host-to-device copy on a card), each shard's launch
-(``mesh_shard_launches``, one a slot a dispatch) and the empty rows the
-padding adds (``mesh_pad_rows``); with the obs plane armed the run
-report counts them too.
+(the slots' rows back to the host, ``MPI_Gather``), after ``device_wait``
+(the host's block on the cards, as in the single-device gather).
+:data:`mesh_counts` counts, in every run, each arena
+(``mesh_h2d_copies``, ``mesh_h2d_bytes``: a host-to-device copy on a
+card), each shard's launch (``mesh_shard_launches``, one a slot a
+bucket) and the empty rows the padding adds (``mesh_pad_rows``); with
+the obs plane armed the run report counts them too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from dataclasses import dataclass, field
 
@@ -47,11 +54,9 @@ import torch
 
 from ..obs.metrics import inc as _obs_inc
 from ..obs.spans import span as _obs_span
-from ..ops.cuda_scorer import ScorerState, kernel_table
-from ..ops.dispatch import (
-    BucketLaunch, PaddedBatch, max_scored, pad_batch_rows, put, run_launch, wait_event,
-)
-from ..ops.values import max_abs_value
+from ..ops.cuda_scorer import kernel_table
+from ..ops.dispatch import MIN_BUCKET_ROWS, PlannedLaunch, _upload, run_launch, wait_event
+from ..ops.feed import FeedRing
 from ..resilience import watchdog
 from ..resilience.faults import fire as _fault
 from .comm import Collectives, collectives_for
@@ -72,59 +77,58 @@ def _count(name: str, n: int = 1) -> None:
     _obs_inc(name, n)
 
 
-def _place(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``put``, counted as one of the mesh's host-to-device copies."""
-    t = put(arr, device)
-    _count("mesh_h2d_copies")
-    _count("mesh_h2d_bytes", t.numel() * t.element_size())
-    return t
+def shard_plans(plan: PlannedLaunch, n: int) -> list[PlannedLaunch]:
+    """``plan`` split into ``n`` contiguous shards of ``ceil(B / n)`` rows
+    (at least one) at the plan's row width, the last shards padded with
+    empty rows of length 0; a shard's ``idx`` holds its real rows only."""
+    b = plan.idx.size
+    bl = max(1, -(-b // n))
+    empty = plan.rows[0][:0]
+    out = []
+    for s in range(n):
+        lo, hi = min(s * bl, b), min((s + 1) * bl, b)
+        pad = bl - (hi - lo)
+        out.append(dataclasses.replace(
+            plan, idx=plan.idx[lo:hi], rows=plan.rows[lo:hi] + (empty,) * pad,
+            len2=np.concatenate([plan.len2[lo:hi], np.zeros(pad, dtype=np.int32)])))
+    return out
 
 
 class ShardedPending:
     """A dispatched, not yet gathered sharded result.
 
-    ``parts`` holds one entry a dispatch (a length bucket): the input rows
-    it scores (None: the first ``n``), per local slot its ``[bl, 3]`` int32
-    rows on the slot's device, the slots whose rows form the output (in
-    order) and ``n``.  :meth:`result` gathers each part to the host
-    (``comm.gather``, a collective in a multi-process job, in part order on
-    every process) and restores input order, under the watchdog's guard.
-    :meth:`prefetch` starts the device-to-host copies in a one-process job
-    (in a multi-process one the gather is the collective itself)."""
+    ``rows`` holds per local slot its int32 ``[W, 3]`` rows on the slot's
+    device (every slot's the same shape), ``take`` the slots whose rows
+    form the output, in order, and ``pos`` each input row's position in
+    their concatenation.  :meth:`result` gathers once (``comm.gather``, a
+    collective in a multi-process job) and takes ``pos``, under the
+    watchdog's guard.  :meth:`prefetch` starts the device-to-host copies
+    in a one-process job (in a multi-process one the gather is the
+    collective itself)."""
 
-    def __init__(self, comm: Collectives, parts: list, count: int):
+    def __init__(self, comm: Collectives, rows: dict, take: list[int], pos: np.ndarray):
         self.comm = comm
-        self.parts = parts
-        self.count = count
+        self.rows = rows
+        self.take = take
+        self.pos = pos
         self._events = None
-
-    @classmethod
-    def merge(cls, pendings: list, count: int) -> "ShardedPending":
-        """One pending over ``[(input rows, ShardedPending)]`` of one
-        batch's buckets, dispatched in that order."""
-        parts = [(idx, rows, take, n)
-                 for idx, pend in pendings for _, rows, take, n in pend.parts]
-        return cls(pendings[0][1].comm, parts, count)
 
     def prefetch(self) -> None:
         _fault("device_transfer")
         if self.comm.world > 1 or self._events is not None:
             return
-        events, parts = [], []
-        for idx, rows, take, n in self.parts:
-            host = {}
-            for s in take:
-                t = rows[s]
-                if t.device.type == "cuda":
-                    host[s] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    host[s].copy_(t, non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(t.device))
-                    events.append(ev)
-                else:
-                    host[s] = t
-            parts.append((idx, host, take, n))
-        self.parts, self._events = parts, events
+        events, host = [], {}
+        for s in self.take:
+            t = self.rows[s]
+            if t.device.type == "cuda":
+                host[s] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host[s].copy_(t, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(t.device))
+                events.append(ev)
+            else:
+                host[s] = t
+        self.rows, self._events = host, events
 
     def _card_events(self) -> list:
         """Where no :meth:`prefetch` started the copies: in a one-process
@@ -133,7 +137,7 @@ class ShardedPending:
         copies."""
         if self.comm.world > 1:
             return []
-        devices = {rows[s].device for _, rows, take, _ in self.parts for s in take}
+        devices = {self.rows[s].device for s in self.take}
         events = []
         for dev in sorted((d for d in devices if d.type == "cuda"), key=lambda d: d.index):
             ev = torch.cuda.Event()
@@ -150,37 +154,21 @@ class ShardedPending:
                     with _obs_span("device_wait", detail=True):
                         for ev in events:
                             wait_event(ev)
-                out = np.zeros((self.count, 3), dtype=np.int32)
                 with _obs_span("shard_gather", detail=True):
-                    for idx, rows, take, n in self.parts:
-                        host = self.comm.gather(rows, take)[:n]
-                        if idx is None:
-                            out[:n] = host
-                        else:
-                            out[idx] = host
-                return out
-
-
-def _replicas(seq1ext, val_flat, devices) -> dict:
-    """Seq1 and the kernels' value table on every device, one copy each."""
-    out = {}
-    for dev in devices:
-        if dev not in out:
-            out[dev] = (_place(np.asarray(seq1ext, dtype=np.uint8), dev),
-                        _place(kernel_table(val_flat), dev))
-    return out
+                    return self.comm.gather(self.rows, self.take)[self.pos]
 
 
 @dataclass
 class BatchSharding:
-    """Scores a PaddedBatch data-parallel over a 1-D device mesh."""
+    """Scores a batch's planned launches data-parallel over a 1-D device
+    mesh."""
 
     mesh: Mesh
     comm: Collectives = field(default=None)
+    feeds: dict = field(default_factory=dict, repr=False)  # device -> FeedRing
 
-    # Batch meshes take length-bucketed dispatch: every process derives the
-    # same buckets, in the same order, from the same broadcast lengths.
-    bucketed = True
+    # The caps hold on a batch mesh.
+    unbounded = False
 
     def __post_init__(self):
         if self.comm is None:
@@ -195,38 +183,54 @@ class BatchSharding:
     def n_devices(self) -> int:
         return self.mesh.size
 
-    def score(self, batch: PaddedBatch, val_flat, backend: str = "cuda") -> np.ndarray:
-        """[B, 3] int32 host array, input order."""
-        return self.score_async(batch, val_flat, backend=backend).result()
+    @property
+    def min_rows(self) -> int:
+        """Length buckets of fewer rows merge into the next wider one: each
+        pads to the device count.  Every process derives the same buckets,
+        in the same order, from the same broadcast lengths."""
+        return MIN_BUCKET_ROWS * self.n_devices
 
-    def score_async(self, batch: PaddedBatch, val_flat, backend: str = "cuda") -> ShardedPending:
-        """``score`` without the gather: one launch a local shard, queued on
-        its device, and a :class:`ShardedPending` returned at once."""
+    def score_async(self, plans, val_flat, backend: str = "cuda") -> ShardedPending:
+        """The length buckets ``plans`` (``dispatch.launch_plans``) scored
+        without the gather: one arena a device sent, one launch a bucket a
+        local slot queued on its device, and a :class:`ShardedPending`
+        returned at once."""
         backend = "cuda" if backend == "auto" else backend
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend {backend!r} is not available on a batch mesh; "
                 f"use one of {', '.join(BACKENDS)}"
             )
-        d, b = self.n_devices, batch.batch_size
-        bl = max(1, -(-b // d))  # rows a shard
-        rows, lens = pad_batch_rows(batch, bl * d)
-        maxv, longest = max_abs_value(val_flat), max_scored(batch)
-        _count("mesh_pad_rows", bl * d - b)
-        slots = self.comm.local_slots()
+        d, slots = self.n_devices, self.comm.local_slots()
         with _obs_span("shard_replicate", detail=True):
-            reps = _replicas(batch.seq1ext, val_flat, [self.mesh.device(s) for s in slots])
-        out = {}
-        for s in slots:
-            dev = self.mesh.device(s)
-            seq1ext, val = reps[dev]
-            shard = slice(s * bl, (s + 1) * bl)
+            table = kernel_table(val_flat)
+            shards = [shard_plans(p, d) for p in plans]  # [bucket][slot]
+            bls = [bucket[0].len2.size for bucket in shards]
+            row0 = np.cumsum([0] + bls)
+            on = {}  # device -> its local slots
+            for s in slots:
+                on.setdefault(self.mesh.device(s), []).append(s)
+        _count("mesh_pad_rows", sum(bl * d - p.idx.size for bl, p in zip(bls, plans)))
+        launches = {}
+        for dev, own in on.items():
+            keys = [(i, s) for s in own for i in range(len(plans))]
             with _obs_span("shard_place", detail=True):
-                st = ScorerState(seq1ext=seq1ext, len1=batch.len1,
-                                 rows=_place(rows[shard], dev), lens=_place(lens[shard], dev),
-                                 val=val, max_len2=int(lens[shard].max()))
-            with _obs_span("shard_launch", detail=True):
-                launch = BucketLaunch(np.arange(bl), st, None, maxv=maxv, max_scored=longest)
-                out[s] = run_launch(launch, backend)  # [bl, 3] finished rows on its card
-            _count("mesh_shard_launches")
-        return ShardedPending(self.comm, [(None, out, list(range(d)), b)], b)
+                got = _upload(val_flat, [shards[i][s] for i, s in keys], dev,
+                              self.feeds.setdefault(dev, FeedRing(dev.type == "cuda")),
+                              row0=[row0[i] for i, _ in keys], table=table)
+            launches.update(zip(keys, got))
+            _count("mesh_h2d_copies")
+            _count("mesh_h2d_bytes", got[0].state.rows.untyped_storage().nbytes())
+        width = int(row0[-1])
+        out = {s: torch.empty((width, 3), dtype=torch.int32, device=self.mesh.device(s))
+               for s in slots}
+        for i in range(len(plans)):
+            for s in slots:
+                with _obs_span("shard_launch", detail=True):
+                    run_launch(launches[i, s], backend, out[s])
+                _count("mesh_shard_launches")
+        pos = np.empty(sum(p.idx.size for p in plans), dtype=np.int64)
+        for i, bucket in enumerate(shards):
+            for s, shard in enumerate(bucket):
+                pos[shard.idx] = s * width + row0[i] + np.arange(shard.idx.size)
+        return ShardedPending(self.comm, out, list(range(d)), pos)

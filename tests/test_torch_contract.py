@@ -218,11 +218,6 @@ def test_padding_and_buckets_match_on_fixture(path):
         want_l2s = jdispatch.choose_rowpack("i8", want.l2p, want.len2)
         assert tdispatch.choose_rowpack(got.l2p, got.len2) == want_l2s
         assert launch.l2s == want_l2s  # off the card every admissible bucket packs
-        for a, b in zip(
-            tdispatch.pad_batch_rows(got, got.batch_size + 3),
-            jdispatch.pad_batch_rows(want, want.batch_size + 3),
-        ):
-            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize(

@@ -10,7 +10,7 @@ JAX tests with no counterpart here, and why:
 need ``jax.jit(donate_argnums)``; eager PyTorch donates nothing, which
 ``test_the_plan_donates_nothing`` names.  ``test_asarray_of_device_local_is_
 aliasing_not_staging`` is about ``jnp.asarray`` aliasing a device array;
-the port's operands go up from host numpy (``feed.put_feed``, ``dispatch.put``), which
+the port's operands go up from host numpy (``feed.put_feed``, the one upload), which
 the re-staging rule holds.
 """
 
@@ -73,6 +73,12 @@ class TestStagingPlan:
 
     def test_zero_findings(self, plan):
         assert plan.findings == ()
+
+    def test_the_feed_is_the_only_upload(self, plan):
+        """``feed.put_feed`` is the one call that copies host operands to a
+        device, and every re-dispatch root reaches it."""
+        assert dataflow._UPLOAD_CALLS == {"put_feed"}
+        assert {r["leaf"] for r in plan.restage_paths} == {"ops/dispatch.py:_upload"}
 
     def test_report_is_json_and_schema_valid(self, plan):
         from mpi_openmp_cuda_tpu.obs.metrics import validate_report as jvalidate
@@ -182,8 +188,8 @@ def test_upload_above_the_retry_boundary(tmp_path):
     plan = _seeded(tmp_path, "resilience/rescue.py",
                    "    publish(\"rescue.orphans\", count=len(orphan_codes))\n",
                    "    publish(\"rescue.orphans\", count=len(orphan_codes))\n"
-                   "    from ..ops.dispatch import put\n"
-                   "    pinned = put(seq1_codes, device)\n")
+                   "    from ..ops.feed import put_feed\n"
+                   "    pinned = put_feed(ring, layout, plans, table, None, device)\n")
     assert ("stage-above-retry", "resilience/rescue.py:rescue_orphans") in _kinds(plan)
 
 

@@ -161,16 +161,18 @@ def _dispatch_gather_route():
 
 def _mesh_padded_shards():
     """Seven rows on three slots: shards of three rows, two of them pads;
-    each shard's launch hands back its [3, 3] finished rows."""
+    each shard's launch writes its finished rows into its slot's [3, 3]
+    buffer (one bucket) from row 0."""
     rng = np.random.default_rng(5)
     seq1 = _codes(rng, 200)
     seqs = [_codes(rng, n) for n in (50, 200, 0, 120, 230, 7, 199)]
     shards = []
     real = sharding.run_launch
 
-    def spy(launch, backend, *done):
-        assert not done  # a shard's rows go into a buffer of its own
-        out = real(launch, backend)
+    def spy(launch, backend, done):
+        assert launch.dst is None and launch.row0 == 0
+        out = real(launch, backend, done)
+        assert out is done
         shards.append((launch.state.lens.tolist(), tuple(out.shape)))
         return out
 

@@ -172,7 +172,7 @@ def test_check_hook_validates_every_slots_shard(monkeypatch):
     each bucket on every process, its own slots and the others', so a
     violation in any shard stops every rank before an upload."""
     from mpi_openmp_cuda_tpu_torch.analysis import contracts
-    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, launch_plans
     from mpi_openmp_cuda_tpu_torch.parallel.sharding import BatchSharding
 
     seen = []
@@ -184,7 +184,9 @@ def test_check_hook_validates_every_slots_shard(monkeypatch):
     pend = AlignmentScorer("cuda", device="cpu", sharding=sh, check=True).score_codes_async(
         problem.seq1_codes, problem.seq2_codes, problem.weights)
     pend.result()
-    assert len(seen) == 4 * len(pend.parts)
+    _, plans = launch_plans(problem.seq1_codes, problem.seq2_codes, problem.weights,
+                            fuse=False, packable=False, min_rows=sh.min_rows)
+    assert len(seen) == 4 * len(plans)
     assert sum(int((lens > 0).sum()) for lens in seen) == sum(
         1 for c in problem.seq2_codes if c.size)
 

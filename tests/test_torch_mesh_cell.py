@@ -120,11 +120,11 @@ def test_the_mesh_cell_measures_on_four_cpu_slots(quiet_env, tmp_path):
     assert len(run.spans) == len(run.jobs)
     assert all(set(NEW_SPANS) <= set(s) for s in run.spans)
     # The counters moved over the window: four shard launches a job (one
-    # bucket), two placements a slot and two replicas (one CPU device).
+    # bucket) and one arena a job (the four slots share the one CPU device).
     start, end = run.telemetry["start"], run.telemetry["end"]
     jobs = len(run.jobs)
     assert end["mesh_shard_launches"] - start["mesh_shard_launches"] == 4 * jobs
-    assert end["mesh_h2d_copies"] - start["mesh_h2d_copies"] == 10 * jobs
+    assert end["mesh_h2d_copies"] - start["mesh_h2d_copies"] == jobs
     # No card: the device readers and the mesh's readers read nothing.
     assert run.trace["cards"] == {}
     metrics = harness.metrics_of(ctx)
@@ -302,26 +302,42 @@ def test_the_mesh_cells_run_checks_a_job_of_the_widest_weights(quiet_env, tmp_pa
     assert reference.parse(judged[0][job])[0] == CONFIG["weights"][0] == [100, 2, 3, 4]
 
 
-def _bucket_bytes(len1: int, l2p: int, b: int, devices: int = 1) -> int:
-    """The bytes the mesh places for one length bucket of ``b`` rows: Seq1
-    (padded to L1P + L2P + 1) and the [27, 27] int32 table on each device,
-    then each of four shards' uint8 rows and int32 lengths."""
+def _arena_bytes(len1: int, buckets) -> int:
+    """The bytes of the one arena a dispatch sends the CPU device the four
+    slots share, each segment 256-byte aligned: Seq1 (padded to L1P + the
+    widest L2P + 1), the [27, 27] int32 table, then each of four shards'
+    uint8 rows and int32 lengths of every length bucket, ``(L2P, rows)``."""
+    def seg(n):
+        return -(-n // 256) * 256
+
     l1p = -(-len1 // 128) * 128
-    bl = -(-b // 4)
-    return devices * (l1p + l2p + 1 + 27 * 27 * 4) + 4 * bl * (l2p + 4)
+    shards = 4 * sum(seg(-(-b // 4) * l2p) + seg(4 * -(-b // 4)) for l2p, b in buckets)
+    return seg(l1p + max(l2p for l2p, _ in buckets) + 1) + seg(27 * 27 * 4) + shards
 
 
-# (len1, row lengths, buckets as (L2P, rows)): one bucket of 10 rows, and two
-# of 41 and 39 rows (each at least MIN_BUCKET_ROWS x 4).
+# (len1, row lengths, buckets as (L2P, rows)): one bucket of 10 rows, two
+# of 41 and 39 rows, and three of 33, 32 and 35 rows in shuffled order
+# (each at least MIN_BUCKET_ROWS x 4).
 COUNTED = {
     "one_bucket": (60, [3 + 4 * i for i in range(10)], [(128, 10)]),
     "two_buckets": (300, [3 + 3 * i for i in range(41)] + [130 + 3 * i for i in range(39)],
                     [(128, 41), (256, 39)]),
+    "three_buckets": (400, list(np.random.default_rng(9).permutation(
+        [3 + 3 * i for i in range(33)] + [130 + 3 * i for i in range(32)]
+        + [260 + 3 * i for i in range(35)])), [(128, 33), (256, 32), (384, 35)]),
 }
 
 
 @pytest.mark.parametrize("case", sorted(COUNTED))
 def test_a_mesh_job_counts_its_shards_and_copies(case, quiet_env, tmp_path, capfd):
+    """Every bucket of a job in one arena (the four slots share the one CPU
+    device) and one gather; its rows are the one-device scorer's and the
+    JAX package's."""
+    from mpi_openmp_cuda_tpu.ops.dispatch import AlignmentScorer as JScorer
+    from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
+    from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer
+    from mpi_openmp_cuda_tpu_torch.parallel.comm import LocalCollectives
+
     len1, lens, buckets = COUNTED[case]
     rng = np.random.default_rng(3)
     seqs = [generate.text_of(rng.integers(0, 26, m)) for m in lens]
@@ -330,15 +346,26 @@ def test_a_mesh_job_counts_its_shards_and_copies(case, quiet_env, tmp_path, capf
     path.write_text(text + "\n".join(seqs) + "\n")
     report = tmp_path / "m.json"
     before = dict(sharding.mesh_counts)
+    gathers = []
+    real_gather = LocalCollectives.gather
+    quiet_env.setattr(LocalCollectives, "gather",
+                      lambda self, *a: gathers.append(a) or real_gather(self, *a))
     out = cli_run(path, capfd, "--metrics-out", str(report))
     assert out == reference.stdout(path.read_text())
+    assert len(gathers) == 1
+    p = load_problem(str(path))
+    single = AlignmentScorer("cuda", device="cpu").score_codes(p.seq1_codes, p.seq2_codes,
+                                                                p.weights)
+    jax_rows = JScorer("xla").score_codes(p.seq1_codes, p.seq2_codes, p.weights)
+    assert out == "".join(f"#{i}: score: {s}, n: {n}, k: {k}\n"
+                          for i, (s, n, k) in enumerate(single.tolist()))
+    assert np.array_equal(single, np.asarray(jax_rows))
     counters = json.loads(report.read_text())["counters"]
     want = {
         "mesh_shard_launches": 4 * len(buckets),
-        # Two replicas a bucket (the four slots share the one CPU device),
-        # two placements a slot.
-        "mesh_h2d_copies": (2 + 2 * 4) * len(buckets),
-        "mesh_h2d_bytes": sum(_bucket_bytes(len1, l2p, b) for l2p, b in buckets),
+        # One arena a dispatch: the four slots share the one CPU device.
+        "mesh_h2d_copies": 1,
+        "mesh_h2d_bytes": _arena_bytes(len1, buckets),
         "mesh_pad_rows": sum(-(-b // 4) * 4 - b for _, b in buckets),
     }
     assert {k: counters.get(k, 0) for k in want} == want
@@ -375,7 +402,7 @@ def test_the_gather_waits_on_the_cards_under_device_wait(prefetched, quiet_env, 
 def test_cpu_slots_and_process_jobs_record_no_card_events():
     rows = {s: torch.zeros((2, 3), dtype=torch.int32) for s in range(4)}
     comm = type("Comm", (), {"world": 1})()
-    pending = sharding.ShardedPending(comm, [(None, rows, [0, 1, 2, 3], 8)], 8)
+    pending = sharding.ShardedPending(comm, rows, [0, 1, 2, 3], np.arange(8))
     assert pending._card_events() == []
     comm.world = 2  # a multi-process job's gather is the collective itself
     assert pending._card_events() == []

@@ -154,7 +154,7 @@ def test_sharded_dispatch_is_async():
             seq1, seqs, W)
         assert isinstance(pend, ShardedPending)
         assert sharding.comm.counts["gather"] == 0
-        rows = [r for _, slot_rows, _, _ in pend.parts for r in slot_rows.values()]
+        rows = list(pend.rows.values())
         assert rows and all(isinstance(r, torch.Tensor) for r in rows)
         pend.prefetch()
         assert _rows(pend.result()) == want
@@ -162,17 +162,21 @@ def test_sharded_dispatch_is_async():
 
 
 def test_sharded_bucketed_dispatch_matches_jax_and_oracle():
-    """A bimodal batch on a batch mesh is two sharded dispatches, one a
-    length bucket, gathered into input order."""
+    """A bimodal batch on a batch mesh is two length buckets in one sharded
+    dispatch: each slot's rows of both buckets in one buffer (9 + 8 rows),
+    gathered once into input order."""
     rng = np.random.default_rng(21)
     seq1 = rng.integers(1, 27, size=900).astype(np.int8)
     seqs = [rng.integers(1, 27, size=30).astype(np.int8) for _ in range(17)]
     seqs += [rng.integers(1, 27, size=800).astype(np.int8) for _ in range(16)]
     order = rng.permutation(len(seqs))
     seqs = [seqs[i] for i in order]
-    pend = _sharded(2).score_codes_async(seq1, seqs, W)
-    assert isinstance(pend, ShardedPending) and len(pend.parts) == 2
+    sc = _sharded(2)
+    pend = sc.score_codes_async(seq1, seqs, W)
+    assert isinstance(pend, ShardedPending)
+    assert [tuple(r.shape) for r in pend.rows.values()] == [(17, 3)] * 2
     got = _rows(pend.result())
+    assert dict(sc.sharding.comm.counts) == {"gather": 1}
     assert got == [prefix_best(seq1, s, W) for s in seqs]
     jax_rows = JScorer("xla", sharding=JBatchSharding.over_devices(2)).score_codes(
         seq1, seqs, W)
@@ -183,7 +187,7 @@ def test_sharded_bucketed_dispatch_matches_jax_and_oracle():
 def test_batch_compute_calls_no_collective(backend):
     """The batch tier's compute calls no collective at all: the scatter is
     each shard's own rows, the output stays sharded until ``result``,
-    whose one gather a bucket is the MPI_Gather analogue."""
+    whose one gather a dispatch is the MPI_Gather analogue."""
     rng = np.random.default_rng(7)
     seq1 = rng.integers(1, 27, size=70).astype(np.int8)
     seqs = [rng.integers(1, 27, size=n).astype(np.int8) for n in (40, 9, 33, 21, 5)]
@@ -191,7 +195,7 @@ def test_batch_compute_calls_no_collective(backend):
     pend = sc.score_codes_async(seq1, seqs, W)
     assert dict(sc.sharding.comm.counts) == {}
     pend.result()
-    assert dict(sc.sharding.comm.counts) == {"gather": len(pend.parts)} == {"gather": 1}
+    assert dict(sc.sharding.comm.counts) == {"gather": 1}
     # One padded row a shard (5 rows over 8 shards) comes back.
     assert sc.sharding.comm.log == [("gather", 8 * 3)]
 

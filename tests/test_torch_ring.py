@@ -29,7 +29,7 @@ from mpi_openmp_cuda_tpu.parallel.ring import RingSharding as JRingSharding
 from mpi_openmp_cuda_tpu_torch.io import cli as tcli
 from mpi_openmp_cuda_tpu_torch.models.encoding import decode
 from mpi_openmp_cuda_tpu_torch.ops import cuda_scorer as cs
-from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, pad_problem
+from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, launch_plans, pad_problem
 from mpi_openmp_cuda_tpu_torch.parallel import ring as tring
 from mpi_openmp_cuda_tpu_torch.parallel.ring import RingSharding, ring_plan
 from mpi_openmp_cuda_tpu_torch.utils.constants import INT32_MIN
@@ -224,9 +224,10 @@ def test_cli_long_context_via_seq_mesh(tmp_path, monkeypatch, capfd, rng):
 
 @pytest.mark.parametrize("backend", ["oracle", "mm", "xla"])
 def test_ring_rejects_foreign_backend(backend):
-    batch = pad_problem(np.array([1, 2, 3], dtype=np.int8), [np.array([1], dtype=np.int8)])
+    val_flat, plans = launch_plans(np.array([1, 2, 3], dtype=np.int8),
+                                   [np.array([1], dtype=np.int8)], W)
     with pytest.raises(ValueError, match="sequence-parallel"):
-        _ring(8).score(batch, value_table(W).astype(np.int32).reshape(-1), backend=backend)
+        _ring(8).score_async(plans, val_flat, backend=backend)
 
 
 def test_cli_ring_with_mm_backend_exits_65(monkeypatch, capfd):
@@ -307,12 +308,20 @@ def test_window_state_takes_len1_outside_the_window_only():
 
 
 def _assert_ring_structure(seq1, seqs, sp, dp, backend):
-    """Exactly R shifts a shard, each of one Bs block; one all_gather a
-    shard of the [sp, bl, 4] candidates; nothing else inside the compute,
-    and nothing of Seq1's size; then one gather of the rows."""
+    """One arena a slot sent (its Seq1 block, the table, its rows and
+    lengths); exactly R shifts a shard, each of one Bs block; one
+    all_gather a shard of the [sp, bl, 4] candidates; nothing else inside
+    the compute, and nothing of Seq1's size; then one gather of the rows."""
+    from mpi_openmp_cuda_tpu_torch.ops import dispatch
+
     rs = _ring(sp, dp)
     sc = AlignmentScorer(backend, device="cpu", sharding=rs)
-    pend = sc.score_codes_async(seq1, seqs, W)
+    arenas = []
+    real = dispatch.put_feed
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dispatch, "put_feed", lambda *a: arenas.append(a[2]) or real(*a))
+        pend = sc.score_codes_async(seq1, seqs, W)
+    assert [len(plans) for plans in arenas] == [1] * (sp * dp)
     batch = pad_problem(seq1, seqs, enforce_caps=False)
     bs, r_steps = ring_plan(batch.l1p, batch.l2p, sp, kernel=backend == "cuda")
     bl = -(-len(seqs) // dp)

@@ -490,12 +490,12 @@ def test_chunk_body_contract():
     rng = np.random.default_rng(6)
     seq1 = rng.integers(1, 27, size=90).astype(np.int8)
     seqs = [rng.integers(1, 27, size=int(n)).astype(np.int8) for n in rng.integers(1, 80, 6)]
-    batch = tdispatch.pad_problem(seq1, seqs)
-    rows, lens = tdispatch.pad_batch_rows(batch, 8)
+    # Two empty rows of length 0 pad the batch to two chunks of four.
+    batch = tdispatch.pad_problem(seq1, seqs + [np.zeros(0, dtype=np.int8)] * 2)
     out = cs.score_chunks_cuda_body(
         torch.from_numpy(batch.seq1ext), batch.len1,
-        torch.from_numpy(rows.reshape(2, 4, batch.l2p)),
-        torch.from_numpy(lens.reshape(2, 4)),
+        torch.from_numpy(batch.seq2.reshape(2, 4, batch.l2p)),
+        torch.from_numpy(batch.len2.reshape(2, 4)),
         torch.from_numpy(value_table(W).reshape(-1)),
     )
     assert out.shape == (2, 4, 3) and out.dtype == torch.int32
