@@ -113,7 +113,7 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    of the phase held == its plain version on a ``window_state`` rebuilt
    from its operands: ``BatchSharding`` over ``[cuda:0] x 4`` on every
    fixture and max-size (launch counts set to 0 first: 4 launches a
-   bucket, no collective counted inside the compute, one gather a
+   launch group, no collective counted inside the compute, one gather a
    dispatch, one arena a dispatch (the slots share the card), rows ==
    the single-device rows == the golden), ``--mesh 1``
    through ``io.cli.run`` on the fixtures and a mesh one larger than the
@@ -133,7 +133,7 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    both 0), ``seq:4`` on :func:`ring_problems`' Seq1 6144 (rank 0 == the
    oracle), ``--mesh 2`` refused (both 65, the JAX CLI's message), and
    each rank's ``--metrics-out`` report of the ``--mesh 4`` max-size job
-   counting two fused launches a bucket, its two slots'; then max-size's
+   counting two fused launches a launch group, its two slots'; then max-size's
    warm wall single-device, over ``[cuda:0] x 4`` and over ``seq:8``
    with each path's summed launch time (CUDA events), and the walls,
    process start to exit, of a two-process ``--mesh 2`` job and of the
@@ -1363,7 +1363,7 @@ def finish_job(procs, timeout=120) -> list[tuple[int, bytes, bytes]]:
 HYBRID_ENV = {"SEQALIGN_HOST_DEVICES": "2"}
 
 
-def hybrid_jobs(np, dispatch, cs, small, big, big_seqs, long_problem, long_want,
+def hybrid_jobs(np, dispatch, cs, small, big, big_problem, long_problem, long_want,
                 tmpdir) -> dict[str, dict[str, int]]:
     """Phase 14's jobs of two processes of two slots each: the goldens at no
     ``--mesh``, ``4``, ``seq:4`` and ``2x2``, the ring past the cap, the
@@ -1399,18 +1399,19 @@ def hybrid_jobs(np, dispatch, cs, small, big, big_seqs, long_problem, long_want,
         log(f"2 processes x 2 slots (4 global slots on the card) --mesh {mesh} {name}: "
             f"rank 0 stdout == {'oracle' if name == long_in.name else 'golden'}, rank 1 "
             f"silent, both exit 0")
-    buckets = len(dispatch.plan_buckets([q.size for q in big_seqs], packable=False,
-                                        min_rows=dispatch.MIN_BUCKET_ROWS * 4))
+    # The four-slot mesh's launch groups (``_dispatch_sharded``'s plan).
+    groups = len(dispatch.launch_plans(*big_problem, packable=False,
+                                       min_rows=dispatch.MIN_BUCKET_ROWS * 4, devices=4)[1])
     counts = {}
     for rank, path in enumerate(reports):
         rec = json.loads(path.read_text())
         got = {k: rec["counters"].get(f"{k}_launches", 0) for k in cs.launch_counts}
-        if got["fused_scorer"] != 2 * buckets or got["packed_scorer"]:
+        if got["fused_scorer"] != 2 * groups or got["packed_scorer"]:
             fail(f"2 processes x 2 slots --mesh 4 max-size, rank {rank}'s launches {got}, "
-                 f"want {2 * buckets} fused (2 slots x {buckets} buckets)")
+                 f"want {2 * groups} fused (2 slots x {groups} launch groups)")
         counts[f"2x2-slot rank {rank}"] = got
-    log(f"2 processes x 2 slots --mesh 4 max-size: launches {counts}, 2 a bucket over "
-        f"{buckets} buckets, {rec['gauges'].get('distributed_slots')} global slots, "
+    log(f"2 processes x 2 slots --mesh 4 max-size: launches {counts}, 2 a group over "
+        f"{groups} launch groups, {rec['gauges'].get('distributed_slots')} global slots, "
         f"transport {rec['gauges'].get('distributed_transport')}")
     return counts
 
@@ -1485,8 +1486,8 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
                 fail(f"batch mesh {tag}: collectives inside the compute: {dict(b4.comm.counts)}")
             rows = pend.result()
             batch_states[tag] = seen[first:]
-            parts = len(dispatch.launch_plans(s1, seqs, w, fuse=False, packable=False,
-                                              min_rows=b4.min_rows)[1])
+            parts = len(dispatch.launch_plans(s1, seqs, w, packable=False,
+                                              min_rows=b4.min_rows, devices=4)[1])
             want_launches += 4 * parts
             arenas = sharding_mod.mesh_counts["mesh_h2d_copies"] - arenas
             if dict(b4.comm.counts) != {"gather": 1} or arenas != 1:
@@ -1496,7 +1497,7 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
                     rows, single_rows[tag]):
                 fail(f"batch mesh {tag}: rows differ from the single-device rows or the golden")
             log(f"batch mesh [cuda:0]x4 {tag}: {len(seqs)} rows == single device == "
-                f"golden, {parts} buckets x 4 shard launches == plain, one arena, "
+                f"golden, {parts} launch groups x 4 shard launches == plain, one arena, "
                 f"collectives {dict(b4.comm.counts)} (none in the compute)")
     finally:
         spy(False)
@@ -1603,7 +1604,7 @@ def mesh_phase(np, torch, cli, cs, compare, fixtures, inputs, prefix_best, time_
         f"{rec['gauges'].get('distributed_transport')}")
 
     # -- 3b. two processes of two slots each: four global slots ------------
-    hybrid_counts = hybrid_jobs(np, dispatch, cs, small, big, probs["max-size"][1],
+    hybrid_counts = hybrid_jobs(np, dispatch, cs, small, big, probs["max-size"],
                                 ring_only["Seq1 6144"],
                                 want_rows("Seq1 6144", *ring_only["Seq1 6144"]), tmp.name)
 

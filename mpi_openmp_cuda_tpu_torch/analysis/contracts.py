@@ -329,10 +329,11 @@ def validate_plans(val_flat, plans, backend: str, device=None) -> None:
 def validate_sharded(sharding, val_flat, plans, backend: str, device=None) -> None:
     """The ``--check`` hook of ``AlignmentScorer._dispatch_sharded``: the
     launches the sharding makes of ``plans``, before any is made.  A batch
-    mesh launches each bucket's shards (``sharding.shard_plans``), each
-    validated as :func:`validate_plans` validates a launch; the ring
-    launches one window a Seq1 shard (L1P = Bs, ``len1_eff = len1 - d *
-    Bs``) on the fused kernel, or the gather window body.  Every slot of
+    mesh launches each launch group's shards (``sharding.shard_plans``),
+    each validated as :func:`validate_plans` validates a launch (every
+    member bucket within the group's L2P, :func:`check_launch_group`);
+    the ring launches one window a Seq1 shard (L1P = Bs, ``len1_eff =
+    len1 - d * Bs``) on the fused kernel, or the gather window body.  Every slot of
     the mesh is checked on every process, its local slots and the others'
     alike, so in a job of several processes a violation stops every rank
     before any upload and no rank is left waiting in a collective."""

@@ -28,8 +28,9 @@ an error (``KernelUnavailableError``), never a quiet move to another
 backend; the CLI's ``--degrade`` is the opt-in chain.
 
 A scorer given a sharding (``parallel/``) plans each dispatch as above,
-with no packing classes and no launch groups, and hands the plans to it:
-a batch mesh scores every length bucket in one sharded dispatch, the
+with no packing classes and each launch group priced at one device's
+shard of its rows, and hands the plans to it: a batch mesh scores every
+launch group in one sharded dispatch, one launch a group a device, the
 Seq1 ring the whole batch as one launch, with the caps lifted there.
 
 Obs hooks (each one module-attribute check when the plane is off): the
@@ -251,7 +252,7 @@ class PlannedLaunch:
 
 def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
                  fuse: bool = True, packable: bool = True,
-                 min_rows: int = MIN_BUCKET_ROWS, caps: bool = True):
+                 min_rows: int = MIN_BUCKET_ROWS, caps: bool = True, devices: int = 1):
     """``(val_flat, [PlannedLaunch])`` of one batch: caps (unless
     ``caps=False``: the Seq1 ring) and the int32 admission gate checked on
     the whole batch, over its scored rows (an error names the caller's
@@ -259,12 +260,13 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     :func:`plan_buckets` (``packable`` and ``min_rows`` passed on), fused
     buckets partitioned into launch groups by
     ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
-    one launch a bucket, the schedule the groups are held against), each
+    one launch a bucket, the schedule the groups are held against; each
+    group priced at one of ``devices`` cards' shard of its rows), each
     group's row width that of its longest row and its kernel chosen by
     :func:`choose_rowpack` (``cuda`` and ``packable`` only).  A mesh plans
-    with ``fuse=False, packable=False`` and its sharding's ``min_rows``.
-    Records nothing: the warm plane plans launches it does not dispatch
-    (``aot/warmset.py``)."""
+    with ``packable=False``, its sharding's ``min_rows`` and its device
+    count.  Records nothing: the warm plane plans launches it does not
+    dispatch (``aot/warmset.py``)."""
     from .schedule import plan_fusion_groups
 
     val_flat = admit(seq1_codes, seq2_codes, weights, caps=caps)
@@ -275,7 +277,7 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     cuda = backend == "cuda"
     pack = cuda and packable
     groups = plan_buckets(sizes, packable=pack, min_rows=min_rows)
-    group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size))
+    group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size), devices)
                   if cuda and fuse else [(k,) for k in sorted(groups)])
     plans = []
     for keys in group_keys:
@@ -600,8 +602,9 @@ class AlignmentScorer:
     device: 'cuda' by default; 'cpu' only when asked for.
     sharding: None (one device), or a ``parallel.sharding.BatchSharding``
     or ``parallel.ring.RingSharding`` that scores each dispatch over its
-    mesh (no packing, no launch groups, no staged feed there; the caps
-    give way on the ring, ``sharding.unbounded``).
+    mesh (no packing and no staged feed there; launch groups priced at
+    one device's shard; the caps give way on the ring,
+    ``sharding.unbounded``).
     check: validate every launch against ``analysis/contracts.py`` before
     it is made (``--check``); None reads ``SEQALIGN_CHECK``.
     """
@@ -674,15 +677,17 @@ class AlignmentScorer:
 
     def _dispatch_sharded(self, seq1_codes, seq2_codes, weights):
         """A dispatch over the sharding's mesh, planned by
-        :func:`plan_launches` as the sharding asks (no packing classes, no
-        launch groups, buckets of fewer than its ``min_rows`` merged; the
-        caps lifted on the ring, which takes the batch as one launch),
-        validated under ``--check`` before anything is sent, and scored by
-        the sharding.  Returns a ``ShardedPending``."""
+        :func:`plan_launches` as the sharding asks (no packing classes,
+        buckets of fewer than its ``min_rows`` merged, launch groups
+        priced at one device's shard of their rows; the caps lifted on the
+        ring, which takes the batch as one launch), validated under
+        ``--check`` before anything is sent, and scored by the sharding.
+        Returns a ``ShardedPending``."""
         sharding = self.sharding
         val_flat, plans = plan_launches(
-            seq1_codes, seq2_codes, weights, self.backend, fuse=False, packable=False,
-            min_rows=sharding.min_rows, caps=not sharding.unbounded)
+            seq1_codes, seq2_codes, weights, self.backend, packable=False,
+            min_rows=sharding.min_rows, caps=not sharding.unbounded,
+            devices=sharding.n_devices)
         if self.check:
             from ..analysis.contracts import validate_sharded
 

@@ -40,7 +40,9 @@ count, the cheapest partition with that many parts (O(k^3) over k keys),
 so the choice is the one an enumeration of all 2^(k-1) partitions makes,
 at any number of keys.  ``dispatch.bucket_launches`` builds one launch per group, and the
 bench and ``chip_smoke.py`` derive their launches from it, so they time
-exactly the production schedule.
+exactly the production schedule.  A batch mesh plans its groups with the
+same planner at its device count: every card launches each group at its
+shard of the rows, so a group is priced at one card's shard.
 
 :func:`kernel_configs` describes that schedule on the host, one
 :class:`LaunchConfig` a launch, planned by ``dispatch.launch_plans`` and
@@ -119,11 +121,23 @@ def launch_us(len1: int, lens, l2p: int) -> float:
     return LAUNCH_US + LAT_US * longest + SLOT_US * waves
 
 
-def plan_fusion_groups(groups, sizes, len1: int):
+def shard_lens(lens, devices: int) -> np.ndarray:
+    """The lengths one of ``devices`` cards launches of a group of rows
+    ``lens``: every ``devices``-th of them in sorted order, ``ceil(B /
+    devices)`` rows that span the group as a batch mesh's shard does
+    (``parallel/sharding.py::shard_plans``); all of them on one card."""
+    lens = np.asarray(lens, dtype=np.int64)
+    return lens if devices <= 1 else np.sort(lens)[::devices]
+
+
+def plan_fusion_groups(groups, sizes, len1: int, devices: int = 1):
     """Partition the keys of ``groups`` (``dispatch.plan_buckets``) into
     launch groups: a list of key tuples sorted by first key, each one
     launch.  Packed class keys stay alone; singletons are the unfused
-    schedule."""
+    schedule.  On a batch mesh of ``devices`` cards each card launches
+    every group once, at its shard of the group's rows, so a group is
+    priced at that shard (:func:`shard_lens`) and the partition is the
+    one a single card would pick for its share."""
     keys = sorted(groups)
     singletons = [(k,) for k in keys]
     fusable = [k for k in keys if k % TILE == 0]
@@ -133,11 +147,12 @@ def plan_fusion_groups(groups, sizes, len1: int):
     n = len(fusable)
     key_lens = [np.array([int(sizes[x]) for x in groups[k]], dtype=np.int64)
                 for k in fusable]
-    # cost[i][j]: one launch of the keys fusable[i:j].
+    # cost[i][j]: one card's launch of the keys fusable[i:j].
     cost = [[0.0] * (n + 1) for _ in range(n + 1)]
     for i in range(n):
         for j in range(i + 1, n + 1):
-            cost[i][j] = launch_us(int(len1), np.concatenate(key_lens[i:j]), fusable[j - 1])
+            lens = shard_lens(np.concatenate(key_lens[i:j]), devices)
+            cost[i][j] = launch_us(int(len1), lens, fusable[j - 1])
     # best[m][j]: (cost, cuts) of the cheapest partition of fusable[:j]
     # into m parts; parts are summed left to right, as an enumeration would.
     inf = (float("inf"), ())

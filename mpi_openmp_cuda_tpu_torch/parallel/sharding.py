@@ -6,15 +6,17 @@ fixed-stride buffer), scores each rank's share independently, and gathers
 the results (``MPI_Gather`` x3), with a serial remainder on the root
 (main.c:110-121,174,184-185,195-197).  Here:
 
-* the dispatch plans the batch's length buckets once
-  (``dispatch.launch_plans``), and each bucket's plan splits into one
-  shard a slot of ``ceil(B / devices)`` rows (:func:`shard_plans`), the
-  last shards padded with empty rows of length 0: no remainder rank, a
-  padding row costs one row of a launch and is dropped on output;
+* the dispatch plans the batch's launch groups once
+  (``dispatch.launch_plans``: length buckets, then groups priced at one
+  device's shard of their rows, ``schedule.plan_fusion_groups``), and
+  each group's plan splits into one shard a slot of ``ceil(B /
+  devices)`` rows (:func:`shard_plans`), the last shards padded with
+  empty rows of length 0: no remainder rank, a padding row costs one row
+  of a launch and is dropped on output;
 * each device receives one arena a dispatch (``ops/feed.py``, one copy
   from a pinned slot of the device's own ring): Seq1 and the kernels'
   value table once (the ``MPI_Bcast`` / constant-memory tier), then the
-  rows and lengths of every shard of every bucket its slots take;
+  rows and lengths of every shard of every group its slots take;
 * each shard is scored by one launch on its own device, the fused kernel
   (or the formulation ``dispatch.effective_backend`` routes the launch
   to), with **no collective inside the compute**, its finished rows
@@ -30,7 +32,7 @@ collective that every process reaches in the same order.
 Obs hooks, the mesh tier's counterparts of the reference's MPI calls
 (detail spans, nested under the dispatch's ``chunk_dispatch`` and
 ``chunk_gather``): ``shard_replicate`` (what every device's arena
-shares, made once: the kernel table, and the buckets' shards,
+shares, made once: the kernel table, and the groups' shards,
 ``MPI_Bcast``), ``shard_place`` (each device's arena written and sent,
 ``MPI_Scatter``), ``shard_launch`` (each shard's kernels enqueued, the
 finish kernel writing the shard's finished rows) and ``shard_gather``
@@ -39,8 +41,10 @@ finish kernel writing the shard's finished rows) and ``shard_gather``
 :data:`mesh_counts` counts, in every run, each arena
 (``mesh_h2d_copies``, ``mesh_h2d_bytes``: a host-to-device copy on a
 card), each shard's launch (``mesh_shard_launches``, one a slot a
-bucket) and the empty rows the padding adds (``mesh_pad_rows``); with
-the obs plane armed the run report counts them too.
+group), the empty rows the padding adds (``mesh_pad_rows``) and the
+length buckets folded into a launch group of two or more
+(``mesh_fused_buckets``); with the obs plane armed the run report and
+the serve ``metrics`` verb count them too.
 """
 
 from __future__ import annotations
@@ -64,10 +68,11 @@ from .mesh import Mesh, make_mesh
 
 BACKENDS = ("cuda", "mm", "gather")
 
-# The batch mesh's placements, launches and padding, in every run (as
-# ``cuda_scorer.launch_counts``); also in the run report when armed.
+# The batch mesh's placements, launches, padding and grouped buckets, in
+# every run (as ``cuda_scorer.launch_counts``); also in the run report
+# when armed.
 mesh_counts = {"mesh_h2d_copies": 0, "mesh_h2d_bytes": 0, "mesh_shard_launches": 0,
-               "mesh_pad_rows": 0}
+               "mesh_pad_rows": 0, "mesh_fused_buckets": 0}
 _count_lock = threading.Lock()
 
 
@@ -186,13 +191,14 @@ class BatchSharding:
     @property
     def min_rows(self) -> int:
         """Length buckets of fewer rows merge into the next wider one: each
-        pads to the device count.  Every process derives the same buckets,
-        in the same order, from the same broadcast lengths."""
+        pads to the device count.  Every process derives the same buckets
+        and launch groups, in the same order, from the same broadcast
+        lengths."""
         return MIN_BUCKET_ROWS * self.n_devices
 
     def score_async(self, plans, val_flat, backend: str = "cuda") -> ShardedPending:
-        """The length buckets ``plans`` (``dispatch.launch_plans``) scored
-        without the gather: one arena a device sent, one launch a bucket a
+        """The launch groups ``plans`` (``dispatch.launch_plans``) scored
+        without the gather: one arena a device sent, one launch a group a
         local slot queued on its device, and a :class:`ShardedPending`
         returned at once."""
         backend = "cuda" if backend == "auto" else backend
@@ -204,13 +210,14 @@ class BatchSharding:
         d, slots = self.n_devices, self.comm.local_slots()
         with _obs_span("shard_replicate", detail=True):
             table = kernel_table(val_flat)
-            shards = [shard_plans(p, d) for p in plans]  # [bucket][slot]
-            bls = [bucket[0].len2.size for bucket in shards]
+            shards = [shard_plans(p, d) for p in plans]  # [group][slot]
+            bls = [group[0].len2.size for group in shards]
             row0 = np.cumsum([0] + bls)
             on = {}  # device -> its local slots
             for s in slots:
                 on.setdefault(self.mesh.device(s), []).append(s)
         _count("mesh_pad_rows", sum(bl * d - p.idx.size for bl, p in zip(bls, plans)))
+        _count("mesh_fused_buckets", sum(len(p.keys) for p in plans if len(p.keys) > 1))
         launches = {}
         for dev, own in on.items():
             keys = [(i, s) for s in own for i in range(len(plans))]
@@ -230,7 +237,7 @@ class BatchSharding:
                     run_launch(launches[i, s], backend, out[s])
                 _count("mesh_shard_launches")
         pos = np.empty(sum(p.idx.size for p in plans), dtype=np.int64)
-        for i, bucket in enumerate(shards):
-            for s, shard in enumerate(bucket):
+        for i, group in enumerate(shards):
+            for s, shard in enumerate(group):
                 pos[shard.idx] = s * width + row0[i] + np.arange(shard.idx.size)
         return ShardedPending(self.comm, out, list(range(d)), pos)

@@ -169,7 +169,7 @@ def test_rescue_posts_one_shard_a_process_of_two_slots(monkeypatch):
 
 def test_check_hook_validates_every_slots_shard(monkeypatch):
     """``--check`` on a four-slot batch mesh validates all four shards of
-    each bucket on every process, its own slots and the others', so a
+    each launch group on every process, its own slots and the others', so a
     violation in any shard stops every rank before an upload."""
     from mpi_openmp_cuda_tpu_torch.analysis import contracts
     from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer, launch_plans
@@ -185,7 +185,7 @@ def test_check_hook_validates_every_slots_shard(monkeypatch):
         problem.seq1_codes, problem.seq2_codes, problem.weights)
     pend.result()
     _, plans = launch_plans(problem.seq1_codes, problem.seq2_codes, problem.weights,
-                            fuse=False, packable=False, min_rows=sh.min_rows)
+                            packable=False, min_rows=sh.min_rows, devices=sh.n_devices)
     assert len(seen) == 4 * len(plans)
     assert sum(int((lens > 0).sum()) for lens in seen) == sum(
         1 for c in problem.seq2_codes if c.size)

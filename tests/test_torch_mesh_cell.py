@@ -120,7 +120,8 @@ def test_the_mesh_cell_measures_on_four_cpu_slots(quiet_env, tmp_path):
     assert len(run.spans) == len(run.jobs)
     assert all(set(NEW_SPANS) <= set(s) for s in run.spans)
     # The counters moved over the window: four shard launches a job (one
-    # bucket) and one arena a job (the four slots share the one CPU device).
+    # launch group) and one arena a job (the four slots share the one CPU
+    # device).
     start, end = run.telemetry["start"], run.telemetry["end"]
     jobs = len(run.jobs)
     assert end["mesh_shard_launches"] - start["mesh_shard_launches"] == 4 * jobs
@@ -302,43 +303,47 @@ def test_the_mesh_cells_run_checks_a_job_of_the_widest_weights(quiet_env, tmp_pa
     assert reference.parse(judged[0][job])[0] == CONFIG["weights"][0] == [100, 2, 3, 4]
 
 
-def _arena_bytes(len1: int, buckets) -> int:
+def _arena_bytes(len1: int, groups) -> int:
     """The bytes of the one arena a dispatch sends the CPU device the four
     slots share, each segment 256-byte aligned: Seq1 (padded to L1P + the
     widest L2P + 1), the [27, 27] int32 table, then each of four shards'
-    uint8 rows and int32 lengths of every length bucket, ``(L2P, rows)``."""
+    uint8 rows and int32 lengths of every launch group, ``(L2P, rows, _)``."""
     def seg(n):
         return -(-n // 256) * 256
 
     l1p = -(-len1 // 128) * 128
-    shards = 4 * sum(seg(-(-b // 4) * l2p) + seg(4 * -(-b // 4)) for l2p, b in buckets)
-    return seg(l1p + max(l2p for l2p, _ in buckets) + 1) + seg(27 * 27 * 4) + shards
+    shards = 4 * sum(seg(-(-b // 4) * l2p) + seg(4 * -(-b // 4)) for l2p, b, _ in groups)
+    return seg(l1p + max(l2p for l2p, _, _ in groups) + 1) + seg(27 * 27 * 4) + shards
 
 
-# (len1, row lengths, buckets as (L2P, rows)): one bucket of 10 rows, two
-# of 41 and 39 rows, and three of 33, 32 and 35 rows in shuffled order
-# (each at least MIN_BUCKET_ROWS x 4).
+# (len1, row lengths, launch groups as (L2P, rows, length buckets)): one
+# bucket of 10 rows; two buckets of 41 and 39 rows in one group; three of
+# 33, 32 and 35 rows in shuffled order in one group (each bucket at least
+# MIN_BUCKET_ROWS x 4); and at Seq1 2000 130 short rows kept apart from
+# 130 rows of two wide buckets, each group's shards padded by two rows.
 COUNTED = {
-    "one_bucket": (60, [3 + 4 * i for i in range(10)], [(128, 10)]),
+    "one_bucket": (60, [3 + 4 * i for i in range(10)], [(128, 10, 1)]),
     "two_buckets": (300, [3 + 3 * i for i in range(41)] + [130 + 3 * i for i in range(39)],
-                    [(128, 41), (256, 39)]),
+                    [(256, 80, 2)]),
     "three_buckets": (400, list(np.random.default_rng(9).permutation(
         [3 + 3 * i for i in range(33)] + [130 + 3 * i for i in range(32)]
-        + [260 + 3 * i for i in range(35)])), [(128, 33), (256, 32), (384, 35)]),
+        + [260 + 3 * i for i in range(35)])), [(384, 100, 3)]),
+    "two_groups": (2000, [3 + i % 60 for i in range(130)] + [1900 + i % 90 for i in range(130)],
+                   [(128, 130, 1), (2048, 130, 2)]),
 }
 
 
 @pytest.mark.parametrize("case", sorted(COUNTED))
 def test_a_mesh_job_counts_its_shards_and_copies(case, quiet_env, tmp_path, capfd):
-    """Every bucket of a job in one arena (the four slots share the one CPU
-    device) and one gather; its rows are the one-device scorer's and the
-    JAX package's."""
+    """Every launch group of a job in one arena (the four slots share the
+    one CPU device), one launch a group a slot, and one gather; its rows
+    are the one-device scorer's and the JAX package's."""
     from mpi_openmp_cuda_tpu.ops.dispatch import AlignmentScorer as JScorer
     from mpi_openmp_cuda_tpu_torch.io.parse import load_problem
     from mpi_openmp_cuda_tpu_torch.ops.dispatch import AlignmentScorer
     from mpi_openmp_cuda_tpu_torch.parallel.comm import LocalCollectives
 
-    len1, lens, buckets = COUNTED[case]
+    len1, lens, groups = COUNTED[case]
     rng = np.random.default_rng(3)
     seqs = [generate.text_of(rng.integers(0, 26, m)) for m in lens]
     text = f"2 2 1 10\n{generate.text_of(rng.integers(0, 26, len1))}\n{len(seqs)}\n"
@@ -362,11 +367,12 @@ def test_a_mesh_job_counts_its_shards_and_copies(case, quiet_env, tmp_path, capf
     assert np.array_equal(single, np.asarray(jax_rows))
     counters = json.loads(report.read_text())["counters"]
     want = {
-        "mesh_shard_launches": 4 * len(buckets),
+        "mesh_shard_launches": 4 * len(groups),
         # One arena a dispatch: the four slots share the one CPU device.
         "mesh_h2d_copies": 1,
-        "mesh_h2d_bytes": _arena_bytes(len1, buckets),
-        "mesh_pad_rows": sum(-(-b // 4) * 4 - b for _, b in buckets),
+        "mesh_h2d_bytes": _arena_bytes(len1, groups),
+        "mesh_pad_rows": sum(-(-b // 4) * 4 - b for _, b, _ in groups),
+        "mesh_fused_buckets": sum(k for _, _, k in groups if k > 1),
     }
     assert {k: counters.get(k, 0) for k in want} == want
     assert {k: sharding.mesh_counts[k] - before[k] for k in want} == want
