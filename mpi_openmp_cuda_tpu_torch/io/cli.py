@@ -55,6 +55,7 @@ from ..obs.events import log_line
 from ..obs.metrics import gauge as obs_gauge
 from ..obs.spans import activate_spans, deactivate_spans
 from ..obs.spans import span as obs_span
+from ..obs.spans import span_beside
 from ..ops import _build
 from ..ops.dispatch import AlignmentScorer
 from ..resilience.degrade import BackendDegrader, run_degrading, verify_rows_against_oracle
@@ -65,7 +66,7 @@ from ..resilience.watchdog import DeadlineExpiredError, activate_watchdog, deact
 from ..utils.env import env_flag, env_float, env_int, env_str
 from ..utils.profiling import PhaseTimer, device_trace
 from .parse import load_problem, open_input, parse_stream_header
-from .pipeline import ChunkPipeline, FeedStager, PendingWindow
+from .pipeline import ChunkPipeline, FeedStager, PendingWindow, count_stream
 from .printer import guarded_stdout, print_results, write_json_sidecar
 
 EX_OK = 0
@@ -623,7 +624,15 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
     and then each (journal-reduced) chunk before dispatching it, with one
     chunk in flight, the schedule :func:`_run_streaming_worker` mirrors
     collective for collective; any failure on rank 0 broadcasts an abort
-    at the collective the other ranks wait in, so none hangs."""
+    at the collective the other ranks wait in, so none hangs.
+
+    The ``stream`` phase's host work lies in five detail spans beside the
+    dispatch's own (``obs.spans.span_beside``): ``stream.parse`` (a chunk
+    read and encoded), ``stream.stage`` (its feed staged), ``stream.submit``
+    (the held chunk dispatched), ``stream.window_wait`` (the block on the
+    oldest chunk's result) and ``stream.finish`` (its lines printed into
+    the buffer, and journalled); ``pipeline.stream_counts`` counts the
+    chunks dispatched and the pushes that found the window full."""
     from ..utils.journal import JournalMismatchError, StreamJournal, seq_hash
 
     multi = dist is not None and dist.process_count() > 1
@@ -684,6 +693,7 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
                     if multi:
                         dist.broadcast_chunk(codes)
                     promise = pipe.dispatch(seq1, codes, weights, budget, staged=staged)
+                    count_stream("stream_chunks")
                     return (promise, start, codes, None, None, None, budget)
                 hashes = [seq_hash(c) for c in codes]
                 pend = []
@@ -706,30 +716,40 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
                 if pend:
                     promise = pipe.dispatch(seq1, [codes[j] for j in pend], weights,
                                             budget, staged=staged)
+                    count_stream("stream_chunks")
                 return (promise, start, codes, pend, rows, hashes, budget)
+
+            def push(item):
+                """A dispatched chunk onto the window, counted when the
+                window first finished its oldest entry."""
+                if window.push(*item):
+                    count_stream("stream_window_full")
 
             def finish(promise, start, codes, pend, rows, hashes, budget):
                 res = None
                 if promise is not None:
                     sub = codes if pend is None else [codes[j] for j in pend]
-                    res = pipe.materialise(promise, seq1, sub, weights, budget)
-                out_rows = res
-                if pend is not None:
-                    out_rows = rows
-                    if res is not None:
-                        for j, row in zip(pend, res):
-                            out_rows[j] = row
-                        # An injected append fault fires before the first
-                        # byte, so a retried append duplicates nothing; it
-                        # gets its own budget, apart from the chunk's.
-                        policy.run(
-                            lambda: journal.append([start + j for j in pend],
-                                                   [hashes[j] for j in pend], res),
-                            "journal append",
-                        )
-                print_results(out_rows, out=lines, start=start)
-                if all_results is not None:
-                    all_results.extend(out_rows)
+                    with span_beside("window_wait"):
+                        res = pipe.materialise(promise, seq1, sub, weights, budget)
+                with span_beside("finish"):
+                    out_rows = res
+                    if pend is not None:
+                        out_rows = rows
+                        if res is not None:
+                            for j, row in zip(pend, res):
+                                out_rows[j] = row
+                            # An injected append fault fires before the
+                            # first byte, so a retried append duplicates
+                            # nothing; it gets its own budget, apart from
+                            # the chunk's.
+                            policy.run(
+                                lambda: journal.append([start + j for j in pend],
+                                                       [hashes[j] for j in pend], res),
+                                "journal append",
+                            )
+                    print_results(out_rows, out=lines, start=start)
+                    if all_results is not None:
+                        all_results.extend(out_rows)
 
             with contextlib.ExitStack() as stack:
                 stack.enter_context(timer.phase("stream"))
@@ -739,11 +759,17 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
                 depth = 1 if multi else max(1, env_int("TPU_SEQALIGN_STREAM_DEPTH", 4))
                 window = PendingWindow(depth, finish)
                 drained_at = None
-                # One chunk of input lookahead: each step dispatches the
-                # held chunk, then stages the chunk just read, then lets
-                # the window finish its oldest entry.
+                # One chunk of input lookahead: each step reads a chunk,
+                # dispatches the held one, then stages the chunk just read,
+                # then lets the window finish its oldest entry.
                 held = None
-                for start, codes in header.iter_chunks(args.stream):
+                chunks = header.iter_chunks(args.stream)
+                while True:
+                    with span_beside("parse"):
+                        chunk = next(chunks, None)
+                    if chunk is None:
+                        break
+                    start, codes = chunk
                     if drain_requested():
                         # Admit no more chunks; the window still finishes
                         # (and journals) what is in flight.  A held,
@@ -752,12 +778,18 @@ def _run_streaming(args, policy, out, timer, dist=None) -> None:
                         drained_at = held[0] if held is not None else start
                         held = None
                         break
-                    item = submit(*held) if held is not None else None
-                    held = (start, codes, stager.stage(seq1, codes, weights))
+                    item = None
+                    if held is not None:
+                        with span_beside("submit"):
+                            item = submit(*held)
+                    with span_beside("stage"):
+                        held = (start, codes, stager.stage(seq1, codes, weights))
                     if item is not None:
-                        window.push(*item)
+                        push(item)
                 if held is not None:
-                    window.push(*submit(*held))
+                    with span_beside("submit"):
+                        item = submit(*held)
+                    push(item)
                 if multi:
                     # The end sentinel before the last gather: the other
                     # ranks learn the stream ended, then gather their last

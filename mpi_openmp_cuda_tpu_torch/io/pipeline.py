@@ -10,23 +10,37 @@ loop (the port of ``mpi_openmp_cuda_tpu/io/pipeline.py``):
   is open, dispatch goes straight to the pinned degraded backend.
 * :class:`PendingWindow` — the bounded in-flight window: each pushed
   promise's device-to-host copy starts at dispatch (``prefetch``), the
-  oldest entry is finished once the window overflows, ``flush()`` drains
-  the rest.  On a mesh the promises are ``parallel.sharding.
-  ShardedPending``s, whose ``result`` is the gather (in a multi-process
-  job the CLI keeps one chunk in flight: the chunk order is the
-  collective schedule).
+  oldest entry is finished once the window overflows (``push`` says
+  whether it did), ``flush()`` drains the rest.  On a mesh the promises
+  are ``parallel.sharding.ShardedPending``s, whose ``result`` is the
+  gather (in a multi-process job the CLI keeps one chunk in flight: the
+  chunk order is the collective schedule).
 * :class:`FeedStager` — feed overlap: the next chunk's host-to-device
   copies start on a side CUDA stream (``AlignmentScorer.prestage_codes``)
   while the current chunk computes.  Advisory and single-use: a staged
   handle feeds at most one dispatch, retries stage again from the host.
+
+:data:`stream_counts` counts, in every run, a ``--stream`` run's chunks
+dispatched (``stream_chunks``) and the pushes onto its window that first
+finished the oldest chunk (``stream_window_full``); with the obs plane
+armed the run report counts them too.
 """
 
 from __future__ import annotations
 
 import collections
 
+from ..obs.metrics import inc as _obs_inc
 from ..resilience.degrade import MaterialisedRows, run_degrading, verify_rows_against_oracle
 from ..resilience.policy import FATAL_ERROR_TYPES
+
+# The stream path's chunks, in every run (as ``ops/cuda_scorer.launch_counts``).
+stream_counts = {"stream_chunks": 0, "stream_window_full": 0}
+
+
+def count_stream(name: str) -> None:
+    stream_counts[name] += 1
+    _obs_inc(name)
 
 
 class ChunkPipeline:
@@ -133,7 +147,9 @@ class PendingWindow:
         self._finish = finish
         self._pending = collections.deque()
 
-    def push(self, promise, *rest) -> None:
+    def push(self, promise, *rest) -> bool:
+        """Add an entry; True when the window was full and its oldest
+        entry was finished first."""
         if promise is not None:
             try:
                 promise.prefetch()
@@ -142,8 +158,10 @@ class PendingWindow:
                 # result(), inside the chunk's retry budget.
                 pass
         self._pending.append((promise, *rest))
-        if len(self._pending) > self.depth:
-            self._finish(*self._pending.popleft())
+        if len(self._pending) <= self.depth:
+            return False
+        self._finish(*self._pending.popleft())
+        return True
 
     def flush(self) -> None:
         while self._pending:

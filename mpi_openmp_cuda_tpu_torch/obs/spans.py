@@ -20,8 +20,11 @@ they still count in :meth:`totals` and reach every listener.
 **Detail spans** (``span(name, detail=True)``) break a phase or a serve
 tick down: ``setup.scorer``, ``setup.stage``, ``chunk_prefetch``,
 ``score.chunk_gather.device_wait``, and the serve loop's ``serve.wait``,
-``serve.linger``, ``serve.plan`` and the rest of a tick.  They record and
-reach every listener like any span.  The trace (``obs/trace.py``) files
+``serve.linger``, ``serve.plan`` and the rest of a tick.  A ``--stream``
+run's ``stream.parse``, ``stream.stage``, ``stream.submit``,
+``stream.window_wait`` and ``stream.finish`` (:func:`span_beside`) lie
+beside the dispatch's spans they enclose, which keep their paths.  They
+record and reach every listener like any span.  The trace (``obs/trace.py``) files
 them under the category ``detail`` and leaves the ``run.`` plumbing out,
 so its ``span`` category keeps the JAX package's set of spans.
 
@@ -138,6 +141,17 @@ class SpanRecorder:
         path = ".".join([*self._stack, name])
         self._close(path, start, (self._clock() if end is None else end) - start, detail)
 
+    @contextlib.contextmanager
+    def beside(self, name: str):
+        """A detail span over the block, recorded at its close beside the
+        spans opened inside it rather than above them: theirs keep the
+        paths they have without it."""
+        start = self._clock()
+        try:
+            yield
+        finally:
+            self.add(name, start, detail=True)
+
     def _close(self, path: str, start: float, dur: float, detail: bool) -> None:
         with self._lock:
             if detail:
@@ -220,3 +234,12 @@ def span(name: str, detail: bool = False):
     if rec is None:
         return NULL_SPAN
     return rec.span(name, detail)
+
+
+def span_beside(name: str):
+    """:meth:`SpanRecorder.beside` on the armed recorder, else the shared
+    no-op context."""
+    rec = _active
+    if rec is None:
+        return NULL_SPAN
+    return rec.beside(name)

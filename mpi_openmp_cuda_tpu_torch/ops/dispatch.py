@@ -43,6 +43,8 @@ card is measured), the ``chunks_dispatched``, ``feed_prestages``,
 ``feed_prestage_hits``, ``feed_h2d_copies``, ``feed_h2d_bytes`` and
 ``epilogue_torch_rows`` (the rows of an ``mm`` or ``gather`` route;
 ``ops/cuda_scorer.py`` counts the others) counters, the
+``dispatch_launched_cells`` counter (:data:`dispatch_counts`, kept in
+every run), the
 ``config_fused_groups`` and ``config_rowpack`` gauges, and one trace
 launch per launch group, from its dispatch to the batch's rows on the
 host.
@@ -53,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import math
+import threading
 import time
 from dataclasses import dataclass
 
@@ -68,7 +71,7 @@ from ..resilience.faults import fire as _fault
 from ..utils.constants import BUF_SIZE_SEQ1, BUF_SIZE_SEQ2
 from .bounds import check_int32_window, kernel_fits, mm_max_exact_value
 from .cuda_scorer import (
-    PACK_CLASSES, ScorerState, fused_scorer, kernel_table, packed_scorer, put_rows,
+    PACK_CLASSES, TILE, ScorerState, fused_scorer, kernel_table, packed_scorer, put_rows,
 )
 from .feed import FeedLayout, FeedRing, put_feed, view, write_rows
 from .gather_scorer import gather_rows
@@ -86,6 +89,13 @@ MIN_BUCKET_ROWS = 8
 
 # Seconds between polls of a result's CUDA event while a watchdog runs.
 _POLL_S = 50e-6
+
+# The cells the kernels computed, in every run (as ``cuda_scorer.launch_counts``
+# counts launches): ``dispatch_launched_cells`` sums each launch's
+# :attr:`PlannedLaunch.launched_cells` as the kernels run it; with the obs
+# plane armed the run report and the serve ``metrics`` verb count it too.
+dispatch_counts = {"dispatch_launched_cells": 0}
+_count_lock = threading.Lock()
 
 
 def round_up(x: int, mult: int) -> int:
@@ -191,6 +201,22 @@ def choose_rowpack(l2p: int, lens) -> int | None:
     return next(s for s in classes if s >= max(live))
 
 
+def kernel_cells(len1: int, len2, l2s: int | None) -> int:
+    """The (offset, char) cells the kernels compute for one launch of rows
+    ``len2`` against a Seq1 of ``len1``, as their loop bounds set them
+    (``csrc/fused_kernels.cuh``, ``csrc/packed_scorer.cu``): a row walks
+    its chars rounded up to 4 over the offsets its live tiles run (tile 0
+    always, tile t while ``128 t < len1 - len2``): in the fused kernel
+    (``l2s`` None) the lanes' 4 offsets up to the last candidate (offset 0
+    always), in the packed kernel every offset of each live tile.  At least
+    the needed cells of every searchable row; none for an empty row."""
+    len2 = np.asarray(len2, dtype=np.int64)
+    chars = (len2 + 3) // 4 * 4
+    step = 4 if l2s is None else TILE
+    offsets = -(-np.maximum(len1 - len2, 1) // step) * step
+    return int((offsets * chars).sum())
+
+
 def effective_backend(backend: str, maxv: int, l2p: int, max_len2: int = 0) -> str:
     """The formulation a backend runs on a launch of width ``l2p`` at max
     |table value| ``maxv`` whose longest scored row has ``max_len2``
@@ -248,6 +274,12 @@ class PlannedLaunch:
     def batch(self) -> PaddedBatch:
         """The launch's padded uint8 host arrays (made on each read)."""
         return _padded(self.seq1, self.rows, self.len2, self.l1p, self.l2p)
+
+    @property
+    def launched_cells(self) -> int:
+        """The cells its kernel computes (:func:`kernel_cells`; made on
+        each read, once a plan when it is sent to its device)."""
+        return kernel_cells(self.len1, self.len2, self.l2s)
 
 
 def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
@@ -311,7 +343,8 @@ class BucketLaunch:
     host, and where its finished rows go in the batch's ``[count, 3]``
     buffer: ``dst``, its input rows on the device (int64 [B], a view of
     the dispatch's scatter index into input order), or, when None, the
-    rows ``row0 ..`` (the dispatch's launches are in input order)."""
+    rows ``row0 ..`` (the dispatch's launches are in input order), and
+    the cells its kernel computes (:attr:`PlannedLaunch.launched_cells`)."""
 
     idx: np.ndarray
     state: ScorerState
@@ -321,6 +354,7 @@ class BucketLaunch:
     max_scored: int = 0
     dst: torch.Tensor | None = None
     row0: int = 0
+    cells: int = 0
 
 
 def max_scored(batch: PaddedBatch | PlannedLaunch) -> int:
@@ -346,7 +380,7 @@ def _to_device(plan: PlannedLaunch, feed: torch.Tensor, layout: FeedLayout, i: i
     )
     dst = None if order is None else order.narrow(0, row0, b)
     return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(plan), dst,
-                        row0)
+                        row0, plan.launched_cells)
 
 
 def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
@@ -465,7 +499,8 @@ def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
     (``ops/cuda_scorer.py``'s finished mode); a ``cuda`` launch past the
     kernels' window runs ``gather`` (:func:`effective_backend`), whose
     rows, like ``mm``'s, are finished already and are put in place by one
-    copy (``epilogue_torch_rows``)."""
+    copy (``epilogue_torch_rows``).  A launch on the kernels counts its
+    cells (``dispatch_launched_cells``)."""
     st = launch.state
     b = st.rows.shape[0]
     if done is None:
@@ -475,8 +510,11 @@ def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
     route = effective_backend(backend, launch.maxv, st.rows.shape[1], launch.max_scored)
     if route == "cuda":
         if launch.l2s is None:
-            return fused_scorer(st, done, dst, row0)
-        return packed_scorer(st, launch.l2s, done, dst, row0)
+            fused_scorer(st, done, dst, row0)
+        else:
+            packed_scorer(st, launch.l2s, done, dst, row0)
+        _count_cells(launch.cells)
+        return done
     val_flat = st.val.reshape(-1)
     if route == "mm":
         rows = mm_rows(st.seq1ext, st.len1, st.rows, st.lens, val_flat)
@@ -485,6 +523,12 @@ def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
     _obs_inc("epilogue_torch_rows", b)
     put_rows(done, rows, dst, row0)
     return done
+
+
+def _count_cells(n: int) -> None:
+    with _count_lock:  # an in-process fleet launches from several threads
+        dispatch_counts["dispatch_launched_cells"] += n
+    _obs_inc("dispatch_launched_cells", n)
 
 
 def launch_batch(launches: list[BucketLaunch], backend: str, count: int,

@@ -45,7 +45,8 @@ def test_report_counters_are_the_jax_reports(drill, tmp_path):
     builds on the card); and beside them the port's own feed counters
     (``feed_h2d_copies``, ``feed_h2d_bytes``: its one-copy byte arena) and
     ``epilogue_torch_rows`` (the rows its plain versions finish on the
-    CPU; on the card ``epilogue_kernel_rows`` counts the finish kernels')."""
+    CPU; on the card ``epilogue_kernel_rows`` counts the finish kernels'),
+    and ``dispatch_launched_cells`` (the cells its kernels compute)."""
     report = tmp_path / "jax.json"
     with open(FIXTURE, "rb") as fh:
         proc = subprocess.run([sys.executable, "-m", "mpi_openmp_cuda_tpu", "--metrics",
@@ -56,7 +57,7 @@ def test_report_counters_are_the_jax_reports(drill, tmp_path):
     jax_counters = set(json.loads(report.read_text())["counters"]) - {"recompiles"}
     rec = json.loads(drill[1][-2])
     port = set(rec["runs"]["tiny"]["counters"])
-    feed = {"feed_h2d_copies", "feed_h2d_bytes", "epilogue_torch_rows"}
+    feed = {"feed_h2d_copies", "feed_h2d_bytes", "epilogue_torch_rows", "dispatch_launched_cells"}
     assert feed <= port and port - feed == jax_counters
 
 
