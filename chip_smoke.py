@@ -54,7 +54,8 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    driven through ``scripts/torch_kernel_ablate.py``) on the max-size
    launches:
    its exact variants (``EXACT`` there) == ``fused_scorer`` exactly,
-   ``base`` within 5 % of ``fused_scorer``'s time (interleaved fused,
+   ``base`` within 5 % of ``fused_scorer``'s time at the same default
+   split (interleaved fused,
    base, base, fused), then the per-stage table with launch counts set to
    0 before it;
 8. the bench path: ``python -m mpi_openmp_cuda_tpu_torch.bench`` on the
@@ -226,7 +227,7 @@ Phases, each fatal on failure (no phase is caught and swallowed):
    limit, and a Seq2 code 27; (d) the shared-memory audit over the whole
    chooser space against the card's ``shared_memory_per_block_optin``
    (== the kernel library's own query), the model == ``fused_scorer_smem``
-   at every L2P to 12288, and each kernel's registers and static shared
+   at every L2P to 12288 and every split, and each kernel's registers and static shared
    memory (``cudaFuncGetAttributes``) held against the model;
 19. the last analysis tiers (``analysis/{costmodel,traceaudit,recompile,
    collectives,dataflow}.py``): (a) the fixtures, max-size, input3-class
@@ -312,6 +313,7 @@ The last line of stdout is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import cProfile
+import dataclasses
 import io
 import json
 import os
@@ -2807,8 +2809,6 @@ def check_phase(np, torch, cli, cs, compare, fixtures, inputs, card) -> dict[str
     after it, and one through the CLI (rc 65, the JAX CLI's stderr shape);
     (d) the shared-memory and register audit against the card's own
     attributes.  Returns the checked runs' launch counts."""
-    import dataclasses
-
     from mpi_openmp_cuda_tpu_torch.analysis import (
         OperandViolation, RowpackViolation, SmemBudgetError, SuperblockViolation,
         smem)
@@ -3039,15 +3039,19 @@ def check_phase(np, torch, cli, cs, compare, fixtures, inputs, card) -> dict[str
         fail(f"check: torch's shared_memory_per_block_optin {budget} != the "
              f"kernel library's {limit}")
     n, worst = smem.audit_chooser_space(budget=budget)
-    drift = [l2p for l2p in range(128, smem.MAX_L2P_RING + 1, 128)
-             if cs._smem_need(l2p) != smem.fused_tile_shape(l2p).smem]
+    from mpi_openmp_cuda_tpu_torch.ops.schedule import SPLITS
+
+    drift = [(l2p, split) for l2p in range(128, smem.MAX_L2P_RING + 1, 128)
+             for split in (0, *SPLITS)
+             if cs._smem_need(l2p, split) != smem.fused_tile_shape(l2p, split).smem]
     if drift:
-        fail(f"check: the smem model differs from csrc's tile_shape at L2P {drift[:8]}")
+        fail(f"check: the smem model differs from csrc's tile_shape at (L2P, split) "
+             f"{drift[:8]}")
     rows = smem.audit_attributes(smem.kernel_attributes())
     log(f"check smem audit: {n} configs within {budget} B a block (the card's "
         f"opt-in limit); worst {worst.describe()}; fused fits L2P <= "
         f"{smem.max_fused_l2p(budget)}; model == fused_scorer_smem at every L2P "
-        f"128..{smem.MAX_L2P_RING} [{card}]")
+        f"128..{smem.MAX_L2P_RING} and split [{card}]")
     for r in rows:
         log(f"check kernel attributes {r['kernel']}: {r['registers']} registers "
             f"(ptxas {r['expected_registers']}, cap {r['register_cap']}), static "
@@ -3538,9 +3542,13 @@ def ablation_phase(torch, cs, time_ms, bound_ms, launches, card):
     log(f"ablation: {', '.join(abl.EXACT)} == fused_scorer on the "
         f"{len(launches)} max-size launches; every variant ran")
 
+    # The ablation's variants run at the width's default split; so does
+    # the fused scorer it is held against.
+    states = [dataclasses.replace(b.state, split=None) for b in launches]
+
     def fused():
-        for b in launches:
-            cs.fused_scorer(b.state)
+        for st in states:
+            cs.fused_scorer(st)
 
     f0, b0, b1, f1 = (time_ms(fn, reps=20) for fn in (
         fused, lambda: abl.run_all(launches, "base"),

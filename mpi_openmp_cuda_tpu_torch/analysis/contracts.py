@@ -180,13 +180,14 @@ def _key_width(key: int) -> int:
     return _LANE if key < _LANE else int(key)
 
 
-def check_launch_group(keys, l1p: int, l2p: int, l2s: int | None) -> None:
+def check_launch_group(keys, l1p: int, l2p: int, l2s: int | None,
+                       split: int | None = None) -> None:
     """A launch group the fused (or packed) kernel can run as
     ``ops/cuda_scorer.py`` launches it: every member bucket's width within
     the group's L2P, L2P a multiple of 128 (the fused kernel's 16-byte
     loads need a multiple of 4), L1P whole 128-offset tiles, and the
-    kernel's segment and cluster split (``smem.fused_tile_shape``)
-    covering every char of L2P."""
+    kernel's segment and cluster split at ``split`` (None: the width's
+    default; ``smem.fused_tile_shape``) covering every char of L2P."""
     from .smem import fused_tile_shape
 
     if l2p <= 0 or l2p % _LANE:
@@ -207,7 +208,7 @@ def check_launch_group(keys, l1p: int, l2p: int, l2s: int | None) -> None:
                 "widest member (schedule.plan_fusion_groups)"
             )
     if l2s is None:
-        shape = fused_tile_shape(l2p)
+        shape = fused_tile_shape(l2p, split)
         if shape.nblk * shape.nseg < shape.nsegt or shape.nblk * shape.s2n < l2p:
             raise SuperblockViolation(
                 f"the fused kernel's split at L2P={l2p} (clusters of "
@@ -288,7 +289,7 @@ def check_operands(seq1ext: np.ndarray, len1: int, rows: np.ndarray,
 def validate_launch(*, backend: str, route: str, maxv: int, keys, l1p: int,
                     l2s: int | None, seq1ext: np.ndarray, len1: int,
                     rows: np.ndarray, lens: np.ndarray, max_scored: int,
-                    smem_budget: int | None = None) -> None:
+                    smem_budget: int | None = None, split: int | None = None) -> None:
     """Validate ONE concrete launch decision on its host arrays; raises a
     distinct :class:`ContractViolation` subclass (or
     :class:`~.SmemBudgetError`) per violated gate."""
@@ -300,8 +301,8 @@ def validate_launch(*, backend: str, route: str, maxv: int, keys, l1p: int,
     check_exactness(route, maxv, max_scored, l2p)
     if route == "cuda":
         check_rowpack(l2p, l2s, lens, maxv)
-        check_launch_group(keys, l1p, l2p, l2s)
-        smem.check_launch(l2p, l2s, budget=smem_budget)
+        check_launch_group(keys, l1p, l2p, l2s, split)
+        smem.check_launch(l2p, l2s, budget=smem_budget, split=split)
 
 
 def validate_plans(val_flat, plans, backend: str, device=None) -> None:
@@ -322,7 +323,7 @@ def validate_plans(val_flat, plans, backend: str, device=None) -> None:
             backend=backend, route=route, maxv=maxv, keys=plan.keys, l1p=b.l1p,
             l2s=plan.l2s if backend == "cuda" else None, seq1ext=b.seq1ext,
             len1=b.len1, rows=b.seq2, lens=b.len2, max_scored=longest,
-            smem_budget=budget,
+            smem_budget=budget, split=plan.split,
         )
 
 

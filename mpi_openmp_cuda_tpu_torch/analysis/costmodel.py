@@ -88,15 +88,18 @@ def nvlink_collective_wall_s(op: str, payload_bytes: int, axis_size: int) -> flo
     raise CostModelError(f"no NVLink cost rule for collective {op!r}")
 
 
-def _price(formulation: str, len1: int, lens, l1p: int, l2p: int):
-    """``(counts, bound_s, bound_by, model_s, model)`` of one launch."""
+def _price(formulation: str, len1: int, lens, l1p: int, l2p: int,
+           split: int | None = None):
+    """``(counts, bound_s, bound_by, model_s, model)`` of one launch (a
+    fused one at ``split``, None for its width's default)."""
     from ..ops.costs import bound_seconds, shape_counts
     from ..ops.schedule import LAUNCH_US, launch_us
 
     counts = shape_counts(len1, lens, l1p, l2p)
     bound_s, term = bound_seconds(counts)
     if formulation == "cuda-fused":
-        return counts, bound_s, term, launch_us(len1, lens, l2p) * 1e-6, "launch-model"
+        return (counts, bound_s, term, launch_us(len1, lens, l2p, split) * 1e-6,
+                "launch-model")
     if formulation == "cuda-packed":
         return counts, bound_s, term, LAUNCH_US * 1e-6 + bound_s, "launch+bound"
     raise CostModelError(
@@ -289,7 +292,7 @@ def schedule_cost_sheet(problem, backend: str = "cuda") -> dict:
     by_kernel: dict[str, int] = {}
     for c in cfgs:
         counts, bound_s, term, model_s, model = _price(
-            c.formulation, c.len1, list(c.lens), c.l1p, c.l2p)
+            c.formulation, c.len1, list(c.lens), c.l1p, c.l2p, c.split)
         priced.append(model_s)
         buckets.append({
             "formulation": c.formulation,

@@ -95,9 +95,13 @@ def _block_chars(l2p: int, nseg: int, nblk: int) -> int:
     return ((l2p // nblk + 3) & ~3) + 4 * nseg + SEG_CHARS
 
 
-def fused_tile_shape(l2p: int) -> TileShape:
-    """``csrc/fused_kernels.cuh::tile_shape`` in Python."""
+def fused_tile_shape(l2p: int, split: int | None = None) -> TileShape:
+    """``csrc/fused_kernels.cuh::tile_shape`` in Python: at the width's
+    default split (one segment a ``SEG_CHARS`` chars, at most ``MAX_SEG *
+    CLUSTER``), or at ``split`` segments where that is fewer."""
     nsegt = min(-(-l2p // SEG_CHARS), MAX_SEG * CLUSTER)
+    if split:
+        nsegt = min(nsegt, split)
     nblk = CLUSTER if nsegt > MAX_SEG else 1
     nseg = -(-nsegt // nblk)
     s2n = _block_chars(l2p, nseg, nblk)
@@ -140,9 +144,11 @@ class SmemEstimate:
         )
 
 
-def estimate_fused(l2p: int, kind: str = "fused", budget: int = H100_SMEM_OPTIN):
-    """The fused tile and finish kernels at width ``l2p``."""
-    shape = fused_tile_shape(l2p)
+def estimate_fused(l2p: int, kind: str = "fused", budget: int = H100_SMEM_OPTIN,
+                   split: int | None = None):
+    """The fused tile and finish kernels at width ``l2p`` and ``split``
+    (None: the width's default)."""
+    shape = fused_tile_shape(l2p, split)
     return (
         SmemEstimate("fused_tile", kind, l2p, None, shape.nseg * 32, shape.smem, 0,
                      budget),
@@ -252,13 +258,15 @@ def _card_budget(index: int) -> int:
     return budget
 
 
-def check_launch(l2p: int, l2s: int | None, budget: int | None = None) -> SmemEstimate:
-    """Model ONE concrete launch (the ``--check`` hook) and raise
+def check_launch(l2p: int, l2s: int | None, budget: int | None = None,
+                 split: int | None = None) -> SmemEstimate:
+    """Model ONE concrete launch (the ``--check`` hook; a fused launch at
+    ``split``, None for its width's default) and raise
     :class:`SmemBudgetError` when its block needs more shared memory than
     ``budget`` (the H100's when None)."""
     budget = H100_SMEM_OPTIN if budget is None else int(budget)
     tile = (estimate_packed(l2s, budget=budget) if l2s is not None
-            else estimate_fused(l2p, budget=budget))[0]
+            else estimate_fused(l2p, budget=budget, split=split))[0]
     if tile.total_bytes > budget:
         raise SmemBudgetError(
             f"dispatch planned a launch past the card's shared memory: "

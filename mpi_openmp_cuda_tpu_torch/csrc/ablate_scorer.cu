@@ -26,7 +26,8 @@
 
 #include "fused_kernels.cuh"
 
-// var: a fused::Variant id.  The operands are those of fused::launch;
+// var: a fused::Variant id.  The operands are those of fused::launch at
+// the width's default split;
 // partial holds [batch, ntiles, 2] int32 words, or [batch, ntiles, 128, 2]
 // for noreduce.  Returns the first CUDA error of the launches (0 on
 // success).
@@ -42,7 +43,7 @@ extern "C" int ablate_scorer_launch(int var, const unsigned char* seq1ext,
 #define ABLATE_CASE(V)                                                   \
   case V:                                                                \
     return static_cast<int>(launch<V>(seq1ext, len1, rows, lens, batch,  \
-                                      l2p, ntiles, val, partial, out,    \
+                                      l2p, 0, ntiles, val, partial, out, \
                                       nullptr, nullptr, 0, stream));
     ABLATE_CASE(base)
     ABLATE_CASE(nostage)

@@ -61,6 +61,10 @@
 //    plain max, associative, with no tie rule.  The offset at a tile's
 //    right edge needs the first diagonal of the next tile: lane 31 computes
 //    it redundantly (its kR + 1-th), no cluster reads another's result.
+//    The number of segments, the split, is the caller's (ops/schedule.py
+//    chooses it per launch from its rows' lengths): the width's default,
+//    a segment a kSegChars chars of the width, leaves most warps of a
+//    short row in a wide launch idle.  Any split scores the same rows.
 //  * First hit over offsets only.  Warp 0 reduces (score, n), the smaller n
 //    winning ties, to one partial [score, n] per (pair, tile).  A second
 //    kernel, one block per pair, walks the pair's live tiles in ascending
@@ -512,10 +516,10 @@ finish_kernel(const unsigned char* __restrict__ seq1ext, int len1,
   }
 }
 
-// The tile kernel's launch shape at row width l2p: the blocks of a (pair,
-// tile) cluster, the segments (warps) a block, and its dynamic shared
-// memory, 4 * (732 + s2n + nblk * nseg * 9 * 32) + 128 + s2n bytes with
-// s2n = block_chars(l2p, nseg, nblk): 26.9 KB at the Seq2 cap (l2p =
+// The tile kernel's launch shape at row width l2p and split: the blocks of
+// a (pair, tile) cluster, the segments (warps) a block, and its dynamic
+// shared memory, 4 * (732 + s2n + nblk * nseg * 9 * 32) + 128 + s2n bytes
+// with s2n = block_chars(l2p, nseg, nblk): 26.9 KB at the Seq2 cap (l2p =
 // 2048, 2 x 8 segments), 52.5 KB at l2p = 12288.
 struct TileShape {
   int nblk;
@@ -524,13 +528,23 @@ struct TileShape {
 };
 
 constexpr size_t kDefaultSmem = 48 * 1024;  // a launch's without opting in
+constexpr int kMaxSplit = kMaxSeg * kCluster;
 
-inline TileShape tile_shape(int l2p) {
-  // Segments a (pair, tile), and the blocks they are spread over: short
-  // rows stay in one block (a second one would stage the table again for
-  // a few chars each).
-  int nsegt = (l2p + kSegChars - 1) / kSegChars;
-  nsegt = nsegt > kMaxSeg * kCluster ? kMaxSeg * kCluster : nsegt;
+// The default split at row width l2p: a segment a kSegChars chars of the
+// width, at most kMaxSplit.
+inline int default_split(int l2p) {
+  const int nsegt = (l2p + kSegChars - 1) / kSegChars;
+  return nsegt > kMaxSplit ? kMaxSplit : nsegt;
+}
+
+inline TileShape tile_shape(int l2p, int split = 0) {
+  // Segments a (pair, tile): the caller's split (0: the width's default),
+  // never past the default, where the warps beyond it would find no chars
+  // of a row (a segment takes kSegChars at least); spread over blocks:
+  // short rows stay in one block (a second one would stage the table again
+  // for a few chars each).
+  const int most = default_split(l2p);
+  const int nsegt = split > 0 && split < most ? split : most;
   const int nblk = nsegt > kMaxSeg ? kCluster : 1;
   const int nseg = (nsegt + nblk - 1) / nblk;
   const int s2n = block_chars(l2p, nseg, nblk);
@@ -540,23 +554,25 @@ inline TileShape tile_shape(int l2p) {
 }
 
 // seq1ext: [ntiles * 128 + l2p + 1] uint8 codes; rows: [batch, l2p] uint8
-// codes, l2p a multiple of 4; lens: [batch] int32; val: [27 * 27] int32 with
-// row/col 0 zeroed; partial: [batch, ntiles, 2] int32 scratch ([batch,
-// ntiles, 128, 2] for noreduce); out: [batch, 4] int32, the raw rows (with
-// done, the tile kernel's eq alone).  done: nullptr, or int32 [count, 3]
-// that takes each pair's finished row at dst[b] (int64 [batch]) or, with
-// dst nullptr, at row0 + b (finish_rows.cuh).  Returns the first CUDA error
-// of the launches.
+// codes, l2p a multiple of 4; split: the segments a (pair, tile), 1 ..
+// kMaxSplit, or 0 for the width's default (tile_shape); lens: [batch]
+// int32; val: [27 * 27] int32 with row/col 0 zeroed; partial: [batch,
+// ntiles, 2] int32 scratch ([batch, ntiles, 128, 2] for noreduce); out:
+// [batch, 4] int32, the raw rows (with done, the tile kernel's eq alone).
+// done: nullptr, or int32 [count, 3] that takes each pair's finished row
+// at dst[b] (int64 [batch]) or, with dst nullptr, at row0 + b
+// (finish_rows.cuh).  Returns the first CUDA error of the launches.
 template <int VAR>
 cudaError_t launch(const unsigned char* seq1ext, int len1,
                    const unsigned char* rows, const int* lens, int batch,
-                   int l2p, int ntiles, const int* val, int* partial,
+                   int l2p, int split, int ntiles, const int* val, int* partial,
                    int* out, int* done, const long long* dst, int row0,
                    cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
   // The 16-byte Seq2 loads and the packed window need whole groups of 4.
-  if (l2p % 4 != 0) return cudaErrorInvalidValue;
-  const TileShape shape = tile_shape(l2p);
+  if (l2p % 4 != 0 || split < 0 || split > kMaxSplit)
+    return cudaErrorInvalidValue;
+  const TileShape shape = tile_shape(l2p, split);
   const int nblk = shape.nblk;
   const int nseg = shape.nseg;
   const size_t smem = shape.smem;

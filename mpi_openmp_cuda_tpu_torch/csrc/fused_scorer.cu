@@ -13,24 +13,27 @@
 
 #include "fused_kernels.cuh"
 
-// The operands are those of fused::launch: with done nullptr the raw [B, 4]
-// rows in out, else the finished rows at their input positions in done.
+// The operands are those of fused::launch: split the segments a (pair,
+// tile), 0 for the width's default; with done nullptr the raw [B, 4] rows
+// in out, else the finished rows at their input positions in done.
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int fused_scorer_launch(const unsigned char* seq1ext,
                                    int len1,
                                    const unsigned char* rows, const int* lens,
-                                   int batch, int l2p, int ntiles,
+                                   int batch, int l2p, int split,
+                                   int ntiles,
                                    const int* val, int* partial, int* out,
                                    int* done, const long long* dst, int row0,
                                    cudaStream_t stream) {
   return static_cast<int>(fused::launch<fused::base>(
-      seq1ext, len1, rows, lens, batch, l2p, ntiles, val, partial, out, done,
-      dst, row0, stream));
+      seq1ext, len1, rows, lens, batch, l2p, split, ntiles, val, partial, out,
+      done, dst, row0, stream));
 }
 
-// Dynamic shared memory a tile block takes at row width l2p, in bytes.
-extern "C" long long fused_scorer_smem(int l2p) {
-  return static_cast<long long>(fused::tile_shape(l2p).smem);
+// Dynamic shared memory a tile block takes at row width l2p and split (0:
+// the width's default), in bytes.
+extern "C" long long fused_scorer_smem(int l2p, int split) {
+  return static_cast<long long>(fused::tile_shape(l2p, split).smem);
 }
 
 // Dynamic shared memory the current device allows a block after opting

@@ -88,7 +88,10 @@ class ScorerState:
     zeroed, so padded positions add nothing and no kernel needs a per-char
     mask.  Codes are 0..26, exact in a byte; every sum is int32.
     ``max_len2`` is the longest row, known on the host (the packed
-    kernel's class check)."""
+    kernel's class check).  ``split``: the segments a (pair, tile) the
+    fused kernel runs for these rows, 1 .. 16
+    (``schedule.choose_split``), None for its width's default; the rows
+    scored do not depend on it."""
 
     seq1ext: torch.Tensor
     len1: int
@@ -96,6 +99,7 @@ class ScorerState:
     lens: torch.Tensor
     val: torch.Tensor
     max_len2: int
+    split: int | None = None
 
     @property
     def l1p(self) -> int:
@@ -330,11 +334,11 @@ _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 # int32 words of one (pair, tile) partial of either kernel: [score, n].
 _PARTIAL_WORDS = 2
 _ARGTYPES = {
-    # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, ntiles, val,
-    # partial, out, done, dst (int64), row0, stream
+    # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, split, ntiles,
+    # val, partial, out, done, dst (int64), row0, stream
     "fused_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
-                     _POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _INT,
-                     _POINTER),
+                     _INT, _POINTER, _POINTER, _POINTER, _POINTER, _POINTER,
+                     _INT, _POINTER),
     # seq1ext (uint8), len1, rows (uint8), lens, batch, l2p, l2s, ntiles,
     # val, partial, out, done, dst (int64), row0, stream
     "packed_scorer": (_POINTER, _INT, _POINTER, _POINTER, _INT, _INT, _INT,
@@ -390,7 +394,8 @@ def call_entry(fn, state: ScorerState, *extra: int, done=None, dst=None,
     """One launch of a typed scorer entry on the state's CUDA device: [B, 4]
     rows, or with ``done`` the finished rows written at ``dst`` (or from
     ``row0`` on) and ``done`` returned.  ``extra`` are the kernel's own int
-    arguments after ``l2p``.  It counts nothing: the sweep scripts call
+    arguments after ``l2p`` (the fused kernel's split, 0 for its width's
+    default; the packed kernel's class).  It counts nothing: the sweep scripts call
     their own builds through it."""
     _check_dtypes(state)
     if done is not None:
@@ -430,13 +435,13 @@ def _smem_entries():
     lib = _build.load("fused_scorer")
     need, limit = lib.fused_scorer_smem, lib.fused_scorer_smem_limit
     need.restype = limit.restype = ctypes.c_longlong
-    need.argtypes, limit.argtypes = [_INT], []
+    need.argtypes, limit.argtypes = [_INT, _INT], []
     return need, limit
 
 
 @functools.cache
-def _smem_need(l2p: int) -> int:
-    return int(_smem_entries()[0](l2p))
+def _smem_need(l2p: int, split: int = 0) -> int:
+    return int(_smem_entries()[0](l2p, split))
 
 
 @functools.cache
@@ -449,27 +454,29 @@ def _smem_limit(device: torch.device) -> int:
 
 
 # A launch's dynamic shared memory without opting in (kDefaultSmem in
-# csrc/fused_kernels.cuh); the widths past it that opted in so far.
+# csrc/fused_kernels.cuh); the (width, split) launches past it that opted
+# in so far.
 DEFAULT_SMEM = 48 * 1024
-_opted_in: set[int] = set()
+_opted_in: set[tuple[int, int]] = set()
 
 
-def check_smem(state: ScorerState) -> int:
-    """The tile kernel's dynamic shared memory at the state's L2P, in
-    bytes, or ``KernelUnavailableError`` when the state's card cannot give
-    a block that much (on the H100, L2P past 84,224).  The first launch
-    of a width past :data:`DEFAULT_SMEM` opts the kernel in to more, a
-    setup ``_build.build_count`` counts."""
+def check_smem(state: ScorerState, split: int = 0) -> int:
+    """The tile kernel's dynamic shared memory at the state's L2P and
+    ``split`` (0: the width's default), in bytes, or
+    ``KernelUnavailableError`` when the state's card cannot give a block
+    that much (on the H100, L2P past 84,224 at the default split).  The
+    first launch of a shape past :data:`DEFAULT_SMEM` opts the kernel in
+    to more, a setup ``_build.build_count`` counts."""
     l2p = state.rows.shape[1]
-    need = _smem_need(l2p)
+    need = _smem_need(l2p, split)
     limit = _smem_limit(state.rows.device)
     if need > limit:
         raise KernelUnavailableError(
             f"fused_scorer: a Seq2 bucket of width L2P {l2p} needs {need} bytes of "
             f"shared memory a block, more than the {limit} this card allows"
         )
-    if need > DEFAULT_SMEM and l2p not in _opted_in:
-        _opted_in.add(l2p)
+    if need > DEFAULT_SMEM and (l2p, split) not in _opted_in:
+        _opted_in.add((l2p, split))
         _build.note_setup()
     return need
 
@@ -486,14 +493,16 @@ def load_kernels() -> None:
 def fused_scorer(state: ScorerState, done=None, dst=None, row0: int = 0) -> torch.Tensor:
     """[B, 4] int32 rows from ``csrc/fused_scorer.cu`` (CUDA tensors) or
     :func:`fused_scorer_plain` (CPU tensors); with ``done``, the finished
-    rows written there (the module's note) and ``done`` returned."""
+    rows written there (the module's note) and ``done`` returned.  The
+    kernel runs at the state's split."""
     if _device_of(state) == "cpu":
         return fused_scorer_plain(state, done, dst, row0)
     if state.rows.shape[1] % 4:
         raise ValueError(
             f"fused_scorer needs L2P a multiple of 4, got {state.rows.shape[1]}")
-    check_smem(state)
-    return _launch("fused_scorer", state, done=done, dst=dst, row0=row0)
+    split = state.split or 0  # 0: the width's default
+    check_smem(state, split)
+    return _launch("fused_scorer", state, split, done=done, dst=dst, row0=row0)
 
 
 def packed_scorer(state: ScorerState, l2s: int, done=None, dst=None,

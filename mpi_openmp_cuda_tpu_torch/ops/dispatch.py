@@ -43,7 +43,8 @@ card is measured), the ``chunks_dispatched``, ``feed_prestages``,
 ``feed_prestage_hits``, ``feed_h2d_copies``, ``feed_h2d_bytes`` and
 ``epilogue_torch_rows`` (the rows of an ``mm`` or ``gather`` route;
 ``ops/cuda_scorer.py`` counts the others) counters, the
-``dispatch_launched_cells`` counter (:data:`dispatch_counts`, kept in
+``dispatch_launched_cells``, ``dispatch_launched_warp_chars`` and
+``dispatch_narrowed_launches`` counters (:data:`dispatch_counts`, kept in
 every run), the
 ``config_fused_groups`` and ``config_rowpack`` gauges, and one trace
 launch per launch group, from its dispatch to the batch's rows on the
@@ -90,11 +91,15 @@ MIN_BUCKET_ROWS = 8
 # Seconds between polls of a result's CUDA event while a watchdog runs.
 _POLL_S = 50e-6
 
-# The cells the kernels computed, in every run (as ``cuda_scorer.launch_counts``
+# What the kernels were handed, in every run (as ``cuda_scorer.launch_counts``
 # counts launches): ``dispatch_launched_cells`` sums each launch's
-# :attr:`PlannedLaunch.launched_cells` as the kernels run it; with the obs
-# plane armed the run report and the serve ``metrics`` verb count it too.
-dispatch_counts = {"dispatch_launched_cells": 0}
+# :attr:`PlannedLaunch.launched_cells` as the kernels run it,
+# ``dispatch_launched_warp_chars`` its :attr:`PlannedLaunch.
+# launched_warp_chars`, and ``dispatch_narrowed_launches`` counts the fused
+# launches run below their width's default split; with the obs plane armed
+# the run report and the serve ``metrics`` verb count them too.
+dispatch_counts = {"dispatch_launched_cells": 0, "dispatch_launched_warp_chars": 0,
+                   "dispatch_narrowed_launches": 0}
 _count_lock = threading.Lock()
 
 
@@ -247,8 +252,10 @@ def admit(seq1_codes, seq2_codes, weights, *, caps: bool = True) -> np.ndarray:
 @dataclass(frozen=True)
 class PlannedLaunch:
     """One launch planned on the host: its bucket keys, the input rows it
-    scores (ascending), their codes and lengths, its row width and its
-    packing class.  The feed writes the codes straight into its arena
+    scores (ascending), their codes and lengths, its row width, its
+    packing class, and the fused kernel's split (segments a (pair, tile),
+    chosen with its launch group by ``schedule.fusion_plan``; None: its
+    width's default).  The feed writes the codes straight into its arena
     (``ops/feed.py``); :attr:`batch` pads them into host arrays for
     ``--check``.  A mesh shard's plan (``parallel/sharding.py::shard_plans``)
     ends in padding rows of length 0, which have no input row: its ``idx``
@@ -261,6 +268,7 @@ class PlannedLaunch:
     len2: np.ndarray  # [B] int32
     l2p: int
     l2s: int | None
+    split: int | None = None
 
     @property
     def len1(self) -> int:
@@ -281,6 +289,19 @@ class PlannedLaunch:
         each read, once a plan when it is sent to its device)."""
         return kernel_cells(self.len1, self.len2, self.l2s)
 
+    @property
+    def launched_warp_chars(self) -> int:
+        """The chars its kernel hands its warps, as the loop bounds set
+        them: in the fused kernel each live (pair, tile) cluster's warps
+        times its row's segment (``schedule.warp_chars``), in the packed
+        kernel each live (pair, tile)'s one warp its row's chars rounded
+        up to 4 (:func:`kernel_cells` over the tile's 128 offsets)."""
+        if self.l2s is not None:
+            return self.launched_cells // TILE
+        from .schedule import warp_chars
+
+        return warp_chars(self.len1, self.len2, self.l2p, self.split)
+
 
 def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
                  fuse: bool = True, packable: bool = True,
@@ -290,16 +311,17 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     the whole batch, over its scored rows (an error names the caller's
     input index before anything is launched), rows grouped by
     :func:`plan_buckets` (``packable`` and ``min_rows`` passed on), fused
-    buckets partitioned into launch groups by
-    ``schedule.plan_fusion_groups`` (``cuda`` only; ``fuse=False`` keeps
+    buckets partitioned into launch groups by ``schedule.fusion_plan``
+    (``cuda`` only; ``fuse=False`` keeps
     one launch a bucket, the schedule the groups are held against; each
     group priced at one of ``devices`` cards' shard of its rows), each
-    group's row width that of its longest row and its kernel chosen by
-    :func:`choose_rowpack` (``cuda`` and ``packable`` only).  A mesh plans
+    group's row width that of its longest row, its kernel chosen by
+    :func:`choose_rowpack` (``cuda`` and ``packable`` only) and a fused
+    launch's split chosen with its group at that shard (``cuda`` only).  A mesh plans
     with ``packable=False``, its sharding's ``min_rows`` and its device
     count.  Records nothing: the warm plane plans launches it does not
     dispatch (``aot/warmset.py``)."""
-    from .schedule import plan_fusion_groups
+    from .schedule import choose_split, fusion_plan, shard_lens
 
     val_flat = admit(seq1_codes, seq2_codes, weights, caps=caps)
     if not seq2_codes:
@@ -309,16 +331,20 @@ def launch_plans(seq1_codes, seq2_codes, weights, backend: str = "cuda", *,
     cuda = backend == "cuda"
     pack = cuda and packable
     groups = plan_buckets(sizes, packable=pack, min_rows=min_rows)
-    group_keys = (plan_fusion_groups(groups, sizes, int(seq1_codes.size), devices)
-                  if cuda and fuse else [(k,) for k in sorted(groups)])
+    group_plan = (fusion_plan(groups, sizes, int(seq1_codes.size), devices)
+                  if cuda and fuse else [((k,), None) for k in sorted(groups)])
     plans = []
-    for keys in group_keys:
+    for keys, split in group_plan:
         idx = np.asarray(sorted(i for k in keys for i in groups[k]), dtype=np.int64)
         len2 = lens[idx]
         l2p = round_up(int(len2.max()), _LANE)
         l2s = choose_rowpack(l2p, len2) if pack else None
+        if not cuda or l2s is not None:
+            split = None
+        elif not split:  # one launch a bucket, or a class key left to the fused kernel
+            split = choose_split(int(seq1_codes.size), shard_lens(len2, devices), l2p)[0]
         plans.append(PlannedLaunch(tuple(keys), idx, seq1_codes,
-                                   tuple(seq2_codes[i] for i in idx), len2, l2p, l2s))
+                                   tuple(seq2_codes[i] for i in idx), len2, l2p, l2s, split))
     return val_flat, plans
 
 
@@ -344,7 +370,9 @@ class BucketLaunch:
     buffer: ``dst``, its input rows on the device (int64 [B], a view of
     the dispatch's scatter index into input order), or, when None, the
     rows ``row0 ..`` (the dispatch's launches are in input order), and
-    the cells its kernel computes (:attr:`PlannedLaunch.launched_cells`)."""
+    the cells its kernel computes and the chars it hands its warps
+    (:attr:`PlannedLaunch.launched_cells`, ``.launched_warp_chars``).  The
+    fused kernel's split rides on its state (``ScorerState.split``)."""
 
     idx: np.ndarray
     state: ScorerState
@@ -355,6 +383,7 @@ class BucketLaunch:
     dst: torch.Tensor | None = None
     row0: int = 0
     cells: int = 0
+    warp_chars: int = 0
 
 
 def max_scored(batch: PaddedBatch | PlannedLaunch) -> int:
@@ -377,10 +406,11 @@ def _to_device(plan: PlannedLaunch, feed: torch.Tensor, layout: FeedLayout, i: i
         lens=view(feed, layout.lens[i], b, torch.int32),
         val=val,
         max_len2=int(plan.len2.max()),
+        split=plan.split,
     )
     dst = None if order is None else order.narrow(0, row0, b)
     return BucketLaunch(plan.idx, state, plan.l2s, plan.keys, maxv, max_scored(plan), dst,
-                        row0, plan.launched_cells)
+                        row0, plan.launched_cells, plan.launched_warp_chars)
 
 
 def operand_digest(seq1_codes, seq2_codes, weights, backend: str) -> bytes:
@@ -500,7 +530,8 @@ def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
     kernels' window runs ``gather`` (:func:`effective_backend`), whose
     rows, like ``mm``'s, are finished already and are put in place by one
     copy (``epilogue_torch_rows``).  A launch on the kernels counts its
-    cells (``dispatch_launched_cells``)."""
+    cells, its warps' chars and, run below its width's default split,
+    itself (:data:`dispatch_counts`)."""
     st = launch.state
     b = st.rows.shape[0]
     if done is None:
@@ -513,7 +544,7 @@ def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
             fused_scorer(st, done, dst, row0)
         else:
             packed_scorer(st, launch.l2s, done, dst, row0)
-        _count_cells(launch.cells)
+        _count_launch(launch)
         return done
     val_flat = st.val.reshape(-1)
     if route == "mm":
@@ -525,10 +556,20 @@ def run_launch(launch: BucketLaunch, backend: str, done=None) -> torch.Tensor:
     return done
 
 
-def _count_cells(n: int) -> None:
+def _count_launch(launch: BucketLaunch) -> None:
+    from .schedule import segments
+
+    split = launch.state.split
+    narrowed = int(launch.l2s is None and split is not None
+                   and split < segments(launch.state.rows.shape[1]))
+    counts = {"dispatch_launched_cells": launch.cells,
+              "dispatch_launched_warp_chars": launch.warp_chars,
+              "dispatch_narrowed_launches": narrowed}
     with _count_lock:  # an in-process fleet launches from several threads
-        dispatch_counts["dispatch_launched_cells"] += n
-    _obs_inc("dispatch_launched_cells", n)
+        for name, n in counts.items():
+            dispatch_counts[name] += n
+    for name, n in counts.items():
+        _obs_inc(name, n)
 
 
 def launch_batch(launches: list[BucketLaunch], backend: str, count: int,

@@ -167,8 +167,10 @@ class RingSharding:
         for s in slots:
             d, st = s % sp, states[s]
             if kernel:
+                # A window runs at its width's default split: the plan's
+                # was chosen for the whole Seq1, not a window of it.
                 raw = fused_scorer(dataclasses.replace(
-                    st, seq1ext=wins[s][: bs + l2p + 1], len1=len1 - d * bs))
+                    st, seq1ext=wins[s][: bs + l2p + 1], len1=len1 - d * bs, split=None))
                 raw[:, 1] += d * bs  # block-local offset -> global
                 cands[s] = raw
             else:

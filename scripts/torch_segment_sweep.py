@@ -99,7 +99,7 @@ def main(argv=None) -> int:
     for name, fn in builds.items():
         for tag, launches in work.items():
             for launch, ref in zip(launches, want[tag]):
-                if not torch.equal(cs.call_entry(fn, launch.state), ref):
+                if not torch.equal(cs.call_entry(fn, launch.state, 0), ref):
                     raise RuntimeError(f"{name} differs from plain on {tag}")
     print(f"card {card}; {len(builds)} builds == plain on "
           f"{ {t: len(ls) for t, ls in work.items()} } launches", flush=True)
@@ -108,7 +108,7 @@ def main(argv=None) -> int:
         for name, fn in builds.items():
             for tag, launches in work.items():
                 ms[name][tag].append(time_ms(
-                    lambda: [cs.call_entry(fn, b.state) for b in launches], args.reps))
+                    lambda: [cs.call_entry(fn, b.state, 0) for b in launches], args.reps))
     rows = {name: {tag: statistics.median(v) for tag, v in per.items()}
             for name, per in ms.items()}
     for name, per in rows.items():

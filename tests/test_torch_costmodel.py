@@ -155,7 +155,7 @@ def test_launch_config_key_is_the_warm_manifest_key():
         assert cfg.cache_key == entry.cache_key == (cfg.formulation, cfg.l2p, cfg.l2s)
         assert cfg.executable_key == entry.executable_key
         if cfg.formulation == "cuda-fused":
-            assert cfg.cluster == schedule.cluster_shape(cfg.l2p) and cfg.l2s is None
+            assert cfg.cluster == schedule.cluster_shape(cfg.l2p, cfg.split) and cfg.l2s is None
         else:
             assert cfg.cluster is None and cfg.l2s in dispatch.pack_classes()
 

@@ -237,7 +237,8 @@ def _stub_card(mp):
     (computed here from the raw rows, not through ``finish_rows``)."""
 
     def entry(fn, state, *extra, done=None, dst=None, row0=0):
-        width = extra[0] if extra else state.rows.shape[1]
+        # The packed kernel's extra argument is its class; the fused one's its split.
+        width = extra[0] if fn == "packed_scorer" else state.rows.shape[1]
         raw = cs._kernel_rows(state.seq1ext, state.len1, state.rows[:, :width], state.lens,
                               state.val, state.l1p)
         if done is None:
@@ -250,7 +251,7 @@ def _stub_card(mp):
         return done
 
     mp.setattr(cs, "_device_of", lambda st: "cuda")
-    mp.setattr(cs, "check_smem", lambda st: 0)
+    mp.setattr(cs, "check_smem", lambda st, split=0: 0)
     mp.setattr(cs, "_entry", lambda name: name)
     mp.setattr(cs, "call_entry", entry)
 

@@ -328,8 +328,8 @@ COUNTED = {
     "three_buckets": (400, list(np.random.default_rng(9).permutation(
         [3 + 3 * i for i in range(33)] + [130 + 3 * i for i in range(32)]
         + [260 + 3 * i for i in range(35)])), [(384, 100, 3)]),
-    "two_groups": (2000, [3 + i % 60 for i in range(130)] + [1900 + i % 90 for i in range(130)],
-                   [(128, 130, 1), (2048, 130, 2)]),
+    "two_groups": (2000, [3 + i % 60 for i in range(300)] + [1900 + i % 90 for i in range(130)],
+                   [(128, 300, 1), (2048, 130, 2)]),
 }
 
 

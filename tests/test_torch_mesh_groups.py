@@ -71,6 +71,36 @@ def test_the_mesh_cells_job_is_one_launch_group_a_card(seed, monkeypatch):
     assert sorted(i for b in launched for i in b.idx) == list(range(256))
 
 
+@pytest.mark.parametrize("seed", [4294967311, 2**31 + 5, 2718281833])
+def test_the_mesh_cells_card_launches_run_narrowed(seed, monkeypatch):
+    """Each card's shard of the cell's job is 64 rows of 1200-1999 chars
+    against Seq1 3000, batch-long's job: the chooser runs it at 8 segments
+    in one block, as it runs batch-long's, so a dispatch counts four
+    narrowed launches, one a card, and the chars each hands its warps at
+    that split.  The fused kernel is stubbed; the launches are counted as
+    they run."""
+    s1, seqs, w = _cell_job(seed)
+    mesh = sharding.BatchSharding.over_devices(devices=[CPU] * 4)
+    launched = []
+    run = sharding.run_launch
+    monkeypatch.setattr(dispatch, "fused_scorer", lambda *a: None)
+    monkeypatch.setattr(sharding, "run_launch",
+                        lambda launch, backend, done: launched.append(launch)
+                        or run(launch, backend, done))
+    before = dict(dispatch.dispatch_counts)
+    dispatch.AlignmentScorer("cuda", device="cpu", sharding=mesh).score_codes_async(s1, seqs, w)
+    got = {k: v - before[k] for k, v in dispatch.dispatch_counts.items()}
+    assert len(launched) == 4
+    for b in launched:
+        lens = b.state.lens.numpy()
+        assert b.state.rows.shape == (64, 2048) and b.state.split == 8
+        assert b.state.split == schedule.choose_split(3000, lens, 2048)[0]
+        assert schedule.cluster_shape(2048, b.state.split) == (1, 8)
+    assert got["dispatch_narrowed_launches"] == 4
+    assert got["dispatch_launched_warp_chars"] == sum(
+        schedule.warp_chars(3000, b.state.lens.numpy(), 2048, 8) for b in launched)
+
+
 def _sets():
     """The length sets of the one-device check: the fixtures, max-size,
     1024 short rows, input3-class and mixed 5-2000-char batches."""
@@ -88,9 +118,11 @@ def _sets():
     return out
 
 
-_WIDE = tuple(range(384, 2049, 128))
+_ALL = tuple(range(128, 2049, 128))
 # The launch groups one device planned for each set before the mesh priced
-# groups at a card's shard (bucket keys of each launch, in launch order).
+# groups at a card's shard (bucket keys of each launch, in launch order),
+# each group priced at its own split (the three mixed sets that made two
+# fused groups at their widths' default splits make one).
 ONE_DEVICE = {
     "dup_and_k0": [(32,)],
     "empty_batch": [],
@@ -104,9 +136,9 @@ ONE_DEVICE = {
     "input3-class": [(384, 640, 1024, 1152)],
     "mixed (3000, 300, 5, 2000, 0)": [(32,), tuple(range(128, 2049, 128))],
     "mixed (3000, 300, 5, 2000, 2)": [(32,), (64,), tuple(range(128, 2049, 128))],
-    "mixed (3000, 2000, 5, 2000, 3)": [(16,), (32,), (64,), (128, 256), _WIDE],
-    "mixed (1489, 600, 56, 1489, 5)": [(128, 256), tuple(range(384, 1537, 128))],
-    "mixed (2000, 1500, 5, 2000, 6)": [(32,), (64,), (128, 256), _WIDE],
+    "mixed (3000, 2000, 5, 2000, 3)": [(16,), (32,), (64,), _ALL],
+    "mixed (1489, 600, 56, 1489, 5)": [tuple(range(128, 1537, 128))],
+    "mixed (2000, 1500, 5, 2000, 6)": [(32,), (64,), _ALL],
 }
 
 

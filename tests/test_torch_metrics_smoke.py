@@ -46,7 +46,10 @@ def test_report_counters_are_the_jax_reports(drill, tmp_path):
     (``feed_h2d_copies``, ``feed_h2d_bytes``: its one-copy byte arena) and
     ``epilogue_torch_rows`` (the rows its plain versions finish on the
     CPU; on the card ``epilogue_kernel_rows`` counts the finish kernels'),
-    and ``dispatch_launched_cells`` (the cells its kernels compute)."""
+    and ``dispatch_launched_cells``, ``dispatch_launched_warp_chars`` and
+    ``dispatch_narrowed_launches`` (the cells its kernels compute, the
+    chars they hand their warps, the fused launches below their width's
+    default split)."""
     report = tmp_path / "jax.json"
     with open(FIXTURE, "rb") as fh:
         proc = subprocess.run([sys.executable, "-m", "mpi_openmp_cuda_tpu", "--metrics",
@@ -57,7 +60,8 @@ def test_report_counters_are_the_jax_reports(drill, tmp_path):
     jax_counters = set(json.loads(report.read_text())["counters"]) - {"recompiles"}
     rec = json.loads(drill[1][-2])
     port = set(rec["runs"]["tiny"]["counters"])
-    feed = {"feed_h2d_copies", "feed_h2d_bytes", "epilogue_torch_rows", "dispatch_launched_cells"}
+    feed = {"feed_h2d_copies", "feed_h2d_bytes", "epilogue_torch_rows", "dispatch_launched_cells",
+            "dispatch_launched_warp_chars", "dispatch_narrowed_launches"}
     assert feed <= port and port - feed == jax_counters
 
 

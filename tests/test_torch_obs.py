@@ -327,14 +327,17 @@ MODES = {
 # CPU), the port's feed counters (`feed_h2d_copies`, `feed_h2d_bytes`:
 # its one-copy byte arena, which the JAX feed has no counterpart of) and
 # its epilogue counters (`epilogue_kernel_rows`, `epilogue_torch_rows`: where
-# each row was finished) and `dispatch_launched_cells` (the cells its kernels
-# compute at their launches' shapes).
+# each row was finished) and `dispatch_launched_cells`,
+# `dispatch_launched_warp_chars` and `dispatch_narrowed_launches` (the cells
+# its kernels compute at their launches' shapes, the chars they hand their
+# warps, and the fused launches run below their width's default split).
 # Timings (spans, uptime) and gauges are not compared: the three TPU-only
 # gauges (config_feed, config_superblock, config_chunk) have no counterpart
 # on the card, and `backend` names each package's own chain.
 _PORT_ONLY_COUNTERS = frozenset({"recompiles", "feed_h2d_copies", "feed_h2d_bytes",
                                  "epilogue_kernel_rows", "epilogue_torch_rows",
-                                 "dispatch_launched_cells"})
+                                 "dispatch_launched_cells", "dispatch_launched_warp_chars",
+                                 "dispatch_narrowed_launches"})
 
 
 def _counters(rec) -> dict:
